@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
    256/512/512 tile geometry): each BBCSR kernel against its plain torch
    version on the card — SpMV (B1), SpMSpV 'add' on a frontier touching
    about 1% of the column blocks (B2), SpMSpV 'min' / 'max' all-active and
-   sparse (B3); min/max exact, 'add' within rtol 1e-5 / atol 1e-5;
+   sparse (B3); min/max exact, 'add' within rtol 1e-5 / atol 1e-5; B1
+   and B2 run twice on the same inputs must give equal bits (``[repro]``);
 4. the main path through the port's public entry points, each path with
    the launch counts zeroed just before it and read just after: SpMV,
    BFS on the unit pull operand, SSSP on the (min,+) operand (both against
@@ -20,7 +21,9 @@ Phases, each of which exits non-zero on failure:
    connected components;
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
-   function (timed here only; the port never calls it);
+   function (timed here only; the port never calls it), and B1 / B3 on the
+   heaviest row block's tiles alone beside the full launch (``[time]
+   heaviest row block``: does the launch follow that block?);
 6. ops: the kernel entry point ``repro_torch.kernels.ops`` at the repo's
    configs' full widths, each call with its kernel's launch count zeroed
    just before it and read just after, each kernel held against its plain
@@ -124,6 +127,42 @@ def bound_ms(bb, tile_active=None) -> float:
               + 4 * (bb.n_row_blocks + 1)
               + 4 * bb.n_col_blocks * bb.block_cols + 4 * bb.n_rows)
     return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def heaviest_block_diagnostic(bb, rb_slots, x, all_act, reps: int) -> dict:
+    """Times B1 and B3 (min, all active) on the full operand and on a
+    sub-operand holding only the heaviest row block's tile range (rows
+    local to that block).  If the block alone takes most of the full
+    launch, the launch follows its heaviest row block."""
+    import torch
+    from repro_torch.core.graph import BBCSR
+    from repro_torch.kernels import spmv_dma as K
+    b = int(rb_slots.argmax())
+    lo, hi = int(bb.rb_ptr[b]), int(bb.rb_ptr[b + 1])
+    sub = BBCSR(bb.rows_local[lo:hi], bb.cols_local[lo:hi], bb.vals[lo:hi],
+                torch.zeros(hi - lo, dtype=torch.int32, device="cuda"),
+                bb.tile_cb[lo:hi].contiguous(),
+                bb.tile_init[lo:hi].contiguous(), bb.block_rows, bb.n_cols,
+                bb.block_rows, bb.block_cols, bb.tile_nnz,
+                tile_cnt=bb.tile_cnt[lo:hi].contiguous(),
+                rb_ptr=torch.tensor([0, hi - lo], dtype=torch.int32,
+                                    device="cuda"),
+                nnz=int(bb.tile_cnt[lo:hi].long().sum()))
+    sub_act = all_act[:hi - lo]
+    out = dict(
+        row_block=b, tiles=hi - lo, real_slots=int(rb_slots[b]),
+        spmv_full_ms=cuda_ms(lambda: K.spmv_bbcsr_kernel_call(bb, x), reps),
+        spmv_alone_ms=cuda_ms(lambda: K.spmv_bbcsr_kernel_call(sub, x), reps),
+        min_full_ms=cuda_ms(lambda: K.spmspv_bbcsr_kernel_call(
+            bb, x, all_act, combine="min"), reps),
+        min_alone_ms=cuda_ms(lambda: K.spmspv_bbcsr_kernel_call(
+            sub, x, sub_act, combine="min"), reps))
+    log(f"[time] heaviest row block {b} ({hi - lo} tiles, "
+        f"{out['real_slots']} real slots): B1 full {out['spmv_full_ms']!r} "
+        f"ms, block alone {out['spmv_alone_ms']!r} ms; B3 min all-active "
+        f"full {out['min_full_ms']!r} ms, block alone "
+        f"{out['min_alone_ms']!r} ms")
+    return out
 
 
 def masked_attention(q, k, v, mask):
@@ -490,6 +529,19 @@ def main() -> int:
               K.spmspv_bbcsr_kernel_call(bb, xs, act, combine=comb),
               ref.spmspv_bbcsr_ref(bb, xs, act, combine=comb), True)
 
+    # the 'add' kernels sum in a fixed order: two launches, equal bits
+    for label, fn in (
+            ("B1 spmv", lambda: K.spmv_bbcsr_kernel_call(bb, x)),
+            ("B2 spmspv add", lambda: K.spmspv_bbcsr_kernel_call(
+                bb, x_sp, act))):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        log(f"[repro] {label}: two launches bit-equal: {same}")
+        if not same:
+            fail(f"{label}: two launches on the same inputs differ")
+        del first, second
+
     # -- 5. timings (on the weighted operand, before it is freed) -------------
     t_a = g.transpose()
     lib_mat = torch.sparse_csr_tensor(t_a.indptr, t_a.indices, t_a.values,
@@ -523,6 +575,7 @@ def main() -> int:
             f"ms, bound {t['bound_ms']!r} ms, library {t['library_ms']!r} ms")
     log(f"[time] spmspv_bbcsr_select min sparse: kernel {sparse_min_ms!r} ms,"
         f" bound {bound_ms(bb, act)!r} ms")
+    heavy = heaviest_block_diagnostic(bb, rb_slots, x, all_act, args.reps)
     del lib_mat
 
     # -- 4. main path ----------------------------------------------------------
@@ -655,7 +708,7 @@ def main() -> int:
     with open(args.out, "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "scale": args.scale,
                    "kernels": kernels, "walls_s": walls,
-                   "sparse_min_ms": sparse_min_ms,
+                   "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -263,6 +263,9 @@ class BBCSR:
                               ``slot < tile_cnt`` is the validity mask
     rb_ptr                  : (n_row_blocks+1,) int32 tile range per row
                               block (derived; the kernels walk it)
+    nnz                     : real nonzeros, the sum of tile_cnt (derived,
+                              a host int: the kernels size their schedule
+                              by it without reading the device)
     """
 
     rows_local: torch.Tensor
@@ -278,6 +281,7 @@ class BBCSR:
     tile_nnz: int
     tile_cnt: Optional[torch.Tensor] = None
     rb_ptr: Optional[torch.Tensor] = None
+    nnz: Optional[int] = None
 
     @property
     def n_tiles(self) -> int:
@@ -368,12 +372,13 @@ def to_bbcsr(csr: CSR, *, block_rows: int = 256, block_cols: int = 512,
     return BBCSR(rows_local.view(n_tiles, T), cols_local.view(n_tiles, T),
                  t_vals.view(n_tiles, T), tile_rb, tile_cb, tile_init,
                  csr.n_rows, csr.n_cols, block_rows, block_cols, T,
-                 tile_cnt=tile_cnt, rb_ptr=rb_ptr.to(torch.int32))
+                 tile_cnt=tile_cnt, rb_ptr=rb_ptr.to(torch.int32), nnz=m)
 
 
 def bbcsr_from_numpy(fields: dict, *, device=None) -> BBCSR:
     """The reference's BBCSR fields (arrays as numpy, geometry as ints) ->
-    a port BBCSR on ``device``; ``rb_ptr`` is derived from ``tile_rb``."""
+    a port BBCSR on ``device``; ``rb_ptr`` is derived from ``tile_rb`` and
+    ``nnz`` from ``tile_cnt``."""
     dev = resolve_device(device)
     arrays = {k: _tensor(fields[k], torch.float32 if k == "vals"
                          else torch.int32, dev)
@@ -386,4 +391,5 @@ def bbcsr_from_numpy(fields: dict, *, device=None) -> BBCSR:
     return BBCSR(**arrays, **geom,
                  tile_cnt=None if cnt is None else _tensor(cnt, torch.int32,
                                                            dev),
-                 rb_ptr=_rb_ptr(arrays["tile_rb"], n_rb))
+                 rb_ptr=_rb_ptr(arrays["tile_rb"], n_rb),
+                 nnz=None if cnt is None else int(np.asarray(cnt).sum()))

@@ -114,7 +114,10 @@ def on_cpu(tensors, what: str) -> bool:
 def launch(fn, device: torch.device, *args, what: str) -> None:
     """Call the C entry ``fn`` on ``device``'s current stream (passed last)
     and raise if it returns a CUDA error."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -67,6 +67,128 @@ def test_spmspv_kernel_matches_plain(cuda, geom, combine):
             assert torch.equal(got, want)
 
 
+def _hub_operand(geom, combine="add", n=6000, n_rows=None, seed=0):
+    """A pull operand whose row 5 takes in-edges from every vertex, plus a
+    few random edges: row block 0 holds several shares of live slots,
+    whatever the geometry.  With ``n_rows`` the matrix has that many rows
+    and only the first n / 2 carry edges, so the rest are all-padding row
+    blocks and the last one is ragged."""
+    import numpy as np
+
+    from repro_torch.core.graph import CSR, to_bbcsr
+    rng = np.random.default_rng(seed)
+    n_rows = n_rows or n
+    top = n_rows if n_rows == n else n // 2
+    dst = np.concatenate([np.full(n, 5), rng.integers(0, top, 3 * n)])
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 3 * n)])
+    vals = rng.random(dst.size).astype(np.float32) + 0.5
+    a_t = CSR.from_coo(dst, src, vals, n_rows, n, sum_duplicates=True,
+                       device="cuda")
+    br, bc, tn = geom
+    return to_bbcsr(a_t, block_rows=br, block_cols=bc, tile_nnz=tn)
+
+
+def _heaviest_block(bb):
+    slots = torch.zeros(bb.n_row_blocks, dtype=torch.int64, device="cuda")
+    slots.index_add_(0, bb.tile_rb.long(), bb.tile_cnt.long())
+    return int(slots.argmax()), int(slots.max())
+
+
+def _held(got, want, combine):
+    torch.cuda.synchronize()
+    if combine == "add":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("frac", [None, 0.05])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_plan_kernel_matches_plain(cuda, geom, frac):
+    """The schedule built on the card equals its plain version."""
+    br, bc, tn = geom
+    bb = _hub_operand(geom)
+    act = None
+    if frac is not None:
+        _, act = _inputs(bb, bb.n_cols, "add", frac, seed=2)
+    got = K.plan(bb, act)
+    bb_cpu = type(bb)(**{f: (v.cpu() if torch.is_tensor(v) else v)
+                         for f, v in vars(bb).items()})
+    want = K.plan(bb_cpu, None if act is None else act.cpu())
+    n_list, n_chunks, _ = want.meta.tolist()
+    assert got.meta.tolist() == want.meta.tolist()
+    assert torch.equal(got.list_tile[:n_list].cpu(), want.list_tile)
+    assert torch.equal(got.list_ptr[:n_list + 1].cpu(), want.list_ptr)
+    assert torch.equal(got.chunk_first[:n_chunks + 1].cpu(),
+                       want.chunk_first)
+    assert torch.equal(got.rb_slot.cpu(), want.rb_slot)
+
+
+@pytest.mark.parametrize("combine", ["add", "min", "max"])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_skewed_operand_matches_plain(cuda, geom, combine):
+    """A hub row block far heavier than one share: dense (SpMV, or every
+    tile active), a sparse frontier, and only the hub block's tiles
+    active."""
+    bb = _hub_operand(geom, combine)
+    b, slots = _heaviest_block(bb)
+    assert slots > 2 * int(K.plan(bb).meta[2])
+    n = bb.n_cols
+    x, act = _inputs(bb, n, combine, 0.05, seed=9)
+    xd = torch.rand(n, device=cuda)
+    all_act = torch.ones(bb.n_tiles, dtype=torch.int32, device=cuda)
+    hub_act = (bb.tile_rb == b).to(torch.int32)
+    if combine == "add":
+        _held(K.spmv_bbcsr_kernel_call(bb, xd), ref.spmv_bbcsr_ref(bb, xd),
+              combine)
+    for xs, a in ((xd, all_act), (x, act), (xd, hub_act)):
+        _held(K.spmspv_bbcsr_kernel_call(bb, xs, a, combine=combine),
+              ref.spmspv_bbcsr_ref(bb, xs, a, combine=combine), combine)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_add_kernels_are_bit_reproducible(cuda, geom):
+    """Two SpMV launches, and two SpMSpV 'add' launches, give equal bits
+    (the sums run in a fixed order, no float atomics)."""
+    for bb in (_hub_operand(geom),
+               engine.build_pull_operand(rmat(12, 16, seed=8),
+                                         block_rows=geom[0],
+                                         block_cols=geom[1],
+                                         tile_nnz=geom[2])):
+        n = bb.n_cols
+        x, act = _inputs(bb, n, "add", 0.2, seed=4)
+        xd = torch.rand(n, device=cuda)
+        assert torch.equal(K.spmv_bbcsr_kernel_call(bb, xd),
+                           K.spmv_bbcsr_kernel_call(bb, xd))
+        assert torch.equal(K.spmspv_bbcsr_kernel_call(bb, x, act),
+                           K.spmspv_bbcsr_kernel_call(bb, x, act))
+
+
+@pytest.mark.parametrize("combine", ["add", "min", "max"])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_rows_no_live_slot_reaches_are_the_identity(cuda, geom, combine):
+    """All-padding row blocks and a ragged last row block (n_rows no
+    multiple of block_rows) come out as the combine identity."""
+    br = geom[0]
+    bb = _hub_operand(geom, combine, n=3000, n_rows=3000 + br * 7 + 3)
+    assert bb.n_rows % br != 0
+    ident = ref.combine_identity(combine)
+    x = torch.rand(bb.n_cols, device=cuda)
+    all_act = torch.ones(bb.n_tiles, dtype=torch.int32, device=cuda)
+    got = K.spmspv_bbcsr_kernel_call(bb, x, all_act, combine=combine)
+    _held(got, ref.spmspv_bbcsr_ref(bb, x, all_act, combine=combine),
+          combine)
+    assert got.shape == (bb.n_rows,)
+    assert bool((got[1500:] == ident).all())
+    if combine == "add":
+        y = K.spmv_bbcsr_kernel_call(bb, x)
+        _held(y, ref.spmv_bbcsr_ref(bb, x), combine)
+        assert bool((y[1500:] == 0).all())
+    none = torch.zeros(bb.n_tiles, dtype=torch.int32, device=cuda)
+    assert bool((K.spmspv_bbcsr_kernel_call(bb, x, none, combine=combine)
+                 == ident).all())
+
+
 def test_kernel_paths_match_plain_engine(cuda):
     g = rmat(12, 16, seed=5)
     bb_u = engine.build_pull_operand(g, unit_values=True)
