@@ -31,8 +31,12 @@ Phases, each of which exits non-zero on failure:
    and a library call: ``segment_sum_sorted`` (B4) on gin-tu's aggregation
    over the RMAT graph's in-edges (d 64), ``embedding_bag`` (B5) on fm
    serving (39 fields x 1M rows, batch 262,144), ``flash_attention`` (B6)
-   at qwen3-14b prefill 4096 and decode 32768 and at mixtral-8x7b's
-   4096-token window over 8192.
+   at qwen3-14b prefill 4096 and decode over 32768 keys at batch 128 and
+   at batch 1 and at mixtral-8x7b's 4096-token window over 8192; each B6
+   call must take the path the wrapper's dispatch rule gives it (the
+   wgmma kernel for prefill and window, the folded kernel with its keys
+   split for the batch-1 decode, unsplit at batch 128), read from the
+   per-path launch counts, and its case names that path.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, the device line.
 The flash_attention entry's times are those of one shape, the one
@@ -337,12 +341,13 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
 
     # -- B6: qwen3-14b prefill and decode, mixtral-8x7b window ---------------
     cases = []
-    shapes = [  # label, B, Hq, Hkv, Sq, Skv, window
-        ("qwen3-14b prefill", 1, 40, 8, 4096, 4096, None),
-        ("qwen3-14b decode", 128, 40, 8, 1, 32768, None),
-        ("mixtral-8x7b window", 1, 32, 8, 8192, 8192, 4096)]
+    shapes = [  # label, B, Hq, Hkv, Sq, Skv, window, the path it must take
+        ("qwen3-14b prefill", 1, 40, 8, 4096, 4096, None, "wgmma"),
+        ("qwen3-14b decode", 128, 40, 8, 1, 32768, None, "mma"),
+        ("mixtral-8x7b window", 1, 32, 8, 8192, 8192, 4096, "wgmma"),
+        ("qwen3-14b decode batch 1", 1, 40, 8, 1, 32768, None, "mma split")]
     D = 128
-    for label, B, Hq, Hkv, Sq, Skv, window in shapes:
+    for label, B, Hq, Hkv, Sq, Skv, window, want_path in shapes:
         q = torch.randn(B, Hq, Sq, D, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
         k = torch.randn(B, Hkv, Skv, D, device="cuda", generator=gen,
@@ -351,6 +356,12 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
                         dtype=torch.bfloat16)
         out, cnt = called(FA, "flash_attention", lambda: ops.flash_attention(
             q, k, v, causal=True, window=window))
+        # the path the per-path counts say the call took
+        took = "wgmma" if FA.LAUNCHES["flash_attention_wgmma"] else \
+            "mma split" if FA.LAUNCHES["flash_attention_split"] else "mma"
+        if took != want_path:
+            fail(f"B6 {label}: took the {took} path, the dispatch rule "
+                 f"gives {want_path}")
         visible = ref.attention_mask(Sq, Skv, True, window, "cuda")
         # the planted fault: each row's own key block left out
         qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
@@ -378,7 +389,8 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
                 enable_gqa=True)
         case = dict(
             shape=label, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, window=window,
-            launches=cnt, max_abs_err=d, row_err=row, row_err_fault=row_fault,
+            path=took, launches=cnt, max_abs_err=d, row_err=row,
+            row_err_fault=row_fault,
             ms=cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                    window=window), args.reps),
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
@@ -386,15 +398,16 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
             bound_ms=1e3 * max(by_ops, by_bytes),
             bound_by="operations" if by_ops >= by_bytes else "bytes",
             library_ms=cuda_ms(lib, args.reps))
-        log(f"[time] flash_attention {label}: kernel {case['ms']!r} ms, "
-            f"plain {case['plain_ms']!r} ms, bound {case['bound_ms']!r} ms "
+        log(f"[time] flash_attention {label} ({took}): kernel "
+            f"{case['ms']!r} ms, plain {case['plain_ms']!r} ms, bound "
+            f"{case['bound_ms']!r} ms "
             f"({case['bound_by']}), library {case['library_ms']!r} ms")
         cases.append(case)
         del q, k, v, band, visible
         torch.cuda.empty_cache()
 
     # B6's times are those of the shape furthest from its bound, named in
-    # "shape"; its launches cover all three checked calls
+    # "shape"; its launches cover all four checked calls
     worst = max(cases, key=lambda c: c["ms"] / c["bound_ms"])
     rows["flash_attention"] = dict(
         launches=sum(c["launches"] for c in cases), shape=worst["shape"],

@@ -83,8 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :mod:`.flash_attention`.  Raises ValueError where a query row would see
     no key (causal with Sq > Skv, or window < 1).
 
-    block_q / block_k: the kernel's tile (folded rows per CTA, keys per
-    tile); None takes the port's defaults."""
+    block_q / block_k: the folded kernels' tile (folded rows per CTA, keys
+    per tile; the bf16 wgmma path, which prefill and window calls take, has
+    a fixed 128 x 128 tile); None takes the port's defaults."""
     block_q = int(_tune.resolve("kernels.flash_attention.block_q", block_q))
     block_k = int(_tune.resolve("kernels.flash_attention.block_k", block_k))
     return _fa.flash_attention_kernel_call(

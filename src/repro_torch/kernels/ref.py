@@ -17,7 +17,10 @@ from ..core.graph import BBCSR
 
 __all__ = ["spmv_bbcsr_ref", "spmspv_bbcsr_ref", "combine_identity",
            "segment_sum_ref", "embedding_bag_ref", "attention_mask",
-           "flash_attention_ref"]
+           "flash_attention_ref", "attention_pieces", "combine_pieces",
+           "flash_attention_split_ref"]
+
+_LOG2E = 1.4426950408889634
 
 
 def combine_identity(combine: str) -> float:
@@ -158,3 +161,66 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(logits, dim=-1).nan_to_num_(nan=0.0)
         out[b] = torch.matmul(p, v[b].float()).reshape(Hq, Sq, D).to(q.dtype)
     return out
+
+
+def attention_pieces(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_ranges, *, causal: bool = True,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None):
+    """The per-split pieces of the split decode path: for each key range
+    [a, b) of ``key_ranges``, each query row's (m, l, acc) over the visible
+    keys of that range alone, in float32 as the kernels keep them: m the
+    largest logit times scale * log2(e) (-inf where the row sees no key of
+    the range), l the sum of exp2(logit - m), acc that weighting of v,
+    unnormalised.  Returns m, l (P, B, Hq, Sq) and acc (P, B, Hq, Sq, D)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    mask = attention_mask(Sq, Skv, causal, window, q.device).repeat(g, 1)
+    qf = q.reshape(B, Hkv, g * Sq, D).float()
+    ms, ls, accs = [], [], []
+    for a, b in key_ranges:
+        x = torch.matmul(qf, k[:, :, a:b].float().transpose(2, 3)) * \
+            (scale * _LOG2E)
+        x.masked_fill_(~mask[:, a:b], float("-inf"))
+        m = x.amax(dim=-1)
+        mu = torch.where(m == float("-inf"), 0.0, m)
+        p = torch.exp2(x - mu[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.matmul(p, v[:, :, a:b].float()))
+    shape = (len(ms), B, Hq, Sq)
+    return (torch.stack(ms).reshape(shape), torch.stack(ls).reshape(shape),
+            torch.stack(accs).reshape(shape + (D,)))
+
+
+def combine_pieces(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Merge the pieces of :func:`attention_pieces` in split order, as the
+    combine kernel does: each piece weighted by exp2(m_s - max m) (0 for a
+    piece that saw no key), summed piece after piece, divided by the summed
+    weighted l (0 where it is 0)."""
+    mx = m.amax(dim=0)
+    mu = torch.where(mx == float("-inf"), 0.0, mx)
+    lsum = torch.zeros_like(l[0])
+    out = torch.zeros_like(acc[0])
+    for s in range(m.shape[0]):
+        w = torch.exp2(m[s] - mu)
+        lsum = lsum + w * l[s]
+        out = out + w[..., None] * acc[s]
+    inv = torch.where(lsum > 0, 1.0 / lsum.clamp_min(1e-30), 0.0)
+    return (out * inv[..., None]).to(dtype)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, key_ranges, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Attention computed as the split decode path computes it: pieces over
+    the contiguous ``key_ranges`` (which together must cover every visible
+    key), merged in split order.  Returns q's shape in q.dtype."""
+    m, l, acc = attention_pieces(q, k, v, key_ranges, causal=causal,
+                                 window=window, scale=scale)
+    return combine_pieces(m, l, acc, q.dtype)

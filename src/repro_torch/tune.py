@@ -28,10 +28,11 @@ DEFAULTS = {
     # 128 there, sized to VMEM and the 128-wide MXU).  segment_sum: rows of
     # data one CTA walks (csrc/segment_sum.cu; its 8 warps split them).
     "kernels.segment_sum.block_n": 2048,
-    # flash_attention: block_q is the rows of the folded (query position x
-    # group head) space one CTA serves, 16 per warp (16, 32, 64 or 128);
-    # block_k the keys per shared-memory tile (32 or 64;
-    # csrc/flash_attention.cu).
+    # flash_attention, the folded (decode and f32) paths: block_q is the
+    # rows of the folded (query position x group head) space one CTA
+    # serves, 16 per warp (16, 32, 64 or 128); block_k the keys per
+    # shared-memory tile (32 or 64; csrc/flash_attention.cu).  The bf16
+    # wgmma path has its fixed 128 x 128 tile.
     "kernels.flash_attention.block_q": 64,
     "kernels.flash_attention.block_k": 64,
 }

@@ -350,7 +350,23 @@ FA_CASES = [  # B, Hq, Hkv, Sq, Skv, causal, window
     (1, 8, 1, 64, 64, True, 33), (2, 4, 4, 1, 130, True, None),
     (3, 10, 2, 1, 77, True, 20), (1, 4, 2, 37, 100, True, None),
     (1, 4, 2, 50, 70, False, None), (1, 6, 3, 90, 60, False, 17),
-    (1, 4, 1, 200, 200, True, 1)]
+    (1, 4, 1, 200, 200, True, 1),
+    # ragged against the wgmma kernel's 128-wide tiles; Hq / Hkv = 5 as in
+    # qwen3-14b; a window that cuts a key block; a batch-1 decode long
+    # enough to split its keys
+    (1, 10, 2, 200, 130, False, None), (2, 10, 2, 130, 200, True, None),
+    (1, 5, 1, 300, 700, True, 150), (1, 40, 8, 1, 4096 + 77, True, None)]
+
+
+def _expected_paths(dtype, D, B, Hq, Hkv, Sq, Skv, causal, window, bq, bk):
+    """(wgmma launches, split launches) the dispatch rule gives one call."""
+    from repro_torch.kernels import flash_attention as FA
+    if FA.path(dtype, D, Sq) == "wgmma":
+        return 1, 0
+    window = None if window is None else min(window, Skv)
+    splits = FA.split_plan(B, Hkv, Sq, Skv, Hq // Hkv, bq, bk, causal, window,
+                           FA._sm_count(torch.cuda.current_device()))
+    return 0, int(splits > 1)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -366,11 +382,17 @@ def test_flash_attention_kernel_matches_plain(cuda, D, dtype):
         v = torch.randn(B, Hkv, Skv, D, device=cuda, generator=gen).to(dtype)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         bq, bk = FA.BLOCK_Q[i % 4], FA.BLOCK_K[i % 2]
-        before = FA.LAUNCHES["flash_attention"]
+        FA.reset_launches()
         got = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   block_q=bq, block_k=bk)
         torch.cuda.synchronize()
-        assert FA.LAUNCHES["flash_attention"] == before + 1
+        wg, split = _expected_paths(dtype, D, B, Hq, Hkv, Sq, Skv, causal,
+                                    window, bq, bk)
+        assert FA.LAUNCHES == {"flash_attention": 1,
+                               "flash_attention_wgmma": wg,
+                               "flash_attention_split": split}, f"case {i}"
+        if Skv > 4096:                  # the long batch-1 decode splits
+            assert split == 1, f"case {i}"
         assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol, msg=lambda m: f"case {i}: {m}")
@@ -379,6 +401,56 @@ def test_flash_attention_kernel_matches_plain(cuda, D, dtype):
             row = (got.float() - want.float()).norm(dim=-1) / \
                 want.float().norm(dim=-1).clamp_min(1e-30)
             assert float(row.max()) <= 1e-2, f"case {i}: row {row.max()}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_split_decode_gives_equal_bits(cuda, dtype):
+    """qwen3-14b's batch-1 decode over a 32,768-key cache: its keys split,
+    and the pieces merge in split order, so two launches agree bit for
+    bit."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    gen = _gen(14)
+    q = torch.randn(1, 40, 1, 128, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(1, 8, 32768, 128, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(1, 8, 32768, 128, device=cuda, generator=gen).to(dtype)
+    FA.reset_launches()
+    first = ops.flash_attention(q, k, v)
+    second = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_split"] == 2
+    assert torch.equal(first, second)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(first.float(), ref.flash_attention_ref(
+        q, k, v).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 10, 2, 200, 200, True, None), (2, 8, 2, 1000, 1000, True, 300),
+    (1, 5, 1, 130, 640, True, None), (1, 4, 2, 256, 256, False, None)])
+def test_flash_attention_wgmma_matches_folded_kernel(cuda, shape):
+    """The wgmma kernel against the folded mma.sync kernel on the same bf16
+    inputs, per row within 1e-2 (both round the probabilities and the
+    output to bf16, at other places)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    B, Hq, Hkv, Sq, Skv, causal, window = shape
+    gen = _gen(Sq)
+    q, k, v = (torch.randn(B, h, s, 128, device=cuda, generator=gen).to(
+        torch.bfloat16) for h, s in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+    FA.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.LAUNCHES["flash_attention_wgmma"] == 1
+    folded = torch.empty_like(q)
+    _build.launch(FA._lib().flash_attention_fwd, q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), folded.data_ptr(), None, None,
+                  B, Hq, Hkv, Sq, Skv, 128, int(causal), window or 0,
+                  128 ** -0.5, 64, 64, 1, 1, what="flash_attention")
+    torch.cuda.synchronize()
+    row = (got.float() - folded.float()).norm(dim=-1) / \
+        folded.float().norm(dim=-1).clamp_min(1e-30)
+    assert float(row.max()) <= 1e-2, float(row.max())
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
