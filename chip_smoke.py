@@ -30,7 +30,10 @@ Phases, each of which exits non-zero on failure:
    version on the same inputs and timed beside its bound, the plain version
    and a library call: ``segment_sum_sorted`` (B4) on gin-tu's aggregation
    over the RMAT graph's in-edges (d 64), ``embedding_bag`` (B5) on fm
-   serving (39 fields x 1M rows, batch 262,144), ``flash_attention`` (B6)
+   serving (39 fields x 1M rows: ``serve_bulk`` batch 262,144 as a sum and
+   as a weighted mean with 10% of ids -1, ``serve_p99`` batch 512 as a
+   sum, each with the bytes of its rows' 32-byte sectors beside its byte
+   bound, for information), ``flash_attention`` (B6)
    at qwen3-14b prefill 4096 and decode over 32768 keys at batch 128 and
    at batch 1 and at mixtral-8x7b's 4096-token window over 8192; each B6
    call must take the path the wrapper's dispatch rule gives it (the
@@ -39,6 +42,9 @@ Phases, each of which exits non-zero on failure:
    per-path launch counts, and its case names that path.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, the device line.
+The embedding_bag entry's times are those of the bulk sum; its launches
+and max_abs_err cover the three checked calls, and each case's own numbers
+are in its ``cases``.
 The flash_attention entry's times are those of one shape, the one
 furthest from its bound, named in its ``shape`` key; its launches and
 max_abs_err cover every checked call; each shape's own numbers are in its
@@ -221,7 +227,8 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
                  f"{tuple(want.shape)}) or non-finite values")
 
     def held(entry, label, got, want, tol):
-        """got within rtol tol and atol tol of want."""
+        """got within rtol tol and atol tol of want; returns the largest
+        |got - want|."""
         shaped(label, got, want)
         d = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
@@ -230,6 +237,7 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
         if not ok:
             fail(f"{label}: kernel disagrees with the plain version")
         err[entry] = max(err.get(entry, 0.0), d)
+        return d
 
     def attention_reading(got, want):
         """(largest per-row ||got - want|| / ||want||, largest element's
@@ -288,55 +296,111 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
     del data, lib_out, seg
     torch.cuda.empty_cache()
 
-    # -- B5: fm serving, bulk batch ------------------------------------------
+    # -- B5: fm serving, bulk and p99 batches -------------------------------
     n_fields, per_field, emb = 39, 1_000_000, 10      # configs/fm.py
     batch = 262_144                       # configs/common.py serve_bulk
+    batch_p99 = 512                       # configs/common.py serve_p99
     v_rows = -(-n_fields * per_field // 512) * 512
     d = 1 + emb                           # linear + latent, one table
     table = torch.randn(v_rows, d, device="cuda", generator=gen)
     # ids as data/synthetic.py draws them: Zipf(1.2) per field, plus the
     # field's offset; each sample is one bag of its 39 lookups
     rng = np.random.default_rng(12)
-    local = rng.zipf(1.2, size=(batch, n_fields)) % per_field
-    ids = (local + np.arange(n_fields)[None, :] * per_field).astype(np.int32)
-    idx = torch.from_numpy(ids.reshape(-1)).cuda()
-    bag = torch.arange(batch, dtype=torch.int32, device="cuda"
-                       ).repeat_interleave(n_fields)
+
+    def fm_stream(n_samples):
+        local = rng.zipf(1.2, size=(n_samples, n_fields)) % per_field
+        ids = (local + np.arange(n_fields)[None, :] * per_field).astype(
+            np.int32)
+        return (torch.from_numpy(ids.reshape(-1)).cuda(),
+                torch.arange(n_samples, dtype=torch.int32, device="cuda"
+                             ).repeat_interleave(n_fields))
+
+    idx, bag = fm_stream(batch)
     n_look = idx.numel()
     out, cnt = called(EB, "embedding_bag", lambda: ops.embedding_bag(
         table, idx, bag, batch))
-    held("embedding_bag", f"B5 embedding_bag sum ({n_look} lookups, "
-         f"{batch} bags, d {d})", out,
-         ref.embedding_bag_ref(table, idx, bag, batch), BAG_TOL)
+    err_sum = held("embedding_bag", f"B5 embedding_bag sum ({n_look} "
+                   f"lookups, {batch} bags, d {d})", out,
+                   ref.embedding_bag_ref(table, idx, bag, batch), BAG_TOL)
     idx_pad = torch.where(torch.rand(n_look, device="cuda", generator=gen)
                           < 0.1, -1, idx)
     w = torch.rand(n_look, device="cuda", generator=gen)
     out_m, cnt_m = called(EB, "embedding_bag", lambda: ops.embedding_bag(
         table, idx_pad, bag, batch, w, "mean"))
-    held("embedding_bag", "B5 embedding_bag weighted mean, 10% ids -1",
-         out_m, ref.embedding_bag_ref(table, idx_pad, bag, batch, w, "mean"),
-         BAG_TOL)
-    del out, out_m, idx_pad, w
-    offsets = EB.bag_offsets(bag, batch)
-    idx64, off64 = idx.long(), offsets[:-1].contiguous()
-    n_distinct = int(torch.unique(idx).numel())
-    rows["embedding_bag"] = dict(
-        launches=cnt + cnt_m,
-        # the kernel wrapper on the bag-sorted stream (the entry point's
-        # sentinels and sort are glue, timed apart below)
-        ms=cuda_ms(lambda: EB.embedding_bag_kernel_call(table, idx, bag,
-                                                        batch), args.reps),
-        plain_ms=cuda_ms(lambda: ref.embedding_bag_ref(table, idx, bag,
-                                                       batch), 3, 1),
-        bound_ms=1e3 * (4 * n_look + 4 * n_look + 4 * batch * d
-                        + 4 * n_distinct * d) / HBM_BYTES_PER_S,
-        bound_by="bytes",
-        library_ms=cuda_ms(lambda: F.embedding_bag(
-            idx64, table, off64, mode="sum"), args.reps))
+    err_mean = held(
+        "embedding_bag", "B5 embedding_bag weighted mean, 10% ids -1", out_m,
+        ref.embedding_bag_ref(table, idx_pad, bag, batch, w, "mean"), BAG_TOL)
+    idx_p99, bag_p99 = fm_stream(batch_p99)
+    out_p, cnt_p = called(EB, "embedding_bag", lambda: ops.embedding_bag(
+        table, idx_p99, bag_p99, batch_p99))
+    err_p99 = held("embedding_bag", f"B5 embedding_bag serve_p99 sum "
+                   f"({idx_p99.numel()} lookups, {batch_p99} bags)", out_p,
+                   ref.embedding_bag_ref(table, idx_p99, bag_p99, batch_p99),
+                   BAG_TOL)
+    del out, out_m, out_p
+
+    def bag_bytes(ix, n_bags, weighted):
+        """(bytes of idx and bag read once, the weights too, and out written
+        once; bytes of the distinct valid rows; those rows' bytes in the
+        32-byte sectors they span; the number of those rows)."""
+        rows_read = torch.unique(ix[ix >= 0]).long()
+        first = rows_read * (4 * d) // 32
+        last = (rows_read * (4 * d) + 4 * d - 1) // 32
+        n = ix.numel()
+        return (4 * n * (3 if weighted else 2) + 4 * n_bags * d,
+                4 * d * rows_read.numel(),
+                32 * int((last - first + 1).sum()), rows_read.numel())
+
+    def library(ix, bg, n_bags):
+        off = torch.searchsorted(bg, torch.arange(n_bags, dtype=bg.dtype,
+                                                  device="cuda"))
+        ix64 = ix.long()
+        return lambda: F.embedding_bag(ix64, table, off, mode="sum")
+
+    cases = []
+    for label, ix, bg, n_bags, wt, mode, launched, d_err in (
+            ("fm serve_bulk sum", idx, bag, batch, None, "sum", cnt,
+             err_sum),
+            ("fm serve_bulk weighted mean, 10% ids -1", idx_pad, bag, batch,
+             w, "mean", cnt_m, err_mean),
+            ("fm serve_p99 sum", idx_p99, bag_p99, batch_p99, None, "sum",
+             cnt_p, err_p99)):
+        stream_b, row_b, sector_b, n_distinct = bag_bytes(
+            ix, n_bags, wt is not None)
+        case = dict(
+            case=label, n_lookups=ix.numel(), n_bags=n_bags, d=d,
+            launches=launched, max_abs_err=d_err,
+            # the kernel wrapper on the bag-sorted stream (the entry point's
+            # sentinels and sort are glue, timed apart below)
+            ms=cuda_ms(lambda: EB.embedding_bag_kernel_call(
+                table, ix, bg, n_bags, wt, mode=mode), args.reps),
+            plain_ms=cuda_ms(lambda: ref.embedding_bag_ref(
+                table, ix, bg, n_bags, wt, mode), 3, 1),
+            bound_ms=1e3 * (stream_b + row_b) / HBM_BYTES_PER_S,
+            bound_by="bytes",
+            # F.embedding_bag takes per-sample weights only for 'sum', and
+            # no -1 ids: the weighted mean has no single library call
+            library_ms=None if wt is not None else cuda_ms(
+                library(ix, bg, n_bags), args.reps))
+        log(f"[time] embedding_bag {label}: kernel {case['ms']!r} ms, plain "
+            f"{case['plain_ms']!r} ms, bound {case['bound_ms']!r} ms, "
+            f"library {case['library_ms']!r} ms")
+        log(f"[ops] B5 {label}: {n_distinct} distinct rows of {v_rows}: "
+            f"{row_b} B as rows, {sector_b} B in the 32-byte sectors they "
+            f"span; byte bound {case['bound_ms']!r} ms, "
+            f"{1e3 * (stream_b + sector_b) / HBM_BYTES_PER_S!r} ms counting "
+            f"the rows' sectors (information only, no limit uses it)")
+        cases.append(case)
     entry_ms = cuda_ms(lambda: ops.embedding_bag(table, idx, bag, batch), 5)
-    log(f"[ops] B5: {n_distinct} distinct rows of {v_rows}; entry point "
-        f"with its sort {entry_ms!r} ms")
-    del table, idx, bag, offsets, idx64, off64
+    log(f"[ops] B5: entry point with its sort {entry_ms!r} ms")
+    # B5's times are the bulk sum's; its launches cover all three checked
+    # calls
+    rows["embedding_bag"] = dict(
+        launches=sum(c["launches"] for c in cases),
+        **{key: cases[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+        cases=cases)
+    del table, idx, bag, idx_pad, w, idx_p99, bag_p99
     torch.cuda.empty_cache()
 
     # -- B6: qwen3-14b prefill and decode, mixtral-8x7b window ---------------

@@ -113,11 +113,17 @@ def on_cpu(tensors, what: str) -> bool:
 
 def launch(fn, device: torch.device, *args, what: str) -> None:
     """Call the C entry ``fn`` on ``device``'s current stream (passed last)
-    and raise if it returns a CUDA error."""
-    if device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    and raise if it returns a CUDA error.  The stream comes from torch's raw
+    accessor (the one its own generated kernels use): building a
+    ``torch.cuda.Stream`` costs several microseconds a call, which a small
+    batch's launch would pay on the host."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
     else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -16,7 +16,8 @@ import torch
 from ..core.graph import BBCSR
 
 __all__ = ["spmv_bbcsr_ref", "spmspv_bbcsr_ref", "combine_identity",
-           "segment_sum_ref", "embedding_bag_ref", "attention_mask",
+           "segment_sum_ref", "embedding_bag_ref", "embedding_bag_pieces_ref",
+           "attention_mask",
            "flash_attention_ref", "attention_pieces", "combine_pieces",
            "flash_attention_split_ref"]
 
@@ -119,6 +120,57 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
         cnt.index_add_(0, bag.long(), w)
         out = out / cnt.clamp_min(1e-9)[:, None]
     return out.float()
+
+
+def _fold(x: torch.Tensor, starts: torch.Tensor, n: int) -> torch.Tensor:
+    """For each run [starts[p], starts[p + 1]) of x (the last to n), its
+    rows added one after the other in float32, starting from 0."""
+    ends = torch.cat([starts[1:], starts.new_tensor([n])])
+    length = ends - starts
+    acc = x.new_zeros((starts.shape[0],) + tuple(x.shape[1:]))
+    for k in range(int(length.max()) if starts.numel() else 0):
+        live = length > k
+        acc[live] = acc[live] + x[starts[live] + k]
+    return acc
+
+
+def embedding_bag_pieces_ref(table: torch.Tensor, idx: torch.Tensor,
+                             bag: torch.Tensor, n_bags: int,
+                             starts: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None,
+                             mode: str = "sum") -> torch.Tensor:
+    """EmbeddingBag summed as the CUDA kernel sums it, in float32: the
+    stream (sorted by bag) is cut into pieces at ``starts`` (each a run of
+    one bag; ``embedding_bag.bag_pieces``); each piece's rows, times their
+    weights (0 for idx < 0 or >= V), are added in stream order from 0, and
+    so are its weights; a bag's pieces are added in stream order, starting
+    from the first.  'mean' divides by the bag's summed weights, floored at
+    1e-9.  Bags with no lookup, and bag ids outside [0, n_bags), give
+    nothing: their rows are 0."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
+    n, d = idx.shape[0], table.shape[1]
+    valid = (idx >= 0) & (idx < table.shape[0])
+    w = valid.float() if weights is None else \
+        torch.where(valid, weights.float(), 0.0)
+    rows = torch.where(valid[:, None],
+                       table[torch.where(valid, idx, 0).long()].float() *
+                       w[:, None], 0.0)
+    piece_sum, piece_w = _fold(rows, starts, n), _fold(w, starts, n)
+    # a bag's pieces are consecutive: fold them the same way
+    piece_bag = bag[starts].long()
+    first = torch.ones_like(piece_bag, dtype=torch.bool)
+    first[1:] = piece_bag[1:] != piece_bag[:-1]
+    group = torch.nonzero(first).squeeze(1)
+    total = _fold(piece_sum, group, starts.shape[0])
+    total_w = _fold(piece_w, group, starts.shape[0])
+    if mode == "mean":
+        total = total / total_w.clamp_min(1e-9)[:, None]
+    out = torch.zeros((n_bags, d), dtype=torch.float32, device=table.device)
+    ids = piece_bag[group]
+    keep = (ids >= 0) & (ids < n_bags)
+    out[ids[keep]] = total[keep]
+    return out
 
 
 def attention_mask(sq: int, skv: int, causal: bool, window: Optional[int],

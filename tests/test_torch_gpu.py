@@ -309,15 +309,16 @@ def test_embedding_bag_kernel_matches_plain(cuda, d, weighted, mode):
     assert EB.LAUNCHES["embedding_bag"] == before + 2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(pre, want, rtol=1e-5, atol=1e-5)
-    # stream order is fixed: a second run is bit-identical
+    # the summation order is fixed: a second run is bit-identical
     assert torch.equal(pre, ops.embedding_bag(
         table, idx[order], bag[order], n_bags,
         None if w is None else w[order], mode, presorted=True))
 
 
 def test_embedding_bag_long_bags_within_summation_bound(cuda):
-    """Bags of about 4,250 lookups: each bag's f32 sum in stream order is
-    within the recursive-summation bound, (n + 2) 2^-24 sum |x|, of the
+    """Bags of about 4,250 lookups, each over some 9 chunks: each bag's
+    f32 sum (stream order inside a chunk, then chunk order) is within the
+    recursive-summation bound, (n + 2) 2^-24 sum |x|, of the
     float64 plain version, in 'sum' and 'mean' mode.  At this length sums
     of magnitude ~65 differ from the plain version by more than rtol /
     atol 1e-5 on some elements, and means, divided by the bag's length, do
@@ -344,6 +345,148 @@ def test_embedding_bag_long_bags_within_summation_bound(cuda):
               f"{torch.allclose(got, want, rtol=1e-5, atol=1e-5)}")
         assert bool((err <= bound).all())
 
+
+def _skewed_stream(cuda, gen, n_bags=3000, long_bag=100_000):
+    """Bag ids sorted: one bag of long_bag lookups among bags of 1-3, about
+    a fifth of the bags empty."""
+    short = torch.randint(1, 4, (n_bags,), device=cuda, generator=gen)
+    short[torch.rand(n_bags, device=cuda, generator=gen) < 0.2] = 0
+    short[n_bags // 2] = long_bag
+    return torch.repeat_interleave(
+        torch.arange(n_bags, device=cuda, dtype=torch.int32), short), n_bags
+
+
+def _held_with_long_bags(got, want, table, idx, bag, n_bags, w, mode):
+    """Rows of bags up to 1,000 lookups within rtol / atol 1e-5 of the
+    plain version, longer ones within the recursive-summation bound,
+    (n + 2) 2^-24 sum |w x|, over the bag's weight sum W for 'mean'; twice
+    that for a weighted mean, whose W carries the same bound."""
+    length = torch.bincount(bag.long(), minlength=n_bags)
+    long = length > 1000
+    torch.testing.assert_close(got[~long], want[~long], rtol=1e-5,
+                               atol=1e-5)
+    wabs = None if w is None else w.abs()
+    abs_sum = ref.embedding_bag_ref(table.abs(), idx, bag, n_bags, wabs)
+    scale = 1.0
+    if mode == "mean":
+        scale = (1.0 if w is None else 2.0) / ref.embedding_bag_ref(
+            torch.ones_like(table[:, :1]), idx, bag, n_bags, w).double()
+    bound = 1.01 * (length[:, None] + 2) * 2.0 ** -24 * \
+        abs_sum.double() * scale
+    err = (got.double() - want.double()).abs()
+    assert bool((err[long] <= bound[long]).all())
+
+
+@pytest.mark.parametrize("weighted,mode", [(False, "sum"), (True, "mean")])
+@pytest.mark.parametrize("presorted", [False, True])
+def test_embedding_bag_skewed_bags_match_plain(cuda, presorted, weighted,
+                                               mode):
+    """One bag of 100,000 lookups (some 196 chunks) among bags of 1-3 and
+    empty bags, sorted by the entry point or presorted: within tolerance of
+    the plain version, and, presorted, the bits of the kernel's order
+    (ref.embedding_bag_pieces_ref on the same stream)."""
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import ops
+    gen = _gen(77)
+    bag, n_bags = _skewed_stream(cuda, gen)
+    n, V, d = bag.numel(), 20000, 11
+    table = torch.randn(V, d, device=cuda, generator=gen)
+    idx = torch.randint(-1, V, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    w = torch.rand(n, device=cuda, generator=gen) if weighted else None
+    if not presorted:       # the entry point sorts a shuffled stream
+        perm = torch.randperm(n, device=cuda, generator=gen)
+        idx, bag = idx[perm], bag[perm]
+        w = None if w is None else w[perm]
+    got = ops.embedding_bag(table, idx, bag, n_bags, w, mode,
+                            presorted=presorted)
+    want = ref.embedding_bag_ref(table, idx, bag, n_bags, w, mode)
+    _held_with_long_bags(got, want, table, idx, bag, n_bags, w, mode)
+    empty = torch.bincount(bag.long(), minlength=n_bags) == 0
+    assert empty.any() and not got[empty].any()
+    if presorted:
+        mirror = ref.embedding_bag_pieces_ref(
+            table, idx, bag, n_bags, EB.bag_pieces(bag), w, mode)
+        assert torch.equal(got, mirror)
+
+
+def test_embedding_bag_skewed_bags_give_equal_bits(cuda):
+    """Two runs on the skewed stream, through the entry point's sort and
+    presorted: equal bits each time."""
+    from repro_torch.kernels import ops
+    gen = _gen(78)
+    bag, n_bags = _skewed_stream(cuda, gen)
+    n = bag.numel()
+    table = torch.randn(5000, 16, device=cuda, generator=gen)
+    idx = torch.randint(0, 5000, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    w = torch.rand(n, device=cuda, generator=gen)
+    perm = torch.randperm(n, device=cuda, generator=gen)
+    for mode in ("sum", "mean"):
+        first = ops.embedding_bag(table, idx, bag, n_bags, w, mode,
+                                  presorted=True)
+        assert torch.equal(first, ops.embedding_bag(
+            table, idx, bag, n_bags, w, mode, presorted=True))
+        shuffled = ops.embedding_bag(table, idx[perm], bag[perm], n_bags,
+                                     w[perm], mode)
+        assert torch.equal(shuffled, ops.embedding_bag(
+            table, idx[perm], bag[perm], n_bags, w[perm], mode))
+
+
+@pytest.mark.parametrize("weighted,mode", [(False, "sum"), (True, "mean")])
+def test_embedding_bag_zipf_ids_at_fm_width(cuda, weighted, mode):
+    """fm's row width (d 11, rows 44 bytes, so 16-byte windows at every
+    offset) and its ids: 39 fields, Zipf(1.2) ids in each, a bag per
+    sample; 10% of ids -1 when weighted.  Within 1e-5 of the plain version
+    and the bits of the kernel's order."""
+    import numpy as np
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import ops
+    fields, per_field, batch, d = 39, 20000, 4096, 11
+    rng = np.random.default_rng(11)
+    local = rng.zipf(1.2, size=(batch, fields)) % per_field
+    ids = local + np.arange(fields)[None, :] * per_field
+    idx = torch.from_numpy(ids.reshape(-1).astype(np.int32)).to(cuda)
+    bag = torch.arange(batch, dtype=torch.int32,
+                       device=cuda).repeat_interleave(fields)
+    gen = _gen(11)
+    table = torch.randn(fields * per_field, d, device=cuda, generator=gen)
+    w = None
+    if weighted:
+        idx = torch.where(torch.rand(idx.numel(), device=cuda, generator=gen)
+                          < 0.1, -1, idx)
+        w = torch.rand(idx.numel(), device=cuda, generator=gen)
+    got = ops.embedding_bag(table, idx, bag, batch, w, mode, presorted=True)
+    torch.testing.assert_close(
+        got, ref.embedding_bag_ref(table, idx, bag, batch, w, mode),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ref.embedding_bag_pieces_ref(
+        table, idx, bag, batch, EB.bag_pieces(bag), w, mode))
+
+
+@pytest.mark.parametrize("d", [3, 11, 13, 16])
+def test_embedding_bag_table_not_16_byte_aligned(cuda, d):
+    """A table whose first float is not 16-byte aligned, and one whose last
+    row ends inside a float4 (V d not a multiple of 4, the last row looked
+    up): the scalar loads give the same bits as the aligned float4 ones."""
+    from repro_torch.kernels import ops
+    gen = _gen(d + 40)
+    V, n, n_bags = 4001, 20000, 700
+    flat = torch.randn(V * d + 1, device=cuda, generator=gen)
+    shifted = flat[1:].view(V, d)                  # 4 bytes past alignment
+    aligned = shifted.clone()
+    idx = torch.randint(-1, V, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    idx[::50] = V - 1
+    bag = torch.randint(0, n_bags, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32).sort().values
+    assert shifted.data_ptr() % 16 != 0 and aligned.data_ptr() % 16 == 0
+    got = ops.embedding_bag(shifted, idx, bag, n_bags, presorted=True)
+    assert torch.equal(got, ops.embedding_bag(aligned, idx, bag, n_bags,
+                                              presorted=True))
+    torch.testing.assert_close(
+        got, ref.embedding_bag_ref(aligned, idx, bag, n_bags), rtol=1e-5,
+        atol=1e-5)
 
 FA_CASES = [  # B, Hq, Hkv, Sq, Skv, causal, window
     (1, 2, 2, 64, 64, True, None), (2, 8, 2, 100, 100, True, None),
