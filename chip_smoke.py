@@ -18,7 +18,18 @@ Phases, each of which exits non-zero on failure:
    the launch counts zeroed just before it and read just after: SpMV,
    BFS on the unit pull operand, SSSP on the (min,+) operand (both against
    the plain engine, bit-equal), PageRank (mass 1 within 1e-3) and
-   connected components;
+   connected components (BFS's kernel path also over 10 warm runs, beside
+   its operand's unit-value check); then the batched lanes at B = 32
+   sources (vertex 0 and 31 drawn from the vertices with out-edges), each
+   run while its operand from the scalar path is alive: ``msbfs`` (bit-packed lanes,
+   the ``segment_or`` kernel; every lane bit-equal to a scalar BFS),
+   ``run_batched(ppr_program, kernel_bb=unit operand)`` (B2 per lane)
+   against ``ppr_batched`` (rtol / atol 1e-5, each lane's mass 1 within
+   1e-3) and ``ppr_topk``, and ``sssp_batched`` on the (min,+) operand (B3
+   per lane) against its plain path (bit-equal, equal stats, four lanes
+   bit-equal to a scalar SSSP); ``segment_or`` alone on the dense step's
+   stream, bit-equal to its plain version and timed beside its byte bound;
+   a vmap fallback warning on the valued lanes fails the run;
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
    function (timed here only; the port never calls it), and B1 / B3 on the
@@ -41,7 +52,8 @@ Phases, each of which exits non-zero on failure:
    split for the batch-1 decode, unsplit at batch 128), read from the
    per-path launch counts, and its case names that path.
 
-Prints one JSON line ``{"kernels": [...]}`` and, last, the device line.
+Prints one JSON line ``{"kernels": [...]}`` (seven kernels) and, last, the
+device line.
 The embedding_bag entry's times are those of the bulk sum; its launches
 and max_abs_err cover the three checked calls, and each case's own numbers
 are in its ``cases``.
@@ -55,11 +67,14 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -84,16 +99,22 @@ BAG_TOL = 1e-5
 ATTN_TOL = 5e-2
 ATTN_ROW_TOL = 1e-2
 FAULT_BLOCK = 64
+LANES = 32                         # the reference service's micro-batch
+BFS_RUNS = 10                      # warm BFS kernel-path runs, timed apart
+PPR_TOL = 1e-5                     # batched PPR, kernel vs plain path
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
           "segment_sum": "src/repro_torch/csrc/segment_sum.cu",
+          "segment_or": "src/repro_torch/csrc/segment_or.cu",
           "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {"spmv_bbcsr": "src/repro/kernels/spmv_dma.py:206",
             "spmspv_bbcsr_add": "src/repro/kernels/spmv_dma.py:235",
             "spmspv_bbcsr_select": "src/repro/kernels/spmv_dma.py:235",
             "segment_sum": "src/repro/kernels/segment_sum.py:45",
+            "segment_or": "src/repro/core/offload.py:154 (plain jnp, no "
+                          "Pallas kernel)",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:43",
             "flash_attention": "src/repro/kernels/flash_attention.py:75"}
 
@@ -105,6 +126,16 @@ def log(*a):
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def host_s(fn) -> float:
+    """Host wall seconds of fn() up to the end of its device work."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -486,6 +517,139 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
     return rows
 
 
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """A context in which torch.func.vmap's per-lane fallback (an op with
+    no batching rule, which loops over the lanes) raises instead of
+    warning."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        yield
+
+
+def batched_ppr(g, bb_u, sources, path, path_launches):
+    """PPR at B lanes: the B2 kernel per lane on the unit operand against
+    the plain batched path, each lane's mass, and ppr_topk."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.algorithms import ppr_batched, ppr_program, ppr_topk
+    n, B = g.n_rows, len(sources)
+    src = torch.as_tensor(sources, device="cuda").long()
+
+    def ppr_kernel():
+        r = torch.zeros((B, n), device="cuda")
+        r[torch.arange(B, device="cuda"), src] = 1.0
+        return engine.run_batched(
+            g, ppr_program(g, 0.85), {"x": r, "r": r},
+            torch.ones((B, n), dtype=torch.int32, device="cuda"),
+            max_iters=20, mode="pull", kernel_bb=bb_u, return_stats=True)
+
+    with no_vmap_fallback():
+        st_k, stats_k = path("ppr_batched kernel_bb", ppr_kernel)
+        x_p, stats_p = path("ppr_batched (plain)", lambda: ppr_batched(
+            g, sources, return_stats=True))
+        top_v, top_i = path("ppr_topk (plain)", lambda: ppr_topk(
+            g, sources, 10))
+    x_k = st_k["x"]
+    d = float((x_k - x_p).abs().max())
+    log(f"[check] batched ppr kernel vs plain: max diff {d!r} (rtol/atol "
+        f"{PPR_TOL}); stats kernel {stats_k} plain {stats_p}")
+    if not (torch.isfinite(x_k).all() and torch.allclose(
+            x_k, x_p, rtol=PPR_TOL, atol=PPR_TOL)):
+        fail("batched PPR: the kernel path disagrees with the plain path")
+    mass = x_k.double().sum(1)
+    log(f"[check] batched ppr mass per lane: min {float(mass.min())!r} max "
+        f"{float(mass.max())!r}")
+    if float((mass - 1.0).abs().max()) > 1e-3:
+        fail("batched PPR: a lane's mass is not 1 within 1e-3")
+    if path_launches["ppr_batched kernel_bb"]["spmspv_bbcsr_add"] == 0:
+        fail("batched PPR did not launch spmspv_bbcsr_add")
+    # top-10 id sets agree on every lane whose 10th and 11th scores (plain)
+    # differ by more than the tolerance
+    srt = torch.sort(x_p, dim=1, descending=True).values
+    clear = (srt[:, 9] - srt[:, 10]) > PPR_TOL
+    want = torch.topk(x_k, 10).indices
+    same = (torch.sort(top_i.long(), 1).values
+            == torch.sort(want, 1).values).all(1)
+    log(f"[check] ppr_topk: {int(clear.sum())} of {B} lanes with a clear "
+        f"10th score, ids agree on {int((same & clear).sum())}; scores max "
+        f"diff {float((top_v - torch.topk(x_k, 10).values).abs().max())!r}")
+    if not bool(same[clear].all()) or top_v.shape != (B, 10):
+        fail("ppr_topk ids disagree with the kernel path's top 10")
+
+
+def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
+    """MS-BFS at B lanes (packed words, the segment_or kernel), every lane
+    against a scalar plain BFS; then segment_or alone on the dense step's
+    stream.  Returns segment_or's row of the kernels line."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.algorithms import bfs, msbfs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_or as SO
+    n, B = g.n_rows, len(sources)
+    lv, stats = path("msbfs", lambda: msbfs(g, sources, return_stats=True))
+    bad = [b for b, s in enumerate(sources)
+           if not torch.equal(lv[b], lv_p if s == 0 else bfs(g, int(s)))]
+    log(f"[check] msbfs {B} lanes: stats {stats}; lanes unequal to a scalar "
+        f"bfs: {bad}; reached per lane min "
+        f"{int((lv >= 0).sum(1).min())} max {int((lv >= 0).sum(1).max())}")
+    if bad or not torch.equal(lv[0], lv_p):
+        fail(f"msbfs lanes {bad} differ from the scalar BFS")
+    if path_launches["msbfs"]["segment_or"] == 0:
+        fail("msbfs did not launch segment_or")
+
+    # segment_or alone: the dense step's stream, half of the lane bits set
+    p_src, p_dst = engine._dst_sorted_stream(g)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    words = torch.randint(-2**31, 2**31, (n, engine.lane_words(B)),
+                          dtype=torch.int32, device="cuda", generator=gen)
+    w_e = words[p_src]
+    m, W = w_e.shape
+    got = SO.segment_or_kernel_call(p_dst, w_e, n)
+    want = ref.segment_or_ref(p_dst, w_e, n)
+    torch.cuda.synchronize()
+    diff = int((got.long() - want.long()).abs().max())
+    log(f"[parity] segment_or ({m}, {W}) -> ({n}, {W}): bit-equal "
+        f"{torch.equal(got, want)}, max |kernel - plain| {diff}")
+    if not torch.equal(got, want):
+        fail("segment_or: kernel disagrees with the plain version")
+    err["segment_or"] = float(diff)
+    row = dict(
+        ms=cuda_ms(lambda: SO.segment_or_kernel_call(p_dst, w_e, n),
+                   args.reps),
+        plain_ms=cuda_ms(lambda: ref.segment_or_ref(p_dst, w_e, n), 3, 1),
+        # ids and words read once, out written once
+        bound_ms=1e3 * (m * (4 + 4 * W) + n * 4 * W) / HBM_BYTES_PER_S,
+        bound_by="bytes", library_ms=None)
+    log(f"[time] segment_or: kernel {row['ms']!r} ms, plain "
+        f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms, library "
+        f"none")
+    return row
+
+
+def batched_sssp(g, bb_m, sources, delta, path, path_launches):
+    """SSSP at B lanes: B3 per lane on the (min,+) operand against the plain
+    batched path, and four lanes against a scalar SSSP."""
+    import torch
+    from repro_torch.core.algorithms import sssp, sssp_batched
+    with no_vmap_fallback():
+        d_k, stats_k = path("sssp_batched kernel_bb", lambda: sssp_batched(
+            g, sources, delta=delta, kernel_bb=bb_m, return_stats=True))
+        d_p, stats_p = path("sssp_batched (plain)", lambda: sssp_batched(
+            g, sources, delta=delta, return_stats=True))
+    log(f"[check] sssp_batched kernel vs plain bit-equal "
+        f"{torch.equal(d_k, d_p)}; stats kernel {stats_k} plain {stats_p}")
+    if not torch.equal(d_k, d_p) or stats_k != stats_p:
+        fail("sssp_batched: the kernel path differs from the plain path")
+    for b in (0, 1, len(sources) // 2, len(sources) - 1):
+        if not torch.equal(d_p[b], sssp(g, int(sources[b]), delta=delta)):
+            fail(f"sssp_batched lane {b} differs from a scalar SSSP")
+    log("[check] sssp_batched lanes 0, 1, B/2, B-1 bit-equal to scalar sssp")
+    if path_launches["sssp_batched kernel_bb"]["spmspv_bbcsr_select"] == 0:
+        fail("sssp_batched did not launch spmspv_bbcsr_select")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -495,6 +659,7 @@ def main() -> int:
                     help="where to write the run's numbers as JSON")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
@@ -503,6 +668,7 @@ def main() -> int:
                                              pagerank, spmv, spmv_bbcsr, sssp,
                                              sssp_program, auto_delta)
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import segment_or as SO
     from repro_torch.kernels import spmv_dma as K
 
     t_all = time.perf_counter()
@@ -656,20 +822,23 @@ def main() -> int:
     del lib_mat
 
     # -- 4. main path ----------------------------------------------------------
-    launches = dict.fromkeys(K.LAUNCHES, 0)
+    counted = (K, SO)
+    launches = {k: 0 for mod in counted for k in mod.LAUNCHES}
     walls, path_launches = {}, {}
 
     def path(label, fn):
         """Run one query with the launch counts zeroed before it and read
         after it, then once more for a warm wall time (not counted)."""
-        K.reset_launches()
+        for mod in counted:
+            mod.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
-        path_launches[label] = dict(K.LAUNCHES)
-        for k, v in K.LAUNCHES.items():
+        path_launches[label] = {k: v for mod in counted
+                                for k, v in mod.LAUNCHES.items()}
+        for k, v in path_launches[label].items():
             launches[k] += v
         t0 = time.perf_counter()
         fn()
@@ -692,8 +861,6 @@ def main() -> int:
 
     bb_u = engine.build_pull_operand(g, unit_values=True)
     lv_k = path("bfs kernel_bb", lambda: bfs(g, 0, kernel_bb=bb_u))
-    del bb_u
-    torch.cuda.empty_cache()
     lv_p = path("bfs (plain)", lambda: bfs(g, 0))
     if not torch.equal(lv_k, lv_p):
         fail("BFS levels differ between the kernel path and the plain path")
@@ -704,6 +871,27 @@ def main() -> int:
         f"{int(lv_p.max())}; kernel path pulls "
         f"{path_launches['bfs kernel_bb']['spmv_bbcsr']} pushes "
         f"{path_launches['bfs kernel_bb']['spmspv_bbcsr_add']}")
+    # one warm run is noisy: BFS's kernel path over BFS_RUNS more, and the
+    # unit-value check of its operand, which every run paid before the
+    # answer was kept per operand
+    bfs_walls = sorted(host_s(lambda: bfs(g, 0, kernel_bb=bb_u))
+                       for _ in range(BFS_RUNS))
+    check_ms = cuda_ms(lambda: engine._unit_valued(bb_u.vals), 5, 1)
+    log(f"[time] bfs kernel path warm over {BFS_RUNS} runs: median "
+        f"{statistics.median(bfs_walls)!r} s, min {bfs_walls[0]!r} s, max "
+        f"{bfs_walls[-1]!r} s; the operand's unit-value check {check_ms!r} "
+        f"ms (now read once per operand)")
+    # the batched lanes: vertex 0, then 31 vertices with out-edges
+    deg = g.degrees().cpu().numpy()
+    sources = np.concatenate([[0], np.random.default_rng(0).choice(
+        np.flatnonzero(deg >= 1), LANES - 1, replace=False)]).astype(np.int32)
+    log(f"[batched] {LANES} sources: {sources.tolist()}")
+    batched_ppr(g, bb_u, sources, path, path_launches)
+    so_row = batched_msbfs(g, sources, lv_p, path, path_launches, err, args)
+    log(f"[mem] peak allocated with the unit operand "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del bb_u
+    torch.cuda.empty_cache()
 
     delta = auto_delta(g)
     bb_m = engine.build_pull_operand(g, combine="min")
@@ -721,6 +909,9 @@ def main() -> int:
                           max_iters=4 * n, kernel_bb=bb_m, return_stats=True)
 
     st_k, stats_k = path("sssp kernel_bb", sssp_kernel)
+    batched_sssp(g, bb_m, sources, delta, path, path_launches)
+    log(f"[mem] peak allocated with the (min,+) operand "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del bb_m
     torch.cuda.empty_cache()
     d_p, stats_p = path("sssp (plain)",
@@ -754,14 +945,17 @@ def main() -> int:
     log(f"[check] cc: {n_comp} components, stats {cc_stats}")
     log(f"[mem] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
-    for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select"):
+    for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select",
+              "segment_or"):
         if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
+    for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select"):
         timed[k]["bound_by"] = "bytes"
+    timed["segment_or"] = so_row
 
     # the graph path's operands are gone; phase 6 needs only the edge ids
     seg = g.transpose().row_ids()
-    del g, labels, roots, pr, lv_k, lv_p, st_k, d_p
+    del g, labels, roots, pr, lv_k, lv_p, st_k, d_p, deg
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops_rows = ops_phase(args, seg, n, err)

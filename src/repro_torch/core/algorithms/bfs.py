@@ -14,7 +14,8 @@ import torch
 from .. import engine
 from ..graph import CSR, BBCSR
 
-__all__ = ["bfs", "bfs_program", "bfs_level_program"]
+__all__ = ["bfs", "bfs_program", "bfs_level_program", "msbfs",
+           "msbfs_program"]
 
 _INF = float("inf")
 
@@ -76,3 +77,57 @@ def bfs_level_program() -> engine.VertexProgram:
 def _levels_from_dist(dist: torch.Tensor) -> torch.Tensor:
     """f32 min-level fixpoint -> int32 levels, unreachable = -1."""
     return torch.where(torch.isfinite(dist), dist, -1.0).to(torch.int32)
+
+
+def msbfs_program(n_lanes: int) -> engine.VertexProgram:
+    """Multi-source BFS (MS-BFS, Then et al.): one bit lane per source.
+
+    The frontier is the bit-packed (n, W) int32 word array; ``seen`` is the
+    OR-accumulated visited mask, and a destination's new lanes are
+    ``acc & ~seen`` — B traversals advance per edge scan.  Levels are kept
+    unpacked (B, n) so they read out exactly like B separate `bfs` runs.
+    """
+
+    def msg_fn(state, frontier):
+        return frontier
+
+    def update_fn(state, acc, frontier, it):
+        new = acc & ~state["seen"]
+        newb = engine.unpack_lanes(new, n_lanes)
+        level = torch.where(newb > 0, it + 1, state["level"])
+        return {"seen": state["seen"] | new, "level": level}, new
+
+    return engine.VertexProgram(edge_op="copy", combine="or",
+                                msg_fn=msg_fn, update_fn=update_fn)
+
+
+def msbfs(csr: CSR, sources, *, max_levels: int | None = None,
+          mode: str = "auto", return_stats: bool = False,
+          trace: bool = False, trace_len: Optional[int] = None):
+    """Levels (B, n) int32 on the CSR's device for B concurrent BFS
+    traversals; unreachable = -1.
+
+    Row b is bit-equal to ``bfs(csr, sources[b])`` — the lanes share every
+    edge scan but never interact.  Duplicate sources are allowed (their
+    lanes evolve identically).  ``trace`` (with ``return_stats``) records
+    the per-level engine trace into ``stats['trace']``.
+    """
+    n, dev = csr.n_rows, csr.device
+    src = torch.as_tensor(sources, dtype=torch.int64, device=dev)
+    B = int(src.shape[0])
+    max_levels = max_levels or n
+    lanes = torch.arange(B, device=dev)
+    bits0 = torch.zeros((B, n), dtype=torch.int32, device=dev)
+    bits0[lanes, src] = 1
+    f0 = engine.pack_lanes(bits0)
+    level0 = torch.full((B, n), -1, dtype=torch.int32, device=dev)
+    level0[lanes, src] = 0
+    out = engine.run_batched(csr, msbfs_program(B),
+                             {"seen": f0, "level": level0}, f0,
+                             max_iters=max_levels, mode=mode,
+                             return_stats=return_stats, trace=trace,
+                             trace_len=trace_len)
+    if return_stats:
+        state, stats = out
+        return state["level"], stats
+    return out["level"]

@@ -11,7 +11,7 @@ import torch
 from .. import engine
 from ..graph import CSR
 
-__all__ = ["pagerank", "ppr", "ppr_program"]
+__all__ = ["pagerank", "ppr", "ppr_batched", "ppr_topk", "ppr_program"]
 
 
 def _inv_degrees(csr: CSR):
@@ -42,8 +42,9 @@ def pagerank(csr: CSR, *, damping: float = 0.85, iters: int = 20) -> torch.Tenso
 
 
 def ppr_program(csr: CSR, damping: float) -> engine.VertexProgram:
-    """Personalized PageRank: the restart vector rides in ``state['r']``;
-    dangling mass also restarts to r."""
+    """Personalized PageRank: the restart vector rides in ``state['r']`` (so
+    the batched engine's lane vmap personalizes it per source); dangling
+    mass also restarts to r."""
     deg, inv_deg = _inv_degrees(csr)
 
     def msg_fn(state, frontier):
@@ -68,3 +69,46 @@ def ppr(csr: CSR, source: int, *, damping: float = 0.85,
     frontier0 = torch.ones(n, dtype=torch.int32, device=csr.device)
     return engine.run(csr, ppr_program(csr, damping), {"x": r, "r": r},
                       frontier0, max_iters=iters, mode="pull")["x"]
+
+
+def ppr_batched(csr: CSR, sources, *, damping: float = 0.85,
+                iters: int = 20, return_stats: bool = False,
+                trace: bool = False, trace_len=None):
+    """Personalized PageRank for B sources in one engine pass; (B, n) f32.
+
+    The vmapped lanes share each dense edge scan (PPR never leaves the pull
+    regime) and personalize the restart vector per lane via the state.
+    ``return_stats`` adds the engine's {'iters', 'pushes', 'pulls'}.  (The
+    BBCSR kernel path is ``engine.run_batched(csr, ppr_program(csr,
+    damping), ..., mode='pull', kernel_bb=unit operand)``.)
+    """
+    n, dev = csr.n_rows, csr.device
+    src = torch.as_tensor(sources, dtype=torch.int64, device=dev)
+    B = int(src.shape[0])
+    r = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    r[torch.arange(B, device=dev), src] = 1.0
+    frontier0 = torch.ones((B, n), dtype=torch.int32, device=dev)
+    out = engine.run_batched(csr, ppr_program(csr, damping),
+                             {"x": r, "r": r}, frontier0, max_iters=iters,
+                             mode="pull", return_stats=return_stats,
+                             trace=trace, trace_len=trace_len)
+    if return_stats:
+        state, stats = out
+        return state["x"], stats
+    return out["x"]
+
+
+def ppr_topk(csr: CSR, sources, k: int, *, damping: float = 0.85,
+             iters: int = 20, return_stats: bool = False,
+             trace: bool = False, trace_len=None):
+    """Top-k PPR per source: (scores (B, k) f32, vertex ids (B, k) int32),
+    the serving layer's PPR query shape; ``return_stats`` appends the
+    engine's stats (all pulls)."""
+    out = ppr_batched(csr, sources, damping=damping, iters=iters,
+                      return_stats=return_stats, trace=trace,
+                      trace_len=trace_len)
+    x, stats = out if return_stats else (out, None)
+    vals, idx = torch.topk(x, k)
+    if return_stats:
+        return vals, idx.to(torch.int32), stats
+    return vals, idx.to(torch.int32)

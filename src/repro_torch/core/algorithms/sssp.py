@@ -21,7 +21,7 @@ from .. import engine
 from ..graph import CSR
 from ... import tune
 
-__all__ = ["sssp", "sssp_program", "auto_delta"]
+__all__ = ["sssp", "sssp_program", "auto_delta", "sssp_batched"]
 
 _INF = float("inf")
 
@@ -97,6 +97,47 @@ def sssp(csr: CSR, source: int, *, delta: Optional[float] = None,
     frontier0[source] = 1
     out = engine.run(csr, sssp_program(delta), state0, frontier0,
                      max_iters=max_iters, mode=mode, return_stats=return_stats)
+    if return_stats:
+        state, stats = out
+        return state["dist"], stats
+    return out["dist"]
+
+
+def sssp_batched(csr: CSR, sources, *, delta: Optional[float] = None,
+                 max_iters: Optional[int] = None, mode: str = "auto",
+                 kernel_bb=None, return_stats: bool = False,
+                 trace: bool = False, trace_len: Optional[int] = None):
+    """Distances (B, n) float32 on the CSR's device for B concurrent
+    single-source runs.
+
+    The *same* ``sssp_program`` drives every lane (the engine vmaps it), so
+    row b is bit-equal to ``sssp(csr, sources[b], delta=delta)`` — each lane
+    keeps its own bucket bound and drains independently while the (min, +)
+    relaxations of all lanes ride one shared edge scan.  ``delta`` is shared
+    across the batch.
+    kernel_bb: optional weighted BBCSR of A^T (``engine.build_pull_operand``
+      with ``combine='min'``) to run the relaxations on the (min,+) SpMSpV
+      kernel, one launch per lane per level.
+    """
+    n, dev = csr.n_rows, csr.device
+    src = torch.as_tensor(sources, dtype=torch.int64, device=dev)
+    B = int(src.shape[0])
+    delta = delta if delta is not None else auto_delta(csr)
+    max_iters = max_iters if max_iters is not None else 4 * n
+    lanes = torch.arange(B, device=dev)
+    dist0 = torch.full((B, n), _INF, dtype=torch.float32, device=dev)
+    dist0[lanes, src] = 0.0
+    pending0 = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    pending0[lanes, src] = True
+    frontier0 = torch.zeros((B, n), dtype=torch.int32, device=dev)
+    frontier0[lanes, src] = 1
+    state0 = {"dist": dist0, "pending": pending0,
+              "bound": torch.full((B,), delta, dtype=torch.float32,
+                                  device=dev)}
+    out = engine.run_batched(csr, sssp_program(delta), state0, frontier0,
+                             max_iters=max_iters, mode=mode,
+                             kernel_bb=kernel_bb, return_stats=return_stats,
+                             trace=trace, trace_len=trace_len)
     if return_stats:
         state, stats = out
         return state["dist"], stats

@@ -1,11 +1,12 @@
-"""Offload engines, local part: DMA gather and scatter-add (counterpart of
-the in-node ops of ``repro.core.offload``).  The remote, queue and
-collective engines belong to the distributed placement."""
+"""Offload engines, local part: DMA gather, scatter-add and the lane-word
+OR combine (counterpart of the in-node ops of ``repro.core.offload``).  The
+remote, queue and collective engines belong to the distributed
+placement."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dma_gather", "dma_scatter_add"]
+__all__ = ["dma_gather", "dma_scatter_add", "segment_or"]
 
 
 def dma_gather(table: torch.Tensor, idx: torch.Tensor, *,
@@ -29,3 +30,19 @@ def dma_scatter_add(dest: torch.Tensor, idx: torch.Tensor,
     src = torch.where(mask, vals, vals.new_zeros(()))
     src = src.to(dest.dtype).reshape((-1,) + tuple(dest.shape[1:]))
     return dest.index_add_(0, safe, src)
+
+
+def segment_or(idx: torch.Tensor, words: torch.Tensor, n: int, *,
+               presorted: bool = False) -> torch.Tensor:
+    """Per-destination bitwise OR of packed lane words (MS-BFS's combine).
+
+    ``idx`` (m,) int destinations (out-of-range ignored), ``words`` (m, W)
+    int32 bit-packed lane payloads.  Returns (n, W) int32 with out[v] = OR
+    of all words whose idx == v (0 where no items land).  CPU tensors take
+    the plain version, CUDA tensors the kernel of ``csrc/segment_or.cu``
+    (atomic OR, one per run of equal ids in a warp).  ``presorted`` (the
+    stream is sorted by destination) is the reference's hint, which the
+    port does not need: OR does not depend on order, and the kernel merges
+    equal ids in a warp whatever the order."""
+    from ..kernels import segment_or as _so
+    return _so.segment_or_kernel_call(idx, words, n)

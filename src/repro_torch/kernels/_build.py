@@ -23,7 +23,8 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "source_path", "library_path",
            "compile_source", "compile_all", "load", "on_cpu", "launch"]
 
 # every CUDA source of the port, by name (csrc/<name>.cu)
-SOURCES = ("bbcsr", "segment_sum", "embedding_bag", "flash_attention")
+SOURCES = ("bbcsr", "segment_sum", "segment_or", "embedding_bag",
+           "flash_attention")
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"

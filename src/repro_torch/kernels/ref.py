@@ -1,7 +1,7 @@
 """Plain torch versions of the port's kernels: the BBCSR products computed
-straight off the tile arrays, segment sum, EmbeddingBag and attention.  The
-kernel wrappers take them for CPU tensors, and the card's checks hold each
-kernel against them.
+straight off the tile arrays, segment sum, segment OR, EmbeddingBag and
+attention.  The kernel wrappers take them for CPU tensors, and the card's
+checks hold each kernel against them.
 
 The 'add' versions form each product in float32, as the kernels do, and
 accumulate in float64 before rounding once to float32: the kernels' sums
@@ -16,7 +16,8 @@ import torch
 from ..core.graph import BBCSR
 
 __all__ = ["spmv_bbcsr_ref", "spmspv_bbcsr_ref", "combine_identity",
-           "segment_sum_ref", "embedding_bag_ref", "embedding_bag_pieces_ref",
+           "segment_sum_ref", "segment_or_ref", "embedding_bag_ref",
+           "embedding_bag_pieces_ref",
            "attention_mask",
            "flash_attention_ref", "attention_pieces", "combine_pieces",
            "flash_attention_split_ref"]
@@ -98,6 +99,25 @@ def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor,
     return out.float()
 
 
+def segment_or_ref(idx: torch.Tensor, words: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """out (n, W) int32: out[v] = bitwise OR of the rows of words (m, W)
+    int32 with idx == v; ids outside [0, n) are dropped, a destination with
+    no items gets 0.  One exact max-scatter per bit (torch has no OR
+    scatter)."""
+    W = words.shape[1]
+    keep = (idx >= 0) & (idx < n)
+    index = idx[keep].long()[:, None].expand(-1, W)
+    words = words[keep].to(torch.int32)
+    out = torch.zeros((n, W), dtype=torch.int32, device=words.device)
+    for s in range(32):
+        hit = torch.zeros_like(out).scatter_reduce_(0, index, (words >> s) & 1,
+                                                    "amax")
+        # bit 31 is the sign bit: -2^31, not 1 << 31, stays in int32
+        out |= hit * (1 << s if s < 31 else -(1 << 31))
+    return out
+
+
 def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
                       bag: torch.Tensor, n_bags: int,
                       weights: Optional[torch.Tensor] = None,
@@ -112,12 +132,14 @@ def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
     w = valid.double() if weights is None else \
         torch.where(valid, weights.double(), 0.0)
     rows = table[torch.where(valid, idx, 0).long()].double() * w[:, None]
+    # bag ids outside [0, n_bags) give nothing, as in the kernel
+    keep = (bag >= 0) & (bag < n_bags)
     out = torch.zeros((n_bags, table.shape[1]), dtype=torch.float64,
                       device=table.device)
-    out.index_add_(0, bag.long(), rows)
+    out.index_add_(0, bag[keep].long(), rows[keep])
     if mode == "mean":
         cnt = torch.zeros(n_bags, dtype=torch.float64, device=table.device)
-        cnt.index_add_(0, bag.long(), w)
+        cnt.index_add_(0, bag[keep].long(), w[keep])
         out = out / cnt.clamp_min(1e-9)[:, None]
     return out.float()
 

@@ -5,8 +5,11 @@ reference runs its Pallas kernels in interpret mode).
 
 BFS, SSSP and CC exact; PageRank, PPR and SpMV within rtol 1e-5 / atol 1e-6
 (f32 sums in another order).  iters / pushes / pulls equal the
-reference's.  Also replays the scalar entries of ``golden/core_grid.npz``.
+reference's, and so do the per-level trace rows.  Also replays the scalar
+entries of ``golden/core_grid.npz``, and checks that a kernel operand's
+unit-value check reads the operand once.
 """
+import gc
 import os
 
 import jax.numpy as jnp
@@ -22,6 +25,8 @@ from repro_torch.core import graph as TG
 from repro_torch.core import algorithms as TA
 from repro.core.algorithms.bfs import _levels_from_dist as r_levels
 from repro.core.algorithms.pagerank import ppr_program as r_ppr_program
+from repro.obs import decode_level_trace as r_decode
+from repro_torch.obs import decode_level_trace as t_decode
 from repro_torch.core.algorithms.bfs import _levels_from_dist as t_levels
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "golden",
@@ -237,3 +242,55 @@ def test_scalar_golden_replay(mode):
         GOLD[f"cc/scalar/{mode}"])
     np.testing.assert_allclose(TA.ppr(TG_G, 3, iters=12).numpy(),
                                GOLD["ppr/scalar/pull"], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("trace_len", [None, 4])
+def test_run_trace_matches_reference(trace_len):
+    """One [frontier, was_push, 0, 0] row per level, rows past trace_len
+    dropped, the same state as an untraced run."""
+    n = G.n_rows
+    dist0 = np.full(n, np.inf, np.float32)
+    dist0[0] = 0.0
+    state0 = {"dist": dist0, "pending": _onehot(n, 0, bool),
+              "bound": np.float32(DELTA)}
+    rs, rstats = RE.run(G, RA.sssp_program(DELTA),
+                        {k: jnp.asarray(v) for k, v in state0.items()},
+                        jnp.asarray(_onehot(n, 0)), max_iters=4 * n,
+                        return_stats=True, trace=True, trace_len=trace_len)
+    ts, tstats = TE.run(TG_G, TA.sssp_program(DELTA),
+                        {k: torch.as_tensor(v) for k, v in state0.items()},
+                        torch.as_tensor(_onehot(n, 0)), max_iters=4 * n,
+                        return_stats=True, trace=True, trace_len=trace_len)
+    assert tstats["trace"].dtype == torch.int32
+    np.testing.assert_array_equal(tstats["trace"].numpy(),
+                                  np.asarray(rstats["trace"]))
+    assert [r.as_dict() for r in t_decode(tstats)] == \
+        [r.as_dict() for r in r_decode(rstats)]
+    plain = TA.sssp(TG_G, 0, delta=DELTA)
+    assert ts["dist"].numpy().tobytes() == plain.numpy().tobytes()
+    with pytest.raises(ValueError):
+        TE.run(TG_G, TA.sssp_program(DELTA), state0, torch.ones(n),
+               max_iters=1, trace=True)            # trace needs the stats
+
+
+def test_unit_value_check_reads_each_operand_once(monkeypatch):
+    """The unit-value check of a 'copy' program's kernel operand reads the
+    operand's values on its first run only, and a weighted operand is
+    refused every time."""
+    calls = []
+    real = TE._unit_valued
+    monkeypatch.setattr(TE, "_unit_valued",
+                        lambda vals: calls.append(1) or real(vals))
+    unit = TE.build_pull_operand(TG_G, unit_values=True, **GEO)
+    first = TA.bfs(TG_G, 0, kernel_bb=unit)
+    assert torch.equal(TA.bfs(TG_G, 0, kernel_bb=unit), first)
+    assert len(calls) == 1
+    weighted = TE.build_pull_operand(TG_G, **GEO)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="unit-valued"):
+            TA.bfs(TG_G, 0, kernel_bb=weighted)
+    assert len(calls) == 2
+    key = id(unit)
+    del unit
+    gc.collect()
+    assert key not in TE._UNIT_OPERANDS

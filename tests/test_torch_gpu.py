@@ -607,3 +607,124 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(1, 2, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="block_q"):
         ops.flash_attention(q, q, q, block_q=1)
+
+
+@pytest.mark.parametrize("weighted,mode", [(False, "sum"), (True, "mean")])
+@pytest.mark.parametrize("presorted", [False, True])
+def test_embedding_bag_kernel_drops_bag_ids_out_of_range(cuda, presorted,
+                                                         weighted, mode):
+    """Bag ids -1 and >= n_bags give nothing on the card, as on the CPU."""
+    from repro_torch.kernels import embedding_bag as EB
+    from repro_torch.kernels import ops
+    gen = _gen(31)
+    V, n, n_bags, d = 1000, 4000, 50, 11
+    table = torch.randn(V, d, device=cuda, generator=gen)
+    idx = torch.randint(-1, V, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    bag = torch.randint(-3, n_bags + 3, (n,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    if presorted:
+        bag, order = torch.sort(bag, stable=True)
+        idx = idx[order]
+    w = torch.rand(n, device=cuda, generator=gen) if weighted else None
+    before = EB.LAUNCHES["embedding_bag"]
+    got = ops.embedding_bag(table, idx, bag, n_bags, w, mode,
+                            presorted=presorted)
+    torch.cuda.synchronize()
+    assert EB.LAUNCHES["embedding_bag"] == before + 1
+    on_cpu = ops.embedding_bag(table.cpu(), idx.cpu(), bag.cpu(), n_bags,
+                               None if w is None else w.cpu(), mode,
+                               presorted=presorted)
+    torch.testing.assert_close(got.cpu(), on_cpu, rtol=1e-5, atol=1e-5)
+    keep = (bag >= 0) & (bag < n_bags)
+    torch.testing.assert_close(got, ref.embedding_bag_ref(
+        table, idx[keep], bag[keep], n_bags,
+        None if w is None else w[keep], mode), rtol=1e-5, atol=1e-5)
+
+
+# -- batched lanes: segment_or, msbfs, sssp_batched, batched PPR -------------
+
+@pytest.mark.parametrize("case", ["hub_sorted", "unsorted_w2", "all_bits",
+                                  "empty"])
+def test_segment_or_kernel_matches_plain(cuda, case):
+    """Bit-equal to the plain version: a hub id taking 100k items (sorted,
+    W 1), random ids with out-of-range ones and mostly-zero words (W 2),
+    every word all 32 bits set (the sign bit too) on duplicate ids, and an
+    empty stream (no launch)."""
+    from repro_torch.kernels import segment_or as SO
+    gen = _gen(21)
+    n = 5000
+
+    def rand_words(m, w):
+        return torch.randint(-2**31, 2**31, (m, w), device=cuda,
+                             generator=gen, dtype=torch.int32)
+
+    if case == "hub_sorted":
+        idx = torch.cat([torch.full((100_000,), 17, device=cuda),
+                         torch.randint(0, n, (50_000,), device=cuda,
+                                       generator=gen)]).sort().values
+        words = rand_words(idx.numel(), 1)
+    elif case == "unsorted_w2":
+        idx = torch.randint(-3, n + 3, (60_000,), device=cuda, generator=gen)
+        words = rand_words(idx.numel(), 2)
+        words[torch.rand(idx.numel(), device=cuda, generator=gen) < 0.9] = 0
+    elif case == "all_bits":
+        idx = torch.randint(0, 64, (10_000,), device=cuda, generator=gen)
+        words = torch.full((idx.numel(), 1), -1, dtype=torch.int32,
+                           device=cuda)
+    else:
+        idx = torch.zeros(0, dtype=torch.int64, device=cuda)
+        words = torch.zeros((0, 2), dtype=torch.int32, device=cuda)
+    before = SO.LAUNCHES["segment_or"]
+    got = SO.segment_or_kernel_call(idx.to(torch.int32), words, n)
+    torch.cuda.synchronize()
+    assert SO.LAUNCHES["segment_or"] == before + (case != "empty")
+    assert got.dtype == torch.int32 and got.shape == (n, words.shape[1])
+    assert torch.equal(got, ref.segment_or_ref(idx, words, n))
+    if case == "all_bits":
+        assert bool((got[:64] == -1).all()) and not bool(got[64:].any())
+
+
+def test_batched_lanes_match_cpu(cuda):
+    """msbfs (packed lanes, segment_or), sssp_batched (plain and B3 per
+    lane) and batched PPR (B2 per lane) on the card against the same
+    calls on the CPU; the kernels' launch counts move."""
+    from repro_torch.core import csr_from_numpy
+    from repro_torch.core.algorithms import (msbfs, ppr_batched, ppr_program,
+                                             sssp_batched)
+    from repro_torch.kernels import segment_or as SO
+    g = rmat(12, 16, seed=5)
+    c = csr_from_numpy(g.indptr.cpu().numpy(), g.indices.cpu().numpy(),
+                       g.values.cpu().numpy(), g.n_rows, g.n_cols,
+                       device="cpu")
+    src = list(range(0, 64, 2)) + [0]          # 33 lanes, one duplicate
+    before = SO.LAUNCHES["segment_or"]
+    for mode in ("push", "pull", "auto"):
+        lv, st = msbfs(g, src, mode=mode, return_stats=True)
+        lv_c, st_c = msbfs(c, src, mode=mode, return_stats=True)
+        assert torch.equal(lv.cpu(), lv_c) and st == st_c
+    assert SO.LAUNCHES["segment_or"] > before
+    delta = 0.25
+    bb_m = engine.build_pull_operand(g, combine="min")
+    before = K.LAUNCHES["spmspv_bbcsr_select"]
+    for mode in ("push", "auto"):
+        d_c, st_c = sssp_batched(c, src[:8], delta=delta, mode=mode,
+                                 return_stats=True)
+        for kernel in (None, bb_m):
+            d, st = sssp_batched(g, src[:8], delta=delta, mode=mode,
+                                 kernel_bb=kernel, return_stats=True)
+            assert torch.equal(d.cpu(), d_c) and st == st_c
+    assert K.LAUNCHES["spmspv_bbcsr_select"] > before
+    bb_u = engine.build_pull_operand(g, unit_values=True)
+    n, B = g.n_rows, 8
+    r = torch.zeros((B, n), device=cuda)
+    r[torch.arange(B), torch.tensor(src[:B])] = 1.0
+    before = K.LAUNCHES["spmspv_bbcsr_add"]
+    st = engine.run_batched(g, ppr_program(g, 0.85), {"x": r, "r": r},
+                            torch.ones((B, n), dtype=torch.int32,
+                                       device=cuda),
+                            max_iters=20, mode="pull", kernel_bb=bb_u)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["spmspv_bbcsr_add"] == before + 20 * B
+    torch.testing.assert_close(st["x"].cpu(), ppr_batched(c, src[:B]),
+                               rtol=1e-5, atol=1e-5)

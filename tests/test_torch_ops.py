@@ -5,7 +5,8 @@ mode), on the same numpy inputs, with the reference tests' cases and
 tolerances (``tests/test_kernels.py``): 1e-5 for the sums, 2e-4 for f32
 attention, 5e-2 for bf16.
 
-Also: an unsorted seg against the reference oracle, the ValueError where a
+Also: an unsorted seg against the reference oracle, EmbeddingBag's bag ids
+outside [0, n_bags) against the reference oracle, the ValueError where a
 query row would see no key, and the CUDA path raising on a host without a
 card instead of falling back.
 """
@@ -124,6 +125,37 @@ def test_flash_attention_bf16_matches_reference_kernel():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=5e-2,
                                atol=5e-2)
+
+
+@pytest.mark.parametrize("mode,weighted", [("sum", False), ("mean", False),
+                                           ("sum", True), ("mean", True)])
+@pytest.mark.parametrize("presorted", [False, True])
+def test_embedding_bag_drops_bag_ids_out_of_range(presorted, mode, weighted):
+    """Bag ids -1 and >= n_bags give nothing, as in the CUDA kernel and the
+    reference's oracle (whose Pallas kernel overwrites the last bag)."""
+    rng = np.random.default_rng(3)
+    n_bags, rows, d, n = 5, 12, 3, 60
+    table = rng.standard_normal((rows, d)).astype(np.float32)
+    idx = rng.integers(-1, rows, n).astype(np.int32)
+    bag = rng.integers(-2, n_bags + 3, n).astype(np.int32)
+    bag[:3] = [-1, n_bags, n_bags + 2]
+    if presorted:
+        order = np.argsort(bag, kind="stable")
+        idx, bag = idx[order], bag[order]
+    w = rng.random(n).astype(np.float32) if weighted else None
+    want = rref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(idx),
+                                  jnp.asarray(bag), n_bags,
+                                  None if w is None else jnp.asarray(w), mode)
+    got = tops.embedding_bag(_t(table), _t(idx), _t(bag), n_bags,
+                             None if w is None else _t(w), mode,
+                             presorted=presorted)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    small = tops.embedding_bag(torch.arange(12.).reshape(4, 3),
+                               torch.tensor([0, 1, 2]),
+                               torch.tensor([0, 1, 3]), 2,
+                               presorted=presorted)
+    np.testing.assert_array_equal(small.numpy(), [[0, 1, 2], [3, 4, 5]])
 
 
 @pytest.mark.parametrize("sq,skv,causal,window", [
