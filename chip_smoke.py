@@ -29,7 +29,21 @@ Phases, each of which exits non-zero on failure:
    per lane) against its plain path (bit-equal, equal stats, four lanes
    bit-equal to a scalar SSSP); ``segment_or`` alone on the dense step's
    stream, bit-equal to its plain version and timed beside its byte bound;
-   a vmap fallback warning on the valued lanes fails the run;
+   a vmap fallback warning on the valued lanes fails the run; then the
+   local graph query service on the same graph while those results are
+   alive (``[service]`` lines): ``GraphService(batch_budget=32,
+   cache_capacity=4096, obs=Observability())`` answers, per batched source,
+   4 Reachability and 4 Distance queries (targets from
+   ``np.random.default_rng(1)``) and one PPRTopK(k=10), and 64
+   NeighborSample draws; each answer is held to phase 4's ``msbfs`` levels,
+   plain ``sssp_batched`` distances (bit-equal; the service's ``auto_delta``
+   must be phase 4's delta) and ``ppr_topk`` (1e-5), each pick to the
+   graph's rows; the same stream again must be all cache hits; the trace
+   it exports (``build/service_trace.json``) must pass
+   ``validate_chrome_trace``; then 4,096 inserts confined to the last
+   partition must leave the other partitions' samples cached, and a
+   re-asked Distance must equal a fresh ``sssp_batched`` on the updated
+   graph bit for bit; ``segment_or`` must be launched in the phase;
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
    function (timed here only; the port never calls it), and B1 / B3 on the
@@ -102,6 +116,8 @@ FAULT_BLOCK = 64
 LANES = 32                         # the reference service's micro-batch
 BFS_RUNS = 10                      # warm BFS kernel-path runs, timed apart
 PPR_TOL = 1e-5                     # batched PPR, kernel vs plain path
+SERVICE_INSERTS = 4096             # the service phase's edge update
+SERVICE_TRACE = os.path.join(ROOT, "build", "service_trace.json")
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
@@ -529,7 +545,8 @@ def no_vmap_fallback():
 
 def batched_ppr(g, bb_u, sources, path, path_launches):
     """PPR at B lanes: the B2 kernel per lane on the unit operand against
-    the plain batched path, each lane's mass, and ppr_topk."""
+    the plain batched path, each lane's mass, and ppr_topk.  Returns
+    ppr_topk's (scores, ids)."""
     import torch
     from repro_torch.core import engine
     from repro_torch.core.algorithms import ppr_batched, ppr_program, ppr_topk
@@ -576,12 +593,13 @@ def batched_ppr(g, bb_u, sources, path, path_launches):
         f"diff {float((top_v - torch.topk(x_k, 10).values).abs().max())!r}")
     if not bool(same[clear].all()) or top_v.shape != (B, 10):
         fail("ppr_topk ids disagree with the kernel path's top 10")
+    return top_v, top_i
 
 
 def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
     """MS-BFS at B lanes (packed words, the segment_or kernel), every lane
     against a scalar plain BFS; then segment_or alone on the dense step's
-    stream.  Returns segment_or's row of the kernels line."""
+    stream.  Returns segment_or's row of the kernels line and the levels."""
     import torch
     from repro_torch.core import engine
     from repro_torch.core.algorithms import bfs, msbfs
@@ -625,12 +643,13 @@ def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
     log(f"[time] segment_or: kernel {row['ms']!r} ms, plain "
         f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms, library "
         f"none")
-    return row
+    return row, lv
 
 
 def batched_sssp(g, bb_m, sources, delta, path, path_launches):
     """SSSP at B lanes: B3 per lane on the (min,+) operand against the plain
-    batched path, and four lanes against a scalar SSSP."""
+    batched path, and four lanes against a scalar SSSP.  Returns the plain
+    path's distances."""
     import torch
     from repro_torch.core.algorithms import sssp, sssp_batched
     with no_vmap_fallback():
@@ -648,6 +667,184 @@ def batched_sssp(g, bb_m, sources, delta, path, path_launches):
     log("[check] sssp_batched lanes 0, 1, B/2, B-1 bit-equal to scalar sssp")
     if path_launches["sssp_batched kernel_bb"]["spmspv_bbcsr_select"] == 0:
         fail("sssp_batched did not launch spmspv_bbcsr_select")
+    return d_p
+
+
+def service_phase(g, sources, lv, d_plain, top, delta, args) -> dict:
+    """The local graph query service on phase 4's graph: a mixed stream
+    (per source 4 Reachability and 4 Distance queries and one PPRTopK(10);
+    64 NeighborSample draws) at batch_budget LANES with an Observability
+    attached, flushed twice (the second pass all cache hits), then
+    SERVICE_INSERTS inserts confined to the last partition.  Answers are
+    held to phase 4's msbfs levels, plain sssp_batched distances and
+    ppr_topk, picks to the graph's rows, the trace to its structural check.
+    Returns the phase's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Distance, GraphService, NeighborSample,
+                                  PPRTopK, Reachability)
+    from repro_torch.core.algorithms import auto_delta, sssp_batched
+    from repro_torch.obs import (Observability, format_summary, summarize,
+                                 validate_chrome_trace)
+    n = g.n_rows
+    lane = {}
+    for b, s in enumerate(sources):
+        lane.setdefault(int(s), b)
+    rng = np.random.default_rng(1)
+    stream = []
+    for s in map(int, sources):
+        stream += [Reachability(s, int(t)) for t in rng.integers(0, n, 4)]
+        stream += [Distance(s, int(t)) for t in rng.integers(0, n, 4)]
+        stream.append(PPRTopK(s, k=10))
+    stream += [NeighborSample(int(v)) for v in rng.integers(0, n, 64)]
+
+    obs = Observability()
+    t0 = time.perf_counter()
+    svc = GraphService(g, batch_budget=LANES, cache_capacity=4096, obs=obs)
+    build_s = time.perf_counter() - t0
+    log(f"[service] GraphService(batch_budget={LANES}, cache_capacity=4096,"
+        f" obs) in {build_s!r} s; auto_delta {svc.delta!r}, phase 4's "
+        f"{delta!r}")
+    if svc.delta != delta:
+        fail("the service's auto_delta differs from phase 4's delta")
+
+    def serve(queries):
+        tickets = [svc.submit(q) for q in queries]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.flush()
+        torch.cuda.synchronize()
+        return [svc.result(t) for t in tickets], time.perf_counter() - t0
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    answers, wall1 = serve(stream)
+    batch_s = [(sp.args["kind"], sp.dur) for sp in obs.spans.spans()
+               if sp.name == "engine"]
+    readback_s = [(sp.args["kind"], sp.dur) for sp in obs.spans.spans()
+                  if sp.name == "readback"]
+    st1 = svc.stats.as_dict()
+    again, wall2 = serve(stream)
+    hits = svc.stats.cache_hits - st1["cache_hits"]
+    log(f"[service] flush 1: {len(stream)} queries in {wall1!r} s, "
+        f"{st1['batches']} batches; engine s per batch (host clock, ending "
+        f"in the result's readback): {batch_s}; readback s per batch "
+        f"(per-query answers, partition sets, ledger): {readback_s}")
+    log(f"[service] flush 2: the same {len(stream)} queries in {wall2!r} s,"
+        f" {hits} cache hits")
+    if hits != len(stream) or svc.stats.batches != st1["batches"] or \
+            not all(same(a, b) for a, b in zip(answers, again)):
+        fail("service: the second pass was not served whole from the cache")
+
+    lv_h, d_h = lv.cpu().numpy(), d_plain.cpu().numpy()
+    top_v, top_i = (t.cpu().numpy() for t in top)
+    bad, worst = {}, 0.0
+    indptr, indices = g.indptr, g.indices
+    for q, a in zip(stream, answers):
+        kind = type(q).__name__
+        if isinstance(q, Reachability):
+            ok = a is bool(lv_h[lane[q.source], q.target] >= 0)
+        elif isinstance(q, Distance):
+            ok = np.float32(a).tobytes() == \
+                d_h[lane[q.source], q.target].tobytes()
+        elif isinstance(q, PPRTopK):
+            ids, sc = a
+            wv, wi = top_v[lane[q.source]], top_i[lane[q.source]]
+            worst = max(worst, float(np.abs(sc - wv).max()))
+            gaps = np.abs(np.diff(wv)) > PPR_TOL
+            clear = np.r_[gaps, True] & np.r_[True, gaps]
+            ok = np.allclose(sc, wv, rtol=PPR_TOL, atol=PPR_TOL) and \
+                np.array_equal(ids[clear], wi[clear])
+        else:
+            lo, hi = int(indptr[q.vertex]), int(indptr[q.vertex + 1])
+            ok = a.shape == (1,) and (
+                int(a[0]) == q.vertex if hi == lo
+                else bool((indices[lo:hi] == int(a[0])).any()))
+        if not ok:
+            bad.setdefault(kind, []).append(q)
+    log(f"[check] service answers vs phase 4: reachability == msbfs level "
+        f">= 0, distance bit-equal to plain sssp_batched, PPR within "
+        f"{PPR_TOL} of ppr_topk (max score diff {worst!r}), samples real "
+        f"out-neighbours; wrong: {bad or 'none'}")
+    if bad:
+        fail(f"service answers disagree with phase 4: {bad}")
+
+    os.makedirs(os.path.dirname(SERVICE_TRACE), exist_ok=True)
+    doc = obs.export_chrome_trace(SERVICE_TRACE)
+    errors = validate_chrome_trace(doc)
+    log(f"[check] service trace {os.path.relpath(SERVICE_TRACE, ROOT)}: "
+        f"{len(doc['traceEvents'])} events, {len(obs.level_runs)} level "
+        f"runs, structural errors {errors or 'none'}")
+    if errors:
+        fail(f"service trace is not structurally valid: {errors[:3]}")
+    for line in format_summary(summarize(doc)).splitlines():
+        log(f"[service] trace: {line}")
+
+    # an update confined to the last partition
+    last = svc.handle.n_partitions - 1
+    lo = last * svc.handle.per_partition
+    urng = np.random.default_rng(2)
+    ins = (urng.integers(lo, n, SERVICE_INSERTS),
+           urng.integers(lo, n, SERVICE_INSERTS),
+           urng.random(SERVICE_INSERTS).astype(np.float32))
+    cached = len(svc._cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = svc.apply_updates(inserts=ins)
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t0
+    # the update re-derives delta from the new graph's weight histogram
+    delta_s = host_s(lambda: auto_delta(svc.csr))
+    log(f"[service] apply_updates({SERVICE_INSERTS} inserts in partition "
+        f"{last}) in {upd_s!r} s (auto_delta alone {delta_s!r} s): "
+        f"{rep.n_inserted} new, {rep.n_upserted} "
+        f"upserted, partitions {rep.touched_partitions.tolist()}, epoch "
+        f"{svc.epoch}, nnz {svc.csr.nnz}; evicted "
+        f"{svc.stats.cache_evicted} of {cached} cache entries")
+    if rep.touched_partitions.tolist() != [last] or \
+            svc.csr.nnz != g.nnz + rep.n_inserted:
+        fail("apply_updates: wrong partitions or edge count")
+    samples = [(q, a) for q, a in zip(stream, answers)
+               if isinstance(q, NeighborSample)]
+    outside = [(q, a) for q, a in samples
+               if int(svc.handle.partition_of(q.vertex)) != last]
+    h0, b0 = svc.stats.cache_hits, svc.stats.batches
+    kept, _ = serve([q for q, _ in outside])
+    log(f"[check] service: {len(outside)} of {len(samples)} samples lie "
+        f"outside partition {last}; re-asked: "
+        f"{svc.stats.cache_hits - h0} cache hits, "
+        f"{svc.stats.batches - b0} batches")
+    if svc.stats.cache_hits - h0 != len(outside) or \
+            svc.stats.batches != b0 or \
+            not all(np.array_equal(k, a) for k, (_, a) in zip(kept, outside)):
+        fail("service: samples outside the mutated partition did not survive")
+    q = next(q for q in stream if isinstance(q, Distance))
+    b0 = svc.stats.batches
+    (got,), redo_s = serve([q])
+    fresh = sssp_batched(svc.csr, [q.source], delta=svc.delta)
+    want = fresh[0, q.target].cpu().numpy()
+    log(f"[check] service: re-asked {q} after the update: {got!r} in "
+        f"{redo_s!r} s ({svc.stats.batches - b0} batch); fresh "
+        f"sssp_batched on the new graph {float(want)!r} (delta "
+        f"{svc.delta!r})")
+    if np.float32(got).tobytes() != want.tobytes():
+        fail("service: a re-asked Distance differs from a fresh "
+             "sssp_batched on the updated graph")
+
+    st = svc.stats.as_dict()
+    log(f"[service] stats: qps {st['qps']!r}, p50 {st['latency_p50_ms']!r} "
+        f"ms, p95 {st['latency_p95_ms']!r} ms, occupancy "
+        f"{st['occupancy']!r}, hit rate {st['hit_rate']!r}, route bytes per "
+        f"query {st['route_bytes_per_query']!r}; {json.dumps(st)}")
+    return {"queries": len(stream), "build_s": build_s, "flush_s": wall1,
+            "cached_flush_s": wall2, "engine_s": batch_s,
+            "readback_s": readback_s,
+            "apply_updates_s": upd_s, "auto_delta_s": delta_s,
+            "redo_distance_s": redo_s,
+            "stats": st, "trace": os.path.relpath(SERVICE_TRACE, ROOT)}
 
 
 def main() -> int:
@@ -886,8 +1083,9 @@ def main() -> int:
     sources = np.concatenate([[0], np.random.default_rng(0).choice(
         np.flatnonzero(deg >= 1), LANES - 1, replace=False)]).astype(np.int32)
     log(f"[batched] {LANES} sources: {sources.tolist()}")
-    batched_ppr(g, bb_u, sources, path, path_launches)
-    so_row = batched_msbfs(g, sources, lv_p, path, path_launches, err, args)
+    top_v, top_i = batched_ppr(g, bb_u, sources, path, path_launches)
+    so_row, lv_b = batched_msbfs(g, sources, lv_p, path, path_launches, err,
+                                 args)
     log(f"[mem] peak allocated with the unit operand "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del bb_u
@@ -909,11 +1107,28 @@ def main() -> int:
                           max_iters=4 * n, kernel_bb=bb_m, return_stats=True)
 
     st_k, stats_k = path("sssp kernel_bb", sssp_kernel)
-    batched_sssp(g, bb_m, sources, delta, path, path_launches)
+    d_b = batched_sssp(g, bb_m, sources, delta, path, path_launches)
     log(f"[mem] peak allocated with the (min,+) operand "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del bb_m
     torch.cuda.empty_cache()
+
+    # the service, on phase 4's graph and sources, held to its results
+    for mod in counted:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    service = service_phase(g, sources, lv_b, d_b, (top_v, top_i), delta,
+                            args)
+    service["phase_s"] = time.perf_counter() - t0
+    log(f"[service] phase wall {service['phase_s']!r} s")
+    path_launches["service"] = {k: v for mod in counted
+                                for k, v in mod.LAUNCHES.items()}
+    for k, v in path_launches["service"].items():
+        launches[k] += v
+    log(f"[service] launches {path_launches['service']}")
+    if path_launches["service"]["segment_or"] == 0:
+        fail("the service's Reachability batch did not launch segment_or")
+    del lv_b, d_b, top_v, top_i
     d_p, stats_p = path("sssp (plain)",
                         lambda: sssp(g, 0, delta=delta, return_stats=True))
     if not torch.equal(st_k["dist"], d_p):
@@ -979,6 +1194,7 @@ def main() -> int:
     with open(args.out, "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "scale": args.scale,
                    "kernels": kernels, "walls_s": walls,
+                   "service": service,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

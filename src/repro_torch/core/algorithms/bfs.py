@@ -110,7 +110,9 @@ def msbfs(csr: CSR, sources, *, max_levels: int | None = None,
     Row b is bit-equal to ``bfs(csr, sources[b])`` — the lanes share every
     edge scan but never interact.  Duplicate sources are allowed (their
     lanes evolve identically).  ``trace`` (with ``return_stats``) records
-    the per-level engine trace into ``stats['trace']``.
+    the per-level engine trace into ``stats['trace']``.  The levels are
+    row-major (the lane words unpack transposed), so a lane's row read back
+    to the host is one contiguous run.
     """
     n, dev = csr.n_rows, csr.device
     src = torch.as_tensor(sources, dtype=torch.int64, device=dev)
@@ -129,5 +131,5 @@ def msbfs(csr: CSR, sources, *, max_levels: int | None = None,
                              trace_len=trace_len)
     if return_stats:
         state, stats = out
-        return state["level"], stats
-    return out["level"]
+        return state["level"].contiguous(), stats
+    return out["level"].contiguous()

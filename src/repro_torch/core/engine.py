@@ -57,7 +57,8 @@ from .graph import BBCSR, CSR, to_bbcsr
 
 __all__ = ["VertexProgram", "ExecutionCore", "run", "run_batched",
            "build_pull_operand", "tile_active", "lane_words", "pack_lanes",
-           "unpack_lanes"]
+           "unpack_lanes", "fold_in", "sample_neighbors",
+           "frontier_edge_capacity"]
 
 _COMBINE_IDENTITY = {"add": 0.0, "min": float("inf"), "max": float("-inf"),
                      "or": 0}
@@ -229,6 +230,59 @@ def _gather_rows(indptr, indices, vals, ids, total: int,
     pos = start[seg] + torch.arange(total, device=ids.device) - first[seg]
     cols = indices[pos].long()
     return seg, cols, None if vals is None else vals[pos]
+
+
+# Keyed draws: splitmix64 (Steele, Lea and Flood's finalizer) on int64
+# tensors.  Products wrap mod 2**64 on every device and the logical right
+# shifts are arithmetic shifts masked to their width, so a key gives the same
+# bits on the CPU and on the card, whatever tensor it sits in.
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _srl(z: torch.Tensor, s: int) -> torch.Tensor:
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(z: torch.Tensor) -> torch.Tensor:
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    return z ^ _srl(z, 31)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """A new int64 draw key from ``key`` and ``data`` (int64 tensors or
+    ints, broadcast): ``mix(mix(key + golden) ^ data)``, a bijection of
+    ``data`` for a fixed ``key``.  Draws are built from explicit keys only,
+    never from a global generator."""
+    return _mix64(_mix64(key + _GOLDEN) ^ data)
+
+
+def sample_neighbors(csr: CSR, queries: torch.Tensor, keys: torch.Tensor, *,
+                     weighted: bool = False) -> torch.Tensor:
+    """One uniform out-neighbour draw per query slot: (Q,) int32.
+
+    ``keys`` (Q,) int64 are the slots' draw keys (:func:`fold_in`); a slot
+    draws ``r`` = the top 30 bits of ``mix(key)`` and picks the row entry
+    ``r mod degree`` — the reference's inverse-CDF draw, one random offset
+    into the row.  The same key and graph give the same neighbour whatever
+    the batch around the slot and whichever device runs it.  Sinks and
+    negative queries return the query itself.  The weighted reservoir
+    (``weighted=True``) needs the static row budget the port leaves out
+    (``_max_degree``) and is refused.
+    """
+    if weighted:
+        raise NotImplementedError(
+            "the weighted reservoir draw is not ported (ROADMAP §A.4)")
+    q = queries.long()
+    safe = torch.clamp(q, min=0)
+    start = csr.indptr[safe].long()
+    deg = csr.indptr[safe + 1].long() - start
+    r = _srl(_mix64(keys.long()), 34)
+    off = start + r % torch.clamp(deg, min=1)
+    nbr = offload.dma_gather(csr.indices, torch.where(deg > 0, off, -1))
+    return torch.where((deg > 0) & (q >= 0), nbr.long(), q).to(torch.int32)
 
 
 def _dense_step(rows, cols, vals, msg, n, prog: VertexProgram):
@@ -651,3 +705,19 @@ def run_batched(csr: CSR, prog: VertexProgram, state0: Any,
                       push_capacity=push_capacity, kernel_bb=kernel_bb,
                       return_stats=return_stats, trace=trace,
                       trace_len=trace_len)
+
+
+def frontier_edge_capacity(m: int, switch_frac: float, *,
+                           slack: Optional[float] = None) -> int:
+    """Per-peer routing capacity for the compacted sparse push.
+
+    While the engine is in the push regime the frontier holds at most
+    ``switch_frac * n`` vertices, so with edges spread uniformly a shard sees
+    about ``switch_frac * m`` active edges; ``slack`` covers degree skew.
+    The local placement routes nothing: the service's route-byte model
+    (``traffic.push_level_route_bytes``) prices its push levels at this
+    capacity.  ``slack`` None takes ``engine.push_slack``
+    (``repro_torch.tune``).
+    """
+    slack = _tune.resolve("engine.push_slack", slack)
+    return max(1, min(m, int(m * switch_frac * slack)))

@@ -20,6 +20,20 @@ to the reference's arrays.
 
 :func:`csr_from_numpy` and :func:`bbcsr_from_numpy` take the reference's
 arrays as numpy, so both packages can run on identical operands.
+
+Streaming mutation: :class:`GraphHandle` is the one graph currency for code
+that serves a graph changing under the queries — an immutable (CSR, epoch,
+delta log, per-partition mutation stamps) tuple.  ``handle.apply(inserts,
+deletes)`` splices a batch of edge updates into the CSR on the CSR's device
+(sorted int64 edge keys merged by ``searchsorted``, no global re-sort),
+bumps the epoch, stamps the touched partitions and appends to the
+:class:`DeltaLog`; once the log outgrows ``compact_threshold`` of the edge
+count, the handle compacts back into a clean ``CSR.from_coo`` rebuild.  The
+partition arithmetic, the stamps, the log and the :class:`UpdateReport`
+arrays are numpy on the host, as in the reference; only the edges stay on
+the device.  Epoch and stamp bookkeeping lives here and only here (the
+``mutable-handle`` lint rule rejects ``.epoch`` / ``.csr`` / ``.stamps``
+assignment anywhere else).
 """
 from __future__ import annotations
 
@@ -29,8 +43,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs import get_registry
+
 __all__ = ["CSR", "BBCSR", "rmat", "uniform_random_graph", "to_padded_ell",
-           "to_bbcsr", "csr_from_numpy", "bbcsr_from_numpy", "resolve_device"]
+           "to_bbcsr", "csr_from_numpy", "bbcsr_from_numpy", "resolve_device",
+           "DeltaLog", "UpdateReport", "GraphHandle"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -214,6 +231,334 @@ def csr_from_numpy(indptr, indices, values, n_rows, n_cols, *,
                _tensor(indices, torch.int32, dev),
                None if values is None else _tensor(values, torch.float32, dev),
                int(n_rows), int(n_cols))
+
+
+# ---------------------------------------------------------------------------
+# Streaming mutation: DeltaLog + epoch-versioned GraphHandle
+# ---------------------------------------------------------------------------
+
+def _edge_keys(csr: CSR) -> torch.Tensor:
+    """(nnz,) int64 ``row * n_cols + col`` keys on the CSR's device.
+    Canonical CSRs (everything a GraphHandle holds) have strictly
+    increasing keys: row-major, columns sorted within each row, no
+    duplicate (row, col) pairs."""
+    rows, cols = csr.index64()
+    return rows * csr.n_cols + cols
+
+
+def _canonical(csr: CSR) -> CSR:
+    """Return `csr` if its keys are strictly increasing, else a
+    duplicate-summed `from_coo` rebuild (the handle's splice arithmetic
+    relies on sorted-unique keys)."""
+    key = _edge_keys(csr)
+    if key.numel() == 0 or bool((key[1:] > key[:-1]).all()):
+        return csr
+    return CSR.from_coo(key // csr.n_cols, key % csr.n_cols, csr.values,
+                        csr.n_rows, csr.n_cols, sum_duplicates=True,
+                        device=csr.device)
+
+
+def _coerce_edges(edges, *, weighted: bool):
+    """Normalize an (rows, cols[, vals]) tuple / None to int64/f32 host
+    arrays (the update batch is small; the edges stay on the device)."""
+    if edges is None:
+        e = np.zeros((0,), np.int64)
+        return e, e.copy(), (np.zeros((0,), np.float32) if weighted else None)
+    rows, cols = np.asarray(edges[0], np.int64), np.asarray(edges[1], np.int64)
+    if rows.shape != cols.shape or rows.ndim != 1:
+        raise ValueError(f"edge endpoints must be matching 1-d arrays, got "
+                         f"{rows.shape} vs {cols.shape}")
+    vals = None
+    if weighted:
+        vals = (np.asarray(edges[2], np.float32) if len(edges) > 2
+                and edges[2] is not None else np.ones(rows.shape, np.float32))
+        if vals.shape != rows.shape:
+            raise ValueError(f"edge values shape {vals.shape} != {rows.shape}")
+    return rows, cols, vals
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaLog:
+    """Pending edge updates since the last compaction, as flat COO arrays
+    on the host.
+
+    The log is *bookkeeping*, not the source of truth: every ``apply``
+    already splices the batch into the handle's canonical CSR.  The log
+    records what changed since the CSR was last rebuilt clean — its size
+    drives the compaction trigger, and its endpoint set is what a
+    distributed deployment must reship (only the touched partitions)."""
+
+    ins_rows: np.ndarray
+    ins_cols: np.ndarray
+    ins_vals: Optional[np.ndarray]
+    del_rows: np.ndarray
+    del_cols: np.ndarray
+
+    @classmethod
+    def empty(cls, *, weighted: bool = True) -> "DeltaLog":
+        e = np.zeros((0,), np.int64)
+        return cls(e, e.copy(), np.zeros((0,), np.float32) if weighted
+                   else None, e.copy(), e.copy())
+
+    @property
+    def size(self) -> int:
+        """Pending update count (inserts + deletes since last compaction)."""
+        return int(self.ins_rows.size + self.del_rows.size)
+
+    def extend(self, ins_r, ins_c, ins_v, del_r, del_c) -> "DeltaLog":
+        return DeltaLog(
+            np.concatenate([self.ins_rows, ins_r]),
+            np.concatenate([self.ins_cols, ins_c]),
+            None if self.ins_vals is None
+            else np.concatenate([self.ins_vals, ins_v]),
+            np.concatenate([self.del_rows, del_r]),
+            np.concatenate([self.del_cols, del_c]))
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateReport:
+    """What one ``GraphHandle.apply`` batch did — the repair/invalidation
+    contract: ``changed_sources`` seeds incremental recompute,
+    ``touched_partitions`` scopes cache eviction, ``monotone_safe`` says
+    whether label-correcting repair is valid (insert-only, no weight
+    increases) or the caller must fall back to full recompute."""
+
+    epoch: int
+    n_inserted: int          # new edges spliced in (upserts excluded)
+    n_deleted: int           # edges actually removed
+    n_upserted: int          # existing edges whose weight was replaced
+    changed_sources: np.ndarray     # unique source endpoints of changed edges
+    changed_vertices: np.ndarray    # unique endpoints, both sides
+    touched_partitions: np.ndarray  # unique partition ids (both endpoints)
+    monotone_safe: bool
+    compacted: bool
+
+    @property
+    def n_changed(self) -> int:
+        return self.n_inserted + self.n_deleted + self.n_upserted
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphHandle:
+    """Epoch-versioned graph: the one currency for mutable-graph serving.
+
+    Immutable — every mutation returns a NEW handle (so readers holding the
+    old one keep a consistent graph+epoch pair):
+
+    * ``apply(inserts, deletes)``: splice one update batch into the CSR —
+      deletes drop matched edges, inserts upsert existing (row, col) pairs
+      in place and merge genuinely new edges at their sorted positions
+      (O(m + d log m) on the CSR's device, no global re-sort).  Bumps the
+      epoch, stamps the partitions owning either endpoint of any changed
+      edge, and extends the :class:`DeltaLog`.  Batch semantics: deletes
+      apply before inserts; duplicate inserts in one batch keep the LAST
+      occurrence; inserting an existing edge replaces its weight; deleting
+      a missing edge is a no-op; self-loops are ordinary edges.
+    * ``replace(csr)``: whole-graph swap — every partition is stamped.
+    * ``compact()``: rebuild the CSR clean via ``CSR.from_coo`` and clear
+      the log; ``apply`` auto-compacts once the log exceeds
+      ``compact_threshold`` × nnz.
+
+    Partitions are contiguous vertex blocks (``ceil(n / n_partitions)`` per
+    block).  ``stamps[p]`` is the epoch partition ``p`` last mutated.  The
+    arrays the handle and its reports hold are byte-equal to the
+    reference's on the same inputs.
+    """
+
+    csr: CSR
+    epoch: int
+    delta: DeltaLog
+    stamps: np.ndarray          # (n_partitions,) int64 last-mutated epoch
+    n_partitions: int
+    compact_threshold: float = 0.25
+
+    @classmethod
+    def wrap(cls, csr: CSR, *, n_partitions: int = 8,
+             compact_threshold: float = 0.25) -> "GraphHandle":
+        if n_partitions < 1:
+            raise ValueError("n_partitions must be >= 1")
+        return cls(_canonical(csr), 0,
+                   DeltaLog.empty(weighted=csr.values is not None),
+                   np.zeros((n_partitions,), np.int64), int(n_partitions),
+                   float(compact_threshold))
+
+    @property
+    def per_partition(self) -> int:
+        return -(-self.csr.n_rows // self.n_partitions)
+
+    def partition_of(self, vertices) -> np.ndarray:
+        """Owning partition of each vertex (block rule)."""
+        return np.asarray(vertices, np.int64) // self.per_partition
+
+    def partition_edge_counts(self) -> np.ndarray:
+        """(n_partitions,) edges whose SOURCE row each partition owns —
+        what a block-sharded deployment stores (and must reship) per
+        partition.  Reads n_partitions + 1 entries of indptr."""
+        bounds = np.minimum(np.arange(self.n_partitions + 1)
+                            * self.per_partition, self.csr.n_rows)
+        indptr = self.csr.indptr
+        at = indptr[torch.as_tensor(bounds, device=indptr.device)]
+        return np.diff(at.cpu().numpy().astype(np.int64))
+
+    # -- mutation ----------------------------------------------------------
+
+    def apply(self, inserts=None, deletes=None) -> tuple["GraphHandle",
+                                                         UpdateReport]:
+        """Apply one update batch; returns (new handle, report).
+
+        inserts: (rows, cols) or (rows, cols, vals) arrays; vals default 1.0
+          on weighted graphs and are ignored on unweighted (values=None)
+          graphs.
+        deletes: (rows, cols) arrays.
+        """
+        weighted = self.csr.values is not None
+        ins_r, ins_c, ins_v = _coerce_edges(inserts, weighted=weighted)
+        del_r, del_c, _ = _coerce_edges(deletes, weighted=False)
+        n, ncol = self.csr.n_rows, self.csr.n_cols
+        for name, (r, c) in (("insert", (ins_r, ins_c)),
+                             ("delete", (del_r, del_c))):
+            if r.size and not ((0 <= r).all() and (r < n).all()
+                               and (0 <= c).all() and (c < ncol).all()):
+                raise ValueError(f"{name} endpoints outside [0, {n}) x "
+                                 f"[0, {ncol})")
+
+        csr, stats = _splice_updates(self.csr, ins_r, ins_c, ins_v,
+                                     del_r, del_c)
+        n_ins, n_del, n_ups, weight_grew = stats
+        epoch = self.epoch + 1
+
+        ch_src = np.unique(np.concatenate([ins_r, del_r]))
+        ch_all = np.unique(np.concatenate([ins_r, ins_c, del_r, del_c]))
+        touched = np.unique(self.partition_of(ch_all)) if ch_all.size \
+            else np.zeros((0,), np.int64)
+        stamps = self.stamps.copy()
+        stamps[touched] = epoch
+
+        delta = self.delta.extend(ins_r, ins_c, ins_v, del_r, del_c)
+        compacted = delta.size > self.compact_threshold * max(1, csr.nnz)
+        if compacted:
+            csr = _canonical(CSR.from_coo(
+                *_coo_of(csr), csr.n_rows, csr.n_cols, device=csr.device))
+            delta = DeltaLog.empty(weighted=weighted)
+            get_registry().counter("graph.compactions").inc()
+        handle = GraphHandle(csr, epoch, delta, stamps, self.n_partitions,
+                             self.compact_threshold)
+        report = UpdateReport(
+            epoch=epoch, n_inserted=n_ins, n_deleted=n_del, n_upserted=n_ups,
+            changed_sources=ch_src, changed_vertices=ch_all,
+            touched_partitions=touched,
+            monotone_safe=(n_del == 0 and not weight_grew),
+            compacted=compacted)
+        return handle, report
+
+    def replace(self, csr: CSR) -> "GraphHandle":
+        """Whole-graph swap: epoch bumps, every partition is stamped."""
+        epoch = self.epoch + 1
+        csr = _canonical(csr)
+        n_p = self.n_partitions
+        return GraphHandle(csr, epoch,
+                           DeltaLog.empty(weighted=csr.values is not None),
+                           np.full((n_p,), epoch, np.int64), n_p,
+                           self.compact_threshold)
+
+    def compact(self) -> "GraphHandle":
+        """Explicit compaction: clean ``from_coo`` rebuild + empty log.
+        Bit-identical arrays (the splice already keeps the CSR
+        canonical)."""
+        csr = CSR.from_coo(*_coo_of(self.csr), self.csr.n_rows,
+                           self.csr.n_cols, device=self.csr.device)
+        return GraphHandle(csr, self.epoch,
+                           DeltaLog.empty(weighted=csr.values is not None),
+                           self.stamps.copy(), self.n_partitions,
+                           self.compact_threshold)
+
+
+def _coo_of(csr: CSR):
+    rows, cols = csr.index64()
+    return rows, cols, csr.values
+
+
+def _find(key: torch.Tensor, q: torch.Tensor):
+    """Where each of the sorted-unique keys `q` sits in the sorted-unique
+    `key`: (insertion position, found)."""
+    pos = torch.searchsorted(key, q)
+    if key.numel() == 0:
+        return pos, torch.zeros_like(q, dtype=torch.bool)
+    found = (pos < key.numel()) & (key[pos.clamp(max=key.numel() - 1)] == q)
+    return pos, found
+
+
+def _splice_updates(csr: CSR, ins_r, ins_c, ins_v, del_r, del_c):
+    """Splice one update batch into a canonical CSR on its device.
+
+    Returns (new CSR, (n_inserted, n_deleted, n_upserted, weight_grew)).
+    The batch's keys are sorted and de-duplicated on the host (it is small),
+    then found in the CSR's sorted int64 edge keys by ``searchsorted``:
+    deletes drop their hits, upserts overwrite in place, and new edges are
+    merged at their insertion positions.  The result is bit-identical to a
+    clean ``CSR.from_coo`` over the effective edge set.
+    """
+    dev = csr.device
+    n_cols = int(csr.n_cols)
+    key = _edge_keys(csr)
+    vals = csr.values
+
+    n_del = 0
+    if del_r.size:
+        dkey = torch.as_tensor(np.unique(del_r * n_cols + del_c), device=dev)
+        pos, hit = _find(key, dkey)
+        keep = torch.ones(key.numel(), dtype=torch.bool, device=dev)
+        keep[pos[hit]] = False
+        n_del = int(hit.sum())
+        key = key[keep]
+        if vals is not None:
+            vals = vals[keep]
+
+    n_ins = n_ups = 0
+    weight_grew = False
+    if ins_r.size:
+        ikey = ins_r * n_cols + ins_c
+        order = np.argsort(ikey, kind="stable")
+        ikey = ikey[order]
+        last = np.ones(ikey.size, bool)          # duplicate keys: last wins
+        last[:-1] = ikey[1:] != ikey[:-1]
+        ik = torch.as_tensor(ikey[last], device=dev)
+        iv = None if ins_v is None or vals is None else \
+            torch.as_tensor(ins_v[order][last], device=dev)
+        pos, exists = _find(key, ik)
+        n_ups = int(exists.sum())
+        n_ins = int(ik.numel()) - n_ups
+        if iv is not None and n_ups:
+            at, new = pos[exists], iv[exists]
+            weight_grew = bool((new > vals[at]).any())
+            vals = vals.clone()
+            vals[at] = new
+        if n_ins:
+            fresh = ~exists
+            # the j-th new key lands after the old keys before its insertion
+            # position and the j new keys before it
+            slot = pos[fresh] + torch.arange(n_ins, device=dev)
+            is_new = torch.zeros(key.numel() + n_ins, dtype=torch.bool,
+                                 device=dev)
+            is_new[slot] = True
+            merged = torch.empty(is_new.numel(), dtype=key.dtype, device=dev)
+            merged[slot] = ik[fresh]
+            merged[~is_new] = key
+            key = merged
+            if vals is not None:
+                mv = torch.empty(is_new.numel(), dtype=vals.dtype, device=dev)
+                mv[slot] = iv[fresh]
+                mv[~is_new] = vals
+                vals = mv
+
+    rows = key // n_cols
+    cols = key - rows * n_cols
+    indptr = torch.zeros(csr.n_rows + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=csr.n_rows), 0)
+    out = CSR(indptr.to(torch.int32), cols.to(torch.int32), vals,
+              csr.n_rows, csr.n_cols)
+    out._memo["index64"] = (rows, cols)
+    return out, (n_ins, n_del, n_ups, weight_grew)
 
 
 # ---------------------------------------------------------------------------

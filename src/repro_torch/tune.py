@@ -2,7 +2,8 @@
 
 A copy of the entries of ``repro.tune.space.DEFAULTS`` that this package
 reads: the BBCSR tile geometry per kernel family, the SSSP bucket-width
-multiplier and the tiles of the segment-sum and flash-attention kernels.
+multiplier, the engine's push-routing capacity knobs, the service's lane
+budget and the tiles of the segment-sum and flash-attention kernels.
 :func:`resolve` is the reference resolver's answer on a backend
 with no tuned entry: the explicit value when given, else the default.  The
 port keeps no tuned-parameter file yet.
@@ -24,6 +25,14 @@ DEFAULTS = {
     "kernels.bbcsr_min.tile_nnz": 512,
     # multiplier on the auto_delta histogram quantile (algorithms/sssp).
     "sssp.delta_scale": 1.0,
+    # push while |frontier| <= switch_frac * n; the compacted push's routing
+    # capacity is m * switch_frac * push_slack
+    # (engine.frontier_edge_capacity, which the service's route-byte model
+    # prices).
+    "engine.switch_frac": 1 / 32,
+    "engine.push_slack": 4.0,
+    # lanes per GraphService micro-batch.
+    "service.batch_budget": 32,
     # The port kernels' own tiles, not the reference's TPU values (512 and
     # 128 there, sized to VMEM and the 128-wide MXU).  segment_sum: rows of
     # data one CTA walks (csrc/segment_sum.cu; its 8 warps split them).

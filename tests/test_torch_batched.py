@@ -116,6 +116,7 @@ def test_msbfs_matches_reference(graph, mode):
     tl, tstats = TA.msbfs(t, SOURCES, mode=mode, return_stats=True,
                           trace=True)
     assert tl.dtype == torch.int32 and tl.shape == (len(SOURCES), g.n_rows)
+    assert tl.is_contiguous()        # a lane's row reads back in one run
     np.testing.assert_array_equal(tl.numpy(), np.asarray(lv))
     _same_stats_and_trace(tstats, rstats)
     for b in (0, 31, 32):

@@ -728,3 +728,78 @@ def test_batched_lanes_match_cpu(cuda):
     assert K.LAUNCHES["spmspv_bbcsr_add"] == before + 20 * B
     torch.testing.assert_close(st["x"].cpu(), ppr_batched(c, src[:B]),
                                rtol=1e-5, atol=1e-5)
+
+
+# -- the local graph query service ------------------------------------------
+
+class _TickClock:
+    """Advances by a fixed tick on every read: both services see the same
+    clock, so every stat (latency, qps) is comparable exactly."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1e-3
+        return self.t
+
+
+def _serve(g, queries, inserts):
+    from repro_torch.core import GraphService
+    svc = GraphService(g, batch_budget=8, clock=_TickClock())
+    tickets = [svc.submit(q) for q in queries]
+    svc.flush()
+    out = [svc.result(t) for t in tickets]
+    svc.apply_updates(inserts=inserts)
+    tickets = [svc.submit(q) for q in queries]
+    svc.flush()
+    out += [svc.result(t) for t in tickets]
+    return svc, out
+
+
+def test_service_matches_cpu(cuda):
+    """One seeded mixed stream (all four kinds, repeats, an edge update in
+    one partition between two passes) through a CUDA service and a CPU
+    service on rmat(10): Reachability, Distance and NeighborSample draws
+    (the keyed hash is device-independent) and the spliced CSR bit-equal,
+    PPR within 1e-5, stats equal."""
+    import numpy as np
+    from repro_torch.core import (Distance, NeighborSample, PPRTopK,
+                                  Reachability, csr_from_numpy)
+    g = rmat(10, 8, seed=3)
+    c = csr_from_numpy(g.indptr.cpu().numpy(), g.indices.cpu().numpy(),
+                       g.values.cpu().numpy(), g.n_rows, g.n_cols,
+                       device="cpu")
+    rng = np.random.default_rng(4)
+    n = g.n_rows
+    srcs = rng.integers(0, n, 10)
+    kinds = [Reachability, Distance, PPRTopK, NeighborSample]
+    queries = []
+    for _ in range(60):
+        k = kinds[int(rng.integers(4))]
+        s = int(rng.choice(srcs))
+        queries.append(k(s, int(rng.integers(n))) if k in kinds[:2] else
+                       PPRTopK(s, k=int(rng.integers(1, 12))) if k is PPRTopK
+                       else NeighborSample(int(rng.integers(n)),
+                                           fanout=int(rng.integers(1, 4)),
+                                           seed=int(rng.integers(3))))
+    lo = 7 * (n // 8)
+    inserts = (rng.integers(lo, n, 64), rng.integers(lo, n, 64),
+               rng.random(64).astype(np.float32))
+    svc_g, out_g = _serve(g, queries, inserts)
+    svc_c, out_c = _serve(c, queries, inserts)
+    assert svc_g.csr.device.type == "cuda"
+    for f in ("indptr", "indices", "values"):
+        assert torch.equal(getattr(svc_g.csr, f).cpu(), getattr(svc_c.csr, f))
+    for q, a, b in zip(queries + queries, out_g, out_c):
+        if isinstance(q, PPRTopK):
+            np.testing.assert_allclose(a[1], b[1], rtol=1e-5, atol=1e-5)
+            gaps = np.abs(np.diff(b[1])) > 1e-5
+            clear = np.r_[gaps, True] & np.r_[True, gaps]
+            np.testing.assert_array_equal(a[0][clear], b[0][clear])
+        elif isinstance(q, NeighborSample):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        else:
+            assert type(a) is type(b) and (a == b or a != a and b != b)
+    assert svc_g.stats.as_dict() == svc_c.stats.as_dict()
+    assert svc_g.stats.cache_hits > 0 and svc_g.stats.updates == 1
