@@ -43,7 +43,26 @@ Phases, each of which exits non-zero on failure:
    ``validate_chrome_trace``; then 4,096 inserts confined to the last
    partition must leave the other partitions' samples cached, and a
    re-asked Distance must equal a fresh ``sssp_batched`` on the updated
-   graph bit for bit; ``segment_or`` must be launched in the phase;
+   graph bit for bit; ``segment_or`` must be launched in the phase; then,
+   after connected components, the structured phase on the same graph
+   (``[structured]`` lines, each path with the counts zeroed just before
+   it): ``label_propagation(iters=8)`` twice (equal bits) and at RMAT-16
+   on the card against the CPU path (equal bits); ``segment_mode`` alone
+   on the LPA dense step's sorted stream and ``run_sum`` alone on
+   ``contract``'s stream, each bit-equal to its plain version and timed
+   beside its byte bound; ``multilevel`` per level (wall, sweeps, vertices
+   and edges after contraction, Q), twice (equal labels and scores), Q
+   against ``modularity`` (1e-6), the contracted graph's Q (1e-5) and a
+   single LPA sweep's, and at RMAT-16 card against CPU (equal bits);
+   ``random_walks`` (one walker per vertex, 80 steps: every step an
+   out-edge or a sink staying put), a chi-square of 1 M unweighted and 1 M
+   weighted ``sample_neighbors`` draws at the largest hub (p > 1e-4),
+   ``neighbor_sample`` with fanouts (25, 10) over 1,024 seeds (every pick
+   valid), ``ties_sample`` of 1% of the edges (its invariants); 4,096
+   random inserts through ``GraphHandle.apply``, after which
+   ``repair_or_recompute`` of phase 4's BFS, SSSP and CC results must be
+   bit-equal to fresh runs, and a batch with deletes must take the
+   counted fallback; ``segment_mode`` and ``run_sum`` must be launched;
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
    function (timed here only; the port never calls it), and B1 / B3 on the
@@ -66,8 +85,12 @@ Phases, each of which exits non-zero on failure:
    split for the batch-1 decode, unsplit at batch 128), read from the
    per-path launch counts, and its case names that path.
 
-Prints one JSON line ``{"kernels": [...]}`` (seven kernels) and, last, the
+Prints one JSON line ``{"kernels": [...]}`` (eight kernels) and, last, the
 device line.
+The segment_mode entry's times are those of the weighted mode on the LPA
+stream; its launches cover both entry points of ``csrc/segment_mode.cu``
+on the structured phase's paths (``entry_launches`` splits them), and
+``run_sum``'s own numbers are in its ``cases``.
 The embedding_bag entry's times are those of the bulk sum; its launches
 and max_abs_err cover the three checked calls, and each case's own numbers
 are in its ``cases``.
@@ -117,12 +140,19 @@ LANES = 32                         # the reference service's micro-batch
 BFS_RUNS = 10                      # warm BFS kernel-path runs, timed apart
 PPR_TOL = 1e-5                     # batched PPR, kernel vs plain path
 SERVICE_INSERTS = 4096             # the service phase's edge update
+LPA_ITERS = 8                      # configs/piuma_graph.py lpa_iters
+SMALL_SCALE = 16                   # card vs CPU path
+WALK_STEPS = 80                    # DeepWalk's walk length
+SAMPLE_DRAWS = 1_000_000           # chi-square draws at the largest hub
+SAGE_FANOUTS, SAGE_SEEDS = (25, 10), 1024   # GraphSAGE's fanouts
+REPAIR_INSERTS = 4096
 SERVICE_TRACE = os.path.join(ROOT, "build", "service_trace.json")
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
           "segment_sum": "src/repro_torch/csrc/segment_sum.cu",
           "segment_or": "src/repro_torch/csrc/segment_or.cu",
+          "segment_mode": "src/repro_torch/csrc/segment_mode.cu",
           "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {"spmv_bbcsr": "src/repro/kernels/spmv_dma.py:206",
@@ -131,6 +161,8 @@ REPLACES = {"spmv_bbcsr": "src/repro/kernels/spmv_dma.py:206",
             "segment_sum": "src/repro/kernels/segment_sum.py:45",
             "segment_or": "src/repro/core/offload.py:154 (plain jnp, no "
                           "Pallas kernel)",
+            "segment_mode": "src/repro/core/offload.py:124 (plain jnp, no "
+                            "Pallas kernel)",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:43",
             "flash_attention": "src/repro/kernels/flash_attention.py:75"}
 
@@ -618,7 +650,7 @@ def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
         fail("msbfs did not launch segment_or")
 
     # segment_or alone: the dense step's stream, half of the lane bits set
-    p_src, p_dst = engine._dst_sorted_stream(g)
+    p_src, p_dst, _ = engine._dst_sorted(g)
     gen = torch.Generator(device="cuda").manual_seed(16)
     words = torch.randint(-2**31, 2**31, (n, engine.lane_words(B)),
                           dtype=torch.int32, device="cuda", generator=gen)
@@ -847,6 +879,363 @@ def service_phase(g, sources, lv, d_plain, top, delta, args) -> dict:
             "stats": st, "trace": os.path.relpath(SERVICE_TRACE, ROOT)}
 
 
+def pooled_chisquare(counts, expected):
+    """Chi-square (statistic, p) with the bins expected below 5 pooled into
+    one (the test's approximation needs about 5 a bin)."""
+    import numpy as np
+    import scipy.stats
+    low = expected < 5
+    if low.any():
+        counts = np.r_[counts[~low], counts[low].sum()]
+        expected = np.r_[expected[~low], expected[low].sum()]
+    return scipy.stats.chisquare(counts, expected)
+
+
+def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
+                     args) -> dict:
+    """The structured phase on phase 4's graph: LPA and multi-level Louvain
+    (reproducible, and equal to the CPU path at SMALL_SCALE), the
+    segment_mode kernel's two entry points alone against their plain
+    versions, walks and sampling held to the graph's edges and to their
+    distributions, and repair after REPAIR_INSERTS inserts held to fresh
+    runs.  Every path runs with the launch counts zeroed just before it and
+    read just after.  Returns segment_mode's row of the kernels line (its
+    launches those of the phase's paths) and the phase's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import GraphHandle, csr_from_numpy, engine, \
+        offload, rmat
+    from repro_torch.core.algorithms import (
+        bfs, connected_components, label_propagation, louvain, modularity,
+        multilevel, neighbor_sample, random_walks, repair_or_recompute,
+        sssp, ties_sample)
+    from repro_torch.core.graph import _edge_keys, contract
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_mode as SM
+    from repro_torch.obs import get_registry
+
+    n, m, dev = g.n_rows, g.nnz, g.device
+    out, launched = {}, {}
+
+    def run(label, fn):
+        """fn() with every count zeroed just before and read just after;
+        returns (its result, host seconds up to the end of its work)."""
+        for mod in counted:
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v for mod in counted for k, v in mod.LAUNCHES.items()}
+        for k, v in got.items():
+            launched[k] = launched.get(k, 0) + v
+        log(f"[structured] {label}: {wall!r} s; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        return res, wall
+
+    edge_keys = _edge_keys(g)
+    deg = g.degrees().long()
+
+    def bad_steps(frm, to):
+        """How many (frm, to) pairs are neither an edge of g nor a sink
+        staying put (counted on the card against the CSR's sorted keys)."""
+        frm, to = frm.reshape(-1).long(), to.reshape(-1).long()
+        q = frm * n + to
+        pos = torch.searchsorted(edge_keys, q).clamp(max=m - 1)
+        ok = (edge_keys[pos] == q) | ((deg[frm] == 0) & (frm == to))
+        return (~ok).sum()
+
+    # -- LPA: twice on RMAT-20, then RMAT-16 on the card and the CPU -------
+    lpa, lpa_s = run(f"label_propagation(iters={LPA_ITERS})",
+                     lambda: label_propagation(g, iters=LPA_ITERS))
+    per_sweep = launched.get("segment_mode", 0) / LPA_ITERS
+    lpa2, lpa2_s = run("label_propagation again",
+                       lambda: label_propagation(g, iters=LPA_ITERS))
+    n_lab = int(torch.unique(lpa).numel())
+    log(f"[check] lpa: two runs bit-equal {torch.equal(lpa, lpa2)}; "
+        f"{n_lab} labels; segment_mode launches per sweep {per_sweep!r}")
+    if not torch.equal(lpa, lpa2):
+        fail("label_propagation: two runs on the card differ")
+    g16 = rmat(SMALL_SCALE, 16, seed=7, device=dev)
+    c16 = csr_from_numpy(g16.indptr.cpu().numpy(), g16.indices.cpu().numpy(),
+                         g16.values.cpu().numpy(), g16.n_rows, g16.n_cols,
+                         device="cpu")
+    l16, _ = run(f"label_propagation rmat-{SMALL_SCALE}",
+                 lambda: label_propagation(g16, iters=LPA_ITERS))
+    t0 = time.perf_counter()
+    l16c = label_propagation(c16, iters=LPA_ITERS)
+    cpu_lpa_s = time.perf_counter() - t0
+    log(f"[check] lpa rmat-{SMALL_SCALE}: card bit-equal to the CPU path "
+        f"{torch.equal(l16.cpu(), l16c)} (CPU {cpu_lpa_s!r} s)")
+    if not torch.equal(l16.cpu(), l16c):
+        fail(f"label_propagation at rmat-{SMALL_SCALE}: card != CPU path")
+
+    # -- segment_mode alone on the LPA dense step's stream (final labels) --
+    t_g = g.transpose()
+    rows_t, cols_t = t_g.index64()
+    key, order = torch.sort((cols_t << 32) | lpa[rows_t].long(), stable=True)
+    dst, lab, sw = key >> 32, key & 0xFFFFFFFF, t_g.values[order]
+    del key, order, rows_t, cols_t
+    start, run_id = offload.run_starts(dst, lab)
+    longest = int(torch.bincount(run_id).max())
+    got = SM.segment_mode_kernel_call(dst, lab, sw, n)
+    want = ref.segment_mode_ref(dst, lab, sw, n)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fin = torch.isfinite(want[0])
+    err["segment_mode"] = float((got[0][fin] - want[0][fin]).abs().max())
+    log(f"[parity] segment_mode ({dst.numel()} items, {n} destinations, "
+        f"longest (destination, label) run {longest}): bit-equal {same}")
+    if not same:
+        fail("segment_mode: kernel disagrees with the plain version")
+    mode_case = dict(
+        case="segment_mode on the LPA dense step's stream",
+        items=dst.numel(), longest_run=longest,
+        ms=cuda_ms(lambda: SM.segment_mode_kernel_call(dst, lab, sw, n),
+                   args.reps),
+        plain_ms=cuda_ms(lambda: ref.segment_mode_ref(dst, lab, sw, n), 1, 1),
+        # destination, label and weight read once, (best_w, label) written
+        bound_ms=1e3 * (12 * dst.numel() + 8 * n) / HBM_BYTES_PER_S,
+        bound_by="bytes", library_ms=None)
+    log(f"[time] segment_mode: kernel {mode_case['ms']!r} ms, plain "
+        f"{mode_case['plain_ms']!r} ms, bound {mode_case['bound_ms']!r} ms, "
+        f"library none")
+    del t_g, dst, lab, sw, start, run_id, got, want, fin
+
+    # -- multilevel twice through the entry point, the first with its
+    # -- module's sweep, local-move and contraction steps counted per level
+    levels = []
+    steps = {k: getattr(louvain, k) for k in ("_sweep", "louvain_local_moves",
+                                              "contract")}
+
+    def counting_sweep(*a, **k):
+        levels[-1]["sweeps"] += 1
+        return steps["_sweep"](*a, **k)
+
+    def timed_moves(gl, **k):
+        levels.append(dict(level=len(levels), n=gl.n_rows, m=gl.nnz,
+                           sweeps=0))
+        t0 = time.perf_counter()
+        res = steps["louvain_local_moves"](gl, **k)
+        torch.cuda.synchronize()
+        levels[-1]["wall_s"] = time.perf_counter() - t0
+        return res
+
+    def sized_contract(gl, assign):
+        coarse, renumber = steps["contract"](gl, assign)
+        levels[-1].update(coarse_n=coarse.n_rows, coarse_m=coarse.nnz)
+        return coarse, renumber
+
+    for k, fn in (("_sweep", counting_sweep),
+                  ("louvain_local_moves", timed_moves),
+                  ("contract", sized_contract)):
+        setattr(louvain, k, fn)
+    try:
+        (ml, scores), ml_s = run("multilevel (counted per level)",
+                                 lambda: multilevel(g))
+    finally:
+        for k, fn in steps.items():
+            setattr(louvain, k, fn)
+    ml_launches = {k: launched.get(k, 0) for k in ("segment_mode",
+                                                   "run_sum")}
+    for i, lv in enumerate(levels):
+        lv["accepted"] = i < len(scores)
+        lv["q"] = scores[i] if i < len(scores) else None
+        log(f"[structured] multilevel level {i}: {lv}")
+    (ml2, scores2), ml2_s = run("multilevel", lambda: multilevel(g))
+    q_check = float(modularity(g, ml))
+    coarse, _ = contract(g, ml)
+    q_coarse = float(modularity(coarse, torch.arange(
+        coarse.n_rows, dtype=torch.int32, device=dev)))
+    q_single = float(modularity(g, label_propagation(g, iters=1)))
+    log(f"[check] multilevel: scores {scores}; two runs equal labels and "
+        f"scores {torch.equal(ml, ml2) and scores == scores2}; "
+        f"modularity(labels) {q_check!r}; contracted graph's Q {q_coarse!r}; "
+        f"a single LPA sweep's Q {q_single!r}; {coarse.n_rows} communities")
+    if not scores or not all(b > a for a, b in zip(scores, scores[1:])):
+        fail("multilevel: the scores do not increase strictly")
+    if not torch.equal(ml, ml2) or scores != scores2:
+        fail("multilevel: two runs on the card differ")
+    if abs(q_check - scores[-1]) > 1e-6 or abs(q_coarse - scores[-1]) > 1e-5:
+        fail("multilevel: Q disagrees with modularity of its labels or of "
+             "the contracted graph")
+    if not scores[-1] > q_single:
+        fail("multilevel: Q does not beat a single LPA sweep")
+    (m16, s16), _ = run(f"multilevel rmat-{SMALL_SCALE}",
+                        lambda: multilevel(g16))
+    t0 = time.perf_counter()
+    m16c, s16c = multilevel(c16)
+    cpu_ml_s = time.perf_counter() - t0
+    log(f"[check] multilevel rmat-{SMALL_SCALE}: card bit-equal to the CPU "
+        f"path {torch.equal(m16.cpu(), m16c) and s16 == s16c} (scores "
+        f"{s16}; CPU {cpu_ml_s!r} s)")
+    if not torch.equal(m16.cpu(), m16c) or s16 != s16c:
+        fail(f"multilevel at rmat-{SMALL_SCALE}: card != CPU path")
+    del g16, c16, l16, l16c, m16, m16c, ml2
+
+    # -- run_sum alone on contract's stream (the final labels) -------------
+    rows, cols = g.index64()
+    dense, _ = offload.compact_labels(ml)
+    key, order = torch.sort((dense[rows].long() << 32) | dense[cols].long(),
+                            stable=True)
+    _, run_id = offload.run_starts(key)
+    n_runs = int(run_id[-1]) + 1
+    sv = g.values[order]
+    longest = int(torch.bincount(run_id).max())
+    del key, order, dense
+    got = SM.run_sum_kernel_call(run_id, sv, n_runs)
+    want = ref.run_sum_ref(run_id, sv, n_runs)
+    torch.cuda.synchronize()
+    log(f"[parity] run_sum ({m} items, {n_runs} runs, longest {longest}): "
+        f"bit-equal {torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        fail("run_sum: kernel disagrees with the plain in-order sum")
+    err["segment_mode"] = max(err["segment_mode"],
+                              float((got - want).abs().max()))
+    sum_case = dict(
+        case="run_sum on contract's stream", items=m, runs=n_runs,
+        longest_run=longest,
+        ms=cuda_ms(lambda: SM.run_sum_kernel_call(run_id, sv, n_runs),
+                   args.reps),
+        plain_ms=cuda_ms(lambda: ref.run_sum_ref(run_id, sv, n_runs), 1, 1),
+        # ids and weights read once, the run sums written once
+        bound_ms=1e3 * (8 * m + 4 * n_runs) / HBM_BYTES_PER_S,
+        bound_by="bytes", library_ms=None)
+    log(f"[time] run_sum: kernel {sum_case['ms']!r} ms, plain "
+        f"{sum_case['plain_ms']!r} ms, bound {sum_case['bound_ms']!r} ms, "
+        f"library none")
+    del run_id, sv, got, want
+
+    # -- walks and sampling ------------------------------------------------
+    walks, walk_s = run(f"random_walks ({n} walkers x {WALK_STEPS} steps)",
+                        lambda: random_walks(g, torch.arange(n, device=dev),
+                                             WALK_STEPS, key=41))
+    bad = sum(bad_steps(walks[:, t], walks[:, t + 1])
+              for t in range(WALK_STEPS))
+    log(f"[check] random_walks {tuple(walks.shape)}: steps that are neither "
+        f"an out-edge nor a sink staying put: {int(bad)}")
+    if int(bad) or walks.shape != (n, WALK_STEPS + 1):
+        fail("random_walks: a step leaves the graph's edges")
+    del walks
+    hub = int(torch.argmax(deg))
+    lo, hi = int(g.indptr[hub]), int(g.indptr[hub + 1])
+    hub_cols = g.indices[lo:hi]
+    chi = {}
+    for weighted in (False, True):
+        kind = "weighted" if weighted else "unweighted"
+        keys = engine.fold_in(engine.as_key(43 + weighted, dev),
+                              torch.arange(SAMPLE_DRAWS, device=dev))
+        picks, s = run(f"sample_neighbors {kind} x {SAMPLE_DRAWS} at hub "
+                       f"{hub} (degree {hi - lo})",
+                       lambda: engine.sample_neighbors(
+                           g, torch.full((SAMPLE_DRAWS,), hub, device=dev),
+                           keys,
+                           weighted=weighted))
+        pos = torch.searchsorted(hub_cols, picks).clamp(max=hi - lo - 1)
+        if not bool((hub_cols[pos] == picks).all()):
+            fail(f"sample_neighbors {kind}: a pick is not a hub out-edge")
+        counts = torch.bincount(pos, minlength=hi - lo).cpu().numpy()
+        w = g.values[lo:hi].double().cpu().numpy() if weighted else \
+            np.ones(hi - lo)
+        stat, p = pooled_chisquare(counts, SAMPLE_DRAWS * w / w.sum())
+        chi[kind] = dict(s=s, stat=float(stat), p=float(p))
+        log(f"[check] sample_neighbors {kind}: chi-square {float(stat)!r}, p "
+            f"{float(p)!r} "
+            f"(must exceed 1e-4)")
+        if not p > 1e-4:
+            fail(f"sample_neighbors {kind}: chi-square p {p} <= 1e-4")
+    seeds = torch.from_numpy(np.random.default_rng(5).choice(
+        n, SAGE_SEEDS, replace=False)).to(dev)
+    layers, sage_s = run(f"neighbor_sample {SAGE_FANOUTS} x {SAGE_SEEDS}",
+                         lambda: neighbor_sample(g, seeds, SAGE_FANOUTS,
+                                                 key=44))
+    f1, f2 = SAGE_FANOUTS
+    shapes = [tuple(x.shape) for x in layers]
+    bad = int(bad_steps(layers[0].repeat_interleave(f1), layers[1])
+              + bad_steps(layers[1].reshape(-1).repeat_interleave(f2),
+                          layers[2]))
+    log(f"[check] neighbor_sample: shapes {shapes}, invalid picks {bad}")
+    if shapes != [(SAGE_SEEDS,), (SAGE_SEEDS, f1), (SAGE_SEEDS, f1, f2)] \
+            or bad:
+        fail("neighbor_sample: wrong shapes or invalid picks")
+    n_e = m // 100
+    (node_set, n_nodes, mask), ties_s = run(
+        f"ties_sample ({n_e} edges)",
+        lambda: ties_sample(g, n_e, 2 * n_e, key=45))
+    k = int(n_nodes)
+    nodes = node_set[:k]
+    rows32 = g.row_ids()
+    induced = torch.isin(rows32, nodes) & torch.isin(g.indices, nodes)
+    ends = torch.cat([rows32[mask], g.indices[mask]])
+    ok = (bool((nodes[1:] > nodes[:-1]).all())
+          and bool((node_set[k:] == -1).all()) and torch.equal(mask, induced)
+          and bool(torch.isin(nodes, ends).all()))
+    log(f"[check] ties_sample: {k} nodes, {int(mask.sum())} induced edges; "
+        f"sorted, unique, mask == induced edges, every node an endpoint "
+        f"{ok}")
+    if not ok:
+        fail("ties_sample: its invariants do not hold")
+    del node_set, mask, induced, ends, rows32
+
+    # -- repair after REPAIR_INSERTS inserts, then a batch with deletes ----
+    rng = np.random.default_rng(3)
+    handle = GraphHandle.wrap(g)
+    handle, rep = handle.apply((rng.integers(0, n, REPAIR_INSERTS),
+                                rng.integers(0, n, REPAIR_INSERTS),
+                                rng.random(REPAIR_INSERTS).astype(np.float32)))
+    if not rep.monotone_safe:
+        fail("the insert batch is not monotone-safe")
+    csr = handle.csr
+    prev = {"bfs": lv_p, "cc": cc_labels, "sssp": d_p}
+    fresh = {"bfs": lambda: bfs(csr, 0),
+             "cc": lambda: connected_components(csr),
+             "sssp": lambda: sssp(csr, 0, delta=delta)}
+    repair = {}
+    for kind in ("bfs", "sssp", "cc"):
+        got, s = run(f"repair {kind}", lambda: repair_or_recompute(
+            kind, handle, prev[kind], rep, source=0))
+        want, s_fresh = run(f"recompute {kind}", fresh[kind])
+        repair[kind] = dict(repair_s=s, recompute_s=s_fresh)
+        log(f"[check] repair {kind} after {rep.n_inserted} inserts "
+            f"({rep.n_upserted} upserts): bit-equal to a fresh run "
+            f"{torch.equal(got, want)}; repair {s!r} s, recompute "
+            f"{s_fresh!r} s")
+        if not torch.equal(got, want):
+            fail(f"repair {kind} differs from a fresh run")
+        prev[kind] = got
+    ctr = get_registry().counter("streaming.full_recompute_fallback")
+    c0 = ctr.value
+    pick = torch.arange(0, m, m // 16, device=dev)[:16]
+    handle, rep = handle.apply(deletes=(
+        g.row_ids()[pick].cpu().numpy(), g.indices[pick].cpu().numpy()))
+    for kind in ("bfs", "sssp", "cc"):
+        run(f"fallback {kind}", lambda: repair_or_recompute(
+            kind, handle, prev[kind], rep, source=0))
+    log(f"[check] a batch of {rep.n_deleted} deletes: monotone-safe "
+        f"{rep.monotone_safe}; streaming.full_recompute_fallback rose by "
+        f"{ctr.value - c0}")
+    if rep.monotone_safe or ctr.value - c0 != 3:
+        fail("the delete batch did not take the counted fallback")
+    for k in ("segment_mode", "run_sum"):
+        if not launched.get(k):
+            fail(f"the structured phase did not launch {k}")
+    row = dict(
+        launches=launched["segment_mode"] + launched["run_sum"],
+        entry_launches={k: launched[k] for k in ("segment_mode", "run_sum")},
+        **{key: mode_case[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+        cases=[mode_case, sum_case])
+    out.update(lpa_s=[lpa_s, lpa2_s], lpa_cpu_rmat16_s=cpu_lpa_s,
+               lpa_labels=n_lab, segment_mode_per_lpa_sweep=per_sweep,
+               multilevel_s=[ml_s, ml2_s], multilevel_levels=levels,
+               multilevel_launches=ml_launches,
+               multilevel_cpu_rmat16_s=cpu_ml_s, q_single_sweep=q_single,
+               walks_s=walk_s, sample=chi, neighbor_sample_s=sage_s,
+               ties_s=ties_s, repair=repair)
+    return row, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -865,6 +1254,7 @@ def main() -> int:
                                              pagerank, spmv, spmv_bbcsr, sssp,
                                              sssp_program, auto_delta)
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import segment_mode as SM
     from repro_torch.kernels import segment_or as SO
     from repro_torch.kernels import spmv_dma as K
 
@@ -1019,7 +1409,7 @@ def main() -> int:
     del lib_mat
 
     # -- 4. main path ----------------------------------------------------------
-    counted = (K, SO)
+    counted = (K, SO, SM)
     launches = {k: 0 for mod in counted for k in mod.LAUNCHES}
     walls, path_launches = {}, {}
 
@@ -1160,6 +1550,20 @@ def main() -> int:
     log(f"[check] cc: {n_comp} components, stats {cc_stats}")
     log(f"[mem] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
+
+    # the structured phase, on the same graph, holding repair to phase 4's
+    # BFS, SSSP and CC results
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sm_row, structured = structured_phase(g, lv_p, d_p, labels, delta,
+                                          counted, err, args)
+    structured["phase_s"] = time.perf_counter() - t0
+    log(f"[structured] phase wall {structured['phase_s']!r} s")
+    log(f"[mem] structured phase peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches["segment_mode"] = sm_row.pop("launches")
+    timed["segment_mode"] = sm_row
     for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select",
               "segment_or"):
         if launches[k] == 0:
@@ -1187,14 +1591,15 @@ def main() -> int:
                     bound_ms=timed[k]["bound_ms"],
                     bound_by=timed[k]["bound_by"],
                     library_ms=timed[k]["library_ms"],
-                    **{key: timed[k][key] for key in ("shape", "cases")
+                    **{key: timed[k][key] for key in ("shape", "cases",
+                                                      "entry_launches")
                        if key in timed[k]})
                for k in SOURCE]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "scale": args.scale,
                    "kernels": kernels, "walls_s": walls,
-                   "service": service,
+                   "service": service, "structured": structured,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

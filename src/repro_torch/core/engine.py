@@ -18,6 +18,16 @@ the batched-only bitwise ``or`` over packed lane words.  Frontier masking is
 folded into ``msg_fn`` (inactive vertices emit the combine identity), which
 is what makes push and pull produce the same acc.
 
+The *structured* combines ``argmax_weighted`` and ``sample`` carry an int32
+payload message (-1 = inactive) and give the update a (score, payload)
+pair: the weighted label mode of the incoming payloads
+(:func:`offload.segment_weighted_mode`, LPA's and Louvain's vote), or one
+keyed random pick among them (:func:`offload.segment_argmax` over
+priorities drawn from the run's ``key``, uniform for edge_op 'copy' and
+weighted by the edge value for 'mul').  A pick's priority is keyed on the
+edge's CSR position and the level, not on its place in the step's stream,
+so push and pull draw the same priority for the same edge and pick alike.
+
 Direction optimization: the **sparse / push** step expands only the active
 vertices' adjacency rows (work ∝ their edges); the **dense / pull** step is
 one edge-parallel pass.  'auto' pushes while the active count fits the push
@@ -46,6 +56,7 @@ the total sizes the push step's edge buffer.
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 from typing import Any, Callable, Optional
 
@@ -58,10 +69,11 @@ from .graph import BBCSR, CSR, to_bbcsr
 __all__ = ["VertexProgram", "ExecutionCore", "run", "run_batched",
            "build_pull_operand", "tile_active", "lane_words", "pack_lanes",
            "unpack_lanes", "fold_in", "sample_neighbors",
-           "frontier_edge_capacity"]
+           "frontier_edge_capacity", "Hierarchy", "run_multilevel"]
 
 _COMBINE_IDENTITY = {"add": 0.0, "min": float("inf"), "max": float("-inf"),
                      "or": 0}
+_STRUCTURED_COMBINES = ("argmax_weighted", "sample")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +82,12 @@ class VertexProgram:
 
     Attributes:
       edge_op:   how a message meets the edge weight: 'mul' | 'add' | 'copy'.
-      combine:   destination-side reduction: 'add' | 'min' | 'max', or the
+      combine:   destination-side reduction: 'add' | 'min' | 'max', or a
+                 structured combine 'argmax_weighted' | 'sample' (the message
+                 is then an int32 payload, -1 = inactive, and `acc` is the
+                 (score, payload) pair; scalar lanes only), or the
                  batched-only bitwise 'or' (messages are bit-packed int32
-                 lane words, :func:`run_batched`; edge_op 'copy').  The
-                 reference's structured combines are not ported yet.
+                 lane words, :func:`run_batched`; edge_op 'copy').
       msg_fn:    (state, frontier) -> (n,) messages; MUST emit `identity` for
                  vertices outside the frontier (that makes push == pull).
       update_fn: (state, acc, frontier, it) -> (state, next_frontier).
@@ -89,18 +103,32 @@ class VertexProgram:
     def __post_init__(self):
         if self.edge_op not in ("mul", "add", "copy"):
             raise ValueError(f"unknown edge_op {self.edge_op!r}")
-        if self.combine not in _COMBINE_IDENTITY:
+        if (self.combine not in _COMBINE_IDENTITY
+                and self.combine not in _STRUCTURED_COMBINES):
             raise ValueError(f"unknown combine {self.combine!r} (this engine "
-                             "runs 'add', 'min', 'max' and 'or')")
+                             "runs 'add', 'min', 'max', 'argmax_weighted', "
+                             "'sample' and 'or')")
+        if self.structured and self.edge_op == "add":
+            raise ValueError(f"combine {self.combine!r} takes its weight from "
+                             "the edge value: edge_op must be 'mul' (weighted)"
+                             " or 'copy' (unit)")
         if self.combine == "or" and self.edge_op != "copy":
             raise ValueError("combine 'or' reduces bit-packed lane words — "
                              "edge values cannot weigh in: edge_op must be "
                              "'copy'")
 
     @property
+    def structured(self) -> bool:
+        """True for the combines whose acc is a (score, payload) pair rather
+        than a single reduced value."""
+        return self.combine in _STRUCTURED_COMBINES
+
+    @property
     def ident(self):
         if self.identity is not None:
             return self.identity
+        if self.structured:
+            return float("-inf")  # score identity; payload identity is -1
         return _COMBINE_IDENTITY[self.combine]
 
 
@@ -207,16 +235,15 @@ def tile_active(bb: BBCSR, frontier: torch.Tensor) -> torch.Tensor:
 # Per-level step primitives (local placement)
 # ---------------------------------------------------------------------------
 
-def _gather_rows(indptr, indices, vals, ids, total: int,
-                 k: Optional[int] = None):
-    """DMA-gather the adjacency rows of ``ids`` (padding id = -1) as one flat
-    edge stream, at most ``k`` entries per row (all when None).
+def _row_positions(indptr, ids, total: int, k: Optional[int] = None):
+    """The CSR positions of the adjacency rows of ``ids`` (padding id = -1)
+    as one flat stream, at most ``k`` entries per row (all when None).
 
     ``total`` is the stream's length (the sum of the rows' capped degrees),
     known to the caller, so nothing here waits on the device.  Returns
     (seg (total,) int64 — the position in ``ids`` each entry came from,
-    cols (total,) int64, w (total,) edge values or None).  Rows are
-    expanded in ``ids`` order, each in CSR order.
+    pos (total,) int64 — its CSR position).  Rows are expanded in ``ids``
+    order, each in CSR order.
     """
     safe = torch.clamp(ids, min=0).long()
     start = indptr[safe].long()
@@ -227,7 +254,16 @@ def _gather_rows(indptr, indices, vals, ids, total: int,
     seg = torch.repeat_interleave(torch.arange(ids.shape[0], device=ids.device),
                                   deg, output_size=total)
     first = torch.cumsum(deg, 0) - deg
-    pos = start[seg] + torch.arange(total, device=ids.device) - first[seg]
+    return seg, start[seg] + torch.arange(total, device=ids.device) - \
+        first[seg]
+
+
+def _gather_rows(indptr, indices, vals, ids, total: int,
+                 k: Optional[int] = None):
+    """DMA-gather the adjacency rows of ``ids`` as one flat edge stream
+    (:func:`_row_positions`).  Returns (seg (total,) int64, cols (total,)
+    int64, w (total,) edge values or None)."""
+    seg, pos = _row_positions(indptr, ids, total, k)
     cols = indices[pos].long()
     return seg, cols, None if vals is None else vals[pos]
 
@@ -259,35 +295,94 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return _mix64(_mix64(key + _GOLDEN) ^ data)
 
 
+def as_key(key, device) -> torch.Tensor:
+    """A draw key as a 0-d int64 tensor on ``device``: an int is taken mod
+    2**64 and read as int64; a tensor is moved there."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device=device, dtype=torch.int64)
+    key = int(key) % (1 << 64)
+    return torch.tensor(key - (1 << 64) if key >= 1 << 63 else key,
+                        dtype=torch.int64, device=device)
+
+
+def _uniform(z: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms in (0, 1) from mixed int64 draws: the top 23 bits r of
+    each, as (r + 0.5) / 2**23 (exact in f32)."""
+    return (_srl(z, 41).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+
+
+def _es_scores(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Efraimidis–Spirakis reservoir priorities in the log domain: the max
+    of log(u_i) / w_i picks item i with probability w_i / sum(w) (the order
+    of u_i^(1/w_i), without its underflow at small w); non-positive weights
+    never win."""
+    return torch.where(w > 0, torch.log(u) / torch.clamp(w, min=1e-30),
+                       float("-inf"))
+
+
 def sample_neighbors(csr: CSR, queries: torch.Tensor, keys: torch.Tensor, *,
                      weighted: bool = False) -> torch.Tensor:
-    """One uniform out-neighbour draw per query slot: (Q,) int32.
+    """One out-neighbour draw per query slot: (Q,) int32.
 
-    ``keys`` (Q,) int64 are the slots' draw keys (:func:`fold_in`); a slot
-    draws ``r`` = the top 30 bits of ``mix(key)`` and picks the row entry
-    ``r mod degree`` — the reference's inverse-CDF draw, one random offset
-    into the row.  The same key and graph give the same neighbour whatever
-    the batch around the slot and whichever device runs it.  Sinks and
-    negative queries return the query itself.  The weighted reservoir
-    (``weighted=True``) needs the static row budget the port leaves out
-    (``_max_degree``) and is refused.
+    ``keys`` (Q,) int64 are the slots' draw keys (:func:`fold_in`).
+    Unweighted, a slot draws ``r`` = the top 30 bits of ``mix(key)`` and
+    picks the row entry ``r mod degree`` — the reference's inverse-CDF draw,
+    one random offset into the row.  ``weighted=True`` draws an entry with
+    probability proportional to its edge value (values <= 0 never drawn),
+    the distribution of the reference's keyed reservoir over the gathered
+    row, by the same lowering to an inverse-CDF draw: a slot takes ``u``
+    from the top 53 bits of ``mix(key)`` and picks the entry where ``u``
+    times the row's total falls in the row's prefix sums of values (float64,
+    kept per CSR), O(log degree) a slot instead of a gather of its row.  A
+    row whose values are all <= 0 gives its first entry, as the reference's
+    argmax does.  The same key and graph give the same neighbour whatever
+    the batch around the slot.  Sinks and negative queries return the query
+    itself.
     """
-    if weighted:
-        raise NotImplementedError(
-            "the weighted reservoir draw is not ported (ROADMAP §A.4)")
     q = queries.long()
     safe = torch.clamp(q, min=0)
     start = csr.indptr[safe].long()
     deg = csr.indptr[safe + 1].long() - start
-    r = _srl(_mix64(keys.long()), 34)
-    off = start + r % torch.clamp(deg, min=1)
+    z = _mix64(keys.long())
+    if weighted:
+        cum = csr.weight_prefix()
+        lo, hi = cum[start], cum[start + deg]
+        u = _srl(z, 11).to(torch.float64) * 2.0 ** -53
+        pos = torch.searchsorted(cum, lo + u * (hi - lo), right=True) - 1
+        off = torch.where(hi > lo, torch.minimum(
+            torch.maximum(pos, start), start + deg - 1), start)
+    else:
+        off = start + _srl(z, 34) % torch.clamp(deg, min=1)
     nbr = offload.dma_gather(csr.indices, torch.where(deg > 0, off, -1))
     return torch.where((deg > 0) & (q >= 0), nbr.long(), q).to(torch.int32)
 
 
-def _dense_step(rows, cols, vals, msg, n, prog: VertexProgram):
+def _structured_combine(idx, payload, w, pos, n, prog: VertexProgram,
+                        it_key):
+    """Edge-stream entry to the structured combines: idx = destination per
+    item, payload = int message (-1: inactive, ignored), w = edge weight,
+    pos = the item's CSR position (the 'sample' draw's key)."""
+    idx = torch.where(payload >= 0, idx, -1)
+    if prog.combine == "argmax_weighted":
+        return offload.segment_weighted_mode(idx, payload, w, n)
+    # 'sample': keyed reservoir pick — iid priorities per (level, edge), so
+    # the per-destination argmax is a uniform pick; Efraimidis–Spirakis
+    # priorities weight it by the edge value when edge_op='mul'
+    u = _uniform(fold_in(it_key, pos))
+    score = _es_scores(u, w) if prog.edge_op == "mul" else u
+    return offload.segment_argmax(idx, score, payload, n)
+
+
+def _dense_step(rows, cols, vals, msg, n, prog: VertexProgram, it_key=None):
     """Pull direction: one edge-parallel pass over every edge (``rows`` /
     ``cols`` int64)."""
+    if prog.structured:
+        w = vals if vals is not None else torch.ones(
+            rows.shape[0], dtype=torch.float32, device=rows.device)
+        pos = None if prog.combine != "sample" else torch.arange(
+            rows.shape[0], device=rows.device)
+        return _structured_combine(cols, msg[rows].to(torch.int32), w, pos,
+                                   n, prog, it_key)
     em = msg[rows]
     ev = _apply_edge(em, vals, prog.edge_op)
     if prog.combine == "add":
@@ -298,9 +393,17 @@ def _dense_step(rows, cols, vals, msg, n, prog: VertexProgram):
 
 
 def _sparse_step(indptr, indices, vals, msg, ids, n_edges: int, n,
-                 prog: VertexProgram):
+                 prog: VertexProgram, it_key=None):
     """Push direction: expand only the active vertices' adjacency rows
-    (``ids``, their ``n_edges`` edges) and scatter-combine them."""
+    (``ids``, their ``n_edges`` edges, at their exact degrees) and
+    scatter-combine them."""
+    if prog.structured:
+        seg, pos = _row_positions(indptr, ids, n_edges)
+        w = vals[pos].to(torch.float32) if vals is not None else torch.ones(
+            n_edges, dtype=torch.float32, device=ids.device)
+        return _structured_combine(indices[pos].long(),
+                                   msg[ids.long()][seg].to(torch.int32), w,
+                                   pos, n, prog, it_key)
     seg, cols, w = _gather_rows(indptr, indices, vals, ids, n_edges)
     em = msg[ids.long()][seg]
     contrib = _apply_edge(em, None if w is None else w.to(msg.dtype),
@@ -402,9 +505,10 @@ class ExecutionCore:
     (:func:`_core_loop`).
 
       msg:    (state, frontier) -> messages (vmapped for valued lanes).
-      step:   (msg, frontier, alive, edges) -> (acc, was_push): the level's
-              direction decision and the chosen step; ``alive`` and
-              ``edges`` are the host-side counts of this level.
+      step:   (msg, frontier, alive, edges, it_key) -> (acc, was_push): the
+              level's direction decision and the chosen step; ``alive`` and
+              ``edges`` are the host-side counts of this level, ``it_key``
+              the level's draw key (None without a run key).
       update: (state, acc, frontier, it) -> (state, next_frontier).
       count:  frontier -> (2,) int64 device tensor [active vertices of the
               union frontier, their out-edges].
@@ -430,12 +534,15 @@ def _lane_ops(prog: VertexProgram, lanes: str):
 
 
 def _core_loop(core: ExecutionCore, state0: Any, frontier0: torch.Tensor, *,
-               max_iters: int, trace_len: int = 0):
+               max_iters: int, key: Optional[torch.Tensor] = None,
+               trace_len: int = 0):
     """Run an :class:`ExecutionCore` to frontier exhaustion (or
     `max_iters`).  The engine's only stepping loop.  Each level reads the
     carried counts to the host once; that one read serves the termination
-    test, the direction choice and the push step's buffer size.  Returns
-    ``(state, stats)`` with stats = {'iters', 'pushes', 'pulls'} (ints).
+    test, the direction choice and the push step's buffer size.  With a
+    ``key`` each level draws from ``fold_in(key, it)``, as the reference
+    folds its PRNG key.  Returns ``(state, stats)`` with stats =
+    {'iters', 'pushes', 'pulls'} (ints).
 
     trace_len > 0 adds ``stats['trace']``, a (trace_len, 4) int32 tensor on
     the frontier's device with one row ``[frontier, was_push, fallback,
@@ -453,7 +560,8 @@ def _core_loop(core: ExecutionCore, state0: Any, frontier0: torch.Tensor, *,
         if alive == 0:
             break
         msg = core.msg(state, frontier)
-        acc, was_push = core.step(msg, frontier, alive, edges)
+        it_key = None if key is None else fold_in(key, it)
+        acc, was_push = core.step(msg, frontier, alive, edges, it_key)
         state, frontier = core.update(state, acc, frontier, it)
         counts = core.count(frontier)
         if it < trace_len:
@@ -473,14 +581,14 @@ def _direction_step(dense, sparse, mode: str, threshold: int):
     step while the active count fits ``threshold`` (the push capacity) and
     fall back to dense above it."""
     if mode == "pull":
-        def step(msg, frontier, alive, edges):
-            return dense(msg, frontier), 0
+        def step(msg, frontier, alive, edges, it_key):
+            return dense(msg, frontier, it_key), 0
         return step
 
-    def step(msg, frontier, alive, edges):
+    def step(msg, frontier, alive, edges, it_key):
         if alive <= threshold:
-            return sparse(msg, frontier, alive, edges), 1
-        return dense(msg, frontier), 0
+            return sparse(msg, frontier, alive, edges, it_key), 1
+        return dense(msg, frontier, it_key), 0
     return step
 
 
@@ -488,20 +596,23 @@ def _direction_step(dense, sparse, mode: str, threshold: int):
 # Local placement
 # ---------------------------------------------------------------------------
 
-# CSR id -> (src, dst) of its destination-sorted edge stream; an entry is
-# dropped when its graph is collected, so a recycled id cannot alias
+# CSR id -> (src, dst, order) of its destination-sorted edge stream; an
+# entry is dropped when its graph is collected, so a recycled id cannot alias
 _DST_SORTED: dict = {}
 
 
-def _dst_sorted_stream(csr: CSR):
-    """(src int64, dst int32) edge stream sorted by destination — the packed
-    dense step's presorted segment_or input, on the CSR's device.
-    Graph-only data, so the sort is kept per CSR, by object identity."""
+def _dst_sorted(csr: CSR):
+    """(src int64, dst int32, order int64) of the edge stream sorted stably
+    by destination, on the CSR's device — the packed dense step's
+    presorted segment_or input: ``order`` maps it back to CSR positions
+    (edge values in that order are ``values[order]``), and each
+    destination's edges keep their CSR order.  Graph-only data, so the sort
+    is kept per CSR, by object identity."""
     key = id(csr)
     hit = _DST_SORTED.get(key)
     if hit is None:
         dst, order = torch.sort(csr.indices, stable=True)
-        hit = _DST_SORTED[key] = (csr.index64()[0][order], dst)
+        hit = _DST_SORTED[key] = (csr.index64()[0][order], dst, order)
         weakref.finalize(csr, _DST_SORTED.pop, key, None)
     return hit
 
@@ -535,7 +646,7 @@ def _local_core(csr: CSR, prog: VertexProgram, *, mode: str, C: int,
         return _gather_rows(csr.indptr, csr.indices, vals, ids, edges), ids
 
     if lanes == "scalar":
-        def dense(msg, frontier):
+        def dense(msg, frontier, it_key):
             if kernel_bb is not None:
                 if prog.combine == "add":
                     return kops.spmv_dma(kernel_bb, msg)[:n]
@@ -543,29 +654,29 @@ def _local_core(csr: CSR, prog: VertexProgram, *, mode: str, C: int,
                 # dense pass (there is no separate dense-combine kernel)
                 return kops.spmspv_dma(kernel_bb, msg, all_active,
                                        combine=prog.combine)[:n]
-            return _dense_step(rows, cols, vals, msg, n, prog)
+            return _dense_step(rows, cols, vals, msg, n, prog, it_key)
 
-        def sparse(msg, frontier, alive, edges):
+        def sparse(msg, frontier, alive, edges, it_key):
             if kernel_bb is not None:
                 return kops.spmspv_dma(kernel_bb, msg,
                                        tile_active(kernel_bb, frontier),
                                        combine=prog.combine)[:n]
             ids = _compact(frontier, alive, ids_buf, iota)
             return _sparse_step(csr.indptr, csr.indices, vals, msg, ids,
-                                edges, n, prog)
+                                edges, n, prog, it_key)
 
     elif lanes == "packed":
-        p_src, p_dst = _dst_sorted_stream(csr)
+        p_src, p_dst, _ = _dst_sorted(csr)
 
-        def dense(msg, frontier):
+        def dense(msg, frontier, it_key):
             return offload.segment_or(p_dst, msg[p_src], n, presorted=True)
 
-        def sparse(msg, frontier, alive, edges):
+        def sparse(msg, frontier, alive, edges, it_key):
             (seg, ecols, _), ids = push_stream(frontier, alive, edges)
             return offload.segment_or(ecols, msg[ids[seg]], n)
 
     else:  # valued: msg (B, n)
-        def dense(msg, frontier):
+        def dense(msg, frontier, it_key):
             if kernel_bb is not None:
                 return _kernel_lanes(kernel_bb, msg, prog, all_active)
             em = msg[:, rows]                                   # (B, m)
@@ -573,7 +684,7 @@ def _local_core(csr: CSR, prog: VertexProgram, *, mode: str, C: int,
                 em, None if vals is None else vals[None, :], prog.edge_op),
                 cols, n, prog)
 
-        def sparse(msg, frontier, alive, edges):
+        def sparse(msg, frontier, alive, edges, it_key):
             if kernel_bb is not None:
                 return _kernel_lanes(kernel_bb, msg, prog,
                                      tile_active(kernel_bb, union(frontier)))
@@ -612,7 +723,7 @@ def _trace_len_of(trace: bool, trace_len, max_iters,
 
 def _run_local(csr: CSR, prog: VertexProgram, lanes: str, state0, frontier0,
                *, max_iters, mode, push_capacity, kernel_bb, return_stats,
-               trace, trace_len):
+               trace, trace_len, key=None):
     """Shared local runner: validate, plan a local ExecutionCore, loop."""
     if mode not in ("auto", "push", "pull"):
         raise ValueError(f"mode must be 'auto', 'push' or 'pull', got {mode!r}")
@@ -626,15 +737,17 @@ def _run_local(csr: CSR, prog: VertexProgram, lanes: str, state0, frontier0,
     core = _local_core(csr, prog, mode=mode, C=C, kernel_bb=kernel_bb,
                        lanes=lanes)
     state, stats = _core_loop(core, state0, frontier0, max_iters=max_iters,
-                              trace_len=n_trace)
+                              key=None if key is None else as_key(
+                                  key, csr.device), trace_len=n_trace)
     return (state, stats) if return_stats else state
 
 
 def run(csr: CSR, prog: VertexProgram, state0: Any, frontier0: torch.Tensor,
         *, max_iters: int, mode: str = "auto",
         push_capacity: Optional[int] = None,
-        kernel_bb: Optional[BBCSR] = None, return_stats: bool = False,
-        trace: bool = False, trace_len: Optional[int] = None):
+        kernel_bb: Optional[BBCSR] = None, key=None,
+        return_stats: bool = False, trace: bool = False,
+        trace_len: Optional[int] = None):
     """Run `prog` to frontier exhaustion (or `max_iters`) on the CSR's
     device: the (scalar lanes, local placement) point of the reference's
     grid (`run` → `_run_local` → `_core_loop`).
@@ -647,7 +760,10 @@ def run(csr: CSR, prog: VertexProgram, state0: Any, frontier0: torch.Tensor,
       (always dense).  'auto' switches on the frontier population count:
       sparse while it fits `push_capacity` (default n/32), dense otherwise.
     kernel_bb: BBCSR of A^T (see `build_pull_operand`) — routes both
-      directions through the BBCSR SpMV/SpMSpV kernels.
+      directions through the BBCSR SpMV/SpMSpV kernels (not for the
+      structured combines, as in the reference).
+    key: int64 draw key (an int or a 0-d tensor), required for
+      combine='sample'; level ``it`` draws from ``fold_in(key, it)``.
     return_stats: also return {'iters', 'pushes', 'pulls'} taken.
     trace: with return_stats, also return the per-level trace
       (``stats['trace']``, see :func:`_core_loop`; decoded by
@@ -658,11 +774,13 @@ def run(csr: CSR, prog: VertexProgram, state0: Any, frontier0: torch.Tensor,
     if prog.combine == "or":
         raise ValueError("combine='or' is the batched bitwise combine: run it "
                          "through run_batched")
+    if prog.combine == "sample" and key is None:
+        raise ValueError("combine='sample' draws keyed priorities: pass key=")
     return _run_local(csr, prog, "scalar", state0, frontier0,
                       max_iters=max_iters, mode=mode,
                       push_capacity=push_capacity, kernel_bb=kernel_bb,
                       return_stats=return_stats, trace=trace,
-                      trace_len=trace_len)
+                      trace_len=trace_len, key=key)
 
 
 def run_batched(csr: CSR, prog: VertexProgram, state0: Any,
@@ -691,11 +809,16 @@ def run_batched(csr: CSR, prog: VertexProgram, state0: Any,
       SpMSpV kernel (combine 'add' on a unit operand, or 'min' / 'max'),
       one launch per lane per level, all lanes sharing the union
       frontier's tile schedule (every tile on a dense level).  Packed lanes
-      have no kernel combine.  (The reference's structured combines cannot
-      be lane-batched; the port's VertexProgram does not take them.)
+      have no kernel combine.  The structured combines are refused, as in
+      the reference: sampling is batch-shaped already
+      (:func:`sample_neighbors`) and label modes are one-shot.
     Returns the final state; ``return_stats`` / ``trace`` / ``trace_len`` as
     :func:`run`, the trace rows describing the shared union-frontier scan.
     """
+    if prog.structured:
+        raise NotImplementedError(
+            "structured combines are not lane-batched: sampling is already "
+            "batch-shaped (sample_neighbors), label modes are one-shot")
     packed = prog.combine == "or"
     if kernel_bb is not None and packed:
         raise ValueError("the BBCSR kernels carry f32 payloads: bit-packed"
@@ -721,3 +844,78 @@ def frontier_edge_capacity(m: int, switch_frac: float, *,
     """
     slack = _tune.resolve("engine.push_slack", slack)
     return max(1, min(m, int(m * switch_frac * slack)))
+
+
+# ---------------------------------------------------------------------------
+# Multi-level pipeline (hierarchy of coarsened graphs)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Hierarchy:
+    """A chain of coarsening maps from a :func:`run_multilevel` run.
+
+    ``maps[l]`` is the (n_l,) int32 map from level-l vertex to its
+    level-(l+1) supernode: the level-(l+1) graph is the level-l graph
+    contracted along ``maps[l]``.
+    """
+
+    maps: tuple
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.maps)
+
+    def project(self, top: torch.Tensor) -> torch.Tensor:
+        """Pull a per-vertex array at the *top* (coarsest) level down to
+        level 0 by composing the maps: out[v] = top[maps[-1][...
+        maps[0][v]]]."""
+        x = top
+        for m in reversed(self.maps):
+            x = x[m.long()]
+        return x
+
+
+def run_multilevel(csr: CSR, level_fn: Callable, contract_fn: Callable,
+                   score_fn: Callable, *, max_levels: int = 10,
+                   tol: float = 1e-4):
+    """Generic cluster-then-contract level pipeline (multi-level Louvain's
+    loop shape, program-agnostic).
+
+    Per level: ``level_fn(g, level) -> (n_l,) assignment``, ``score_fn(g,
+    assign) -> float`` (or a 0-d tensor) scores the raw assignment, and —
+    only if the level is accepted — ``contract_fn(g, assign) ->
+    (coarse_g, renumber)`` collapses it.  A level is **accepted only if it
+    improves the score by more than ``tol``** over the previous accepted
+    level (level 0 must beat the singleton baseline ``score_fn(csr,
+    arange)``); the first non-improving level is discarded, without paying
+    for its contraction, and the loop stops, so the returned scores
+    increase strictly.  Also stops when a level no longer shrinks the
+    graph.  Host-driven: each level's shapes depend on the previous level's
+    readback, so reading each score to the host is the control flow.
+
+    Returns ``(labels0, hierarchy, scores)``: the level-0 projection of the
+    final clustering, the :class:`Hierarchy` of accepted maps, and the
+    accepted levels' scores.
+    """
+    g = csr
+    maps, scores = [], []
+    q_prev = float(score_fn(g, torch.arange(g.n_rows, dtype=torch.int32,
+                                            device=g.device)))
+    for level in range(max_levels):
+        assign = level_fn(g, level)
+        q = float(score_fn(g, assign))
+        if not math.isfinite(q) or q <= q_prev + tol:
+            break
+        coarse, renumber = contract_fn(g, assign)
+        maps.append(renumber)
+        scores.append(q)
+        q_prev = q
+        no_shrink = coarse.n_rows >= g.n_rows
+        g = coarse
+        if no_shrink:
+            break
+    hier = Hierarchy(tuple(maps))
+    n_top = g.n_rows if maps else csr.n_rows
+    labels0 = hier.project(torch.arange(n_top, dtype=torch.int32,
+                                        device=csr.device))
+    return labels0, hier, scores

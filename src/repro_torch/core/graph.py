@@ -47,7 +47,7 @@ from ..obs import get_registry
 
 __all__ = ["CSR", "BBCSR", "rmat", "uniform_random_graph", "to_padded_ell",
            "to_bbcsr", "csr_from_numpy", "bbcsr_from_numpy", "resolve_device",
-           "DeltaLog", "UpdateReport", "GraphHandle"]
+           "contract", "DeltaLog", "UpdateReport", "GraphHandle"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -123,6 +123,19 @@ class CSR:
             self._memo["index64"] = hit
         return hit
 
+    def weight_prefix(self) -> torch.Tensor:
+        """(nnz + 1,) float64 prefix sums of the edge values clamped at 0
+        (unit values when there are none); memoized — the weighted
+        neighbour draw's inverse CDF."""
+        hit = self._memo.get("weight_prefix")
+        if hit is None:
+            w = torch.ones(self.nnz, dtype=torch.float64, device=self.device) \
+                if self.values is None else \
+                self.values.to(torch.float64).clamp(min=0)
+            hit = self._memo["weight_prefix"] = torch.cat(
+                [w.new_zeros(1), torch.cumsum(w, 0)])
+        return hit
+
     def to_dense(self) -> torch.Tensor:
         vals = self.values if self.values is not None else torch.ones(
             self.nnz, dtype=torch.float32, device=self.device)
@@ -136,6 +149,10 @@ class CSR:
         on this CSR's device."""
         return CSR.from_coo(self.indices, self.row_ids(), self.values,
                             self.n_cols, self.n_rows, device=self.device)
+
+    def contract(self, labels) -> tuple["CSR", torch.Tensor]:
+        """Collapse label groups into supernodes; see :func:`contract`."""
+        return contract(self, labels)
 
     @staticmethod
     def from_coo(rows, cols, vals, n_rows, n_cols, *,
@@ -185,6 +202,60 @@ def _sum_runs(is_start: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         sel = dup[pos == j]
         out.index_add_(0, seg[sel], vals[sel])
     return out
+
+
+def contract(csr: CSR, labels) -> tuple[CSR, torch.Tensor]:
+    """Collapse communities into a coarsened graph (multi-level Louvain's
+    level step), on the CSR's device.
+
+    ``labels`` is any (n_rows,) int assignment.  The labels are renumbered
+    to dense coarse vertex ids with :func:`offload.compact_labels`, every
+    edge (u, v, w) becomes (label[u], label[v], w), and parallel coarse
+    edges are merged by one stable sort of the packed pairs ``label[u] <<
+    32 | label[v]`` and an in-order sum of each run (:func:`offload.run_sum`:
+    the bits of the reference's CPU segment sum, on the card too).
+    Intra-community edges accumulate into self-loops, which keeps
+    modularity invariant under contraction.
+
+    Returns (coarse CSR (n_c x n_c, weighted), renumber (n_rows,) int32
+    mapping each fine vertex to its coarse vertex id).
+    """
+    from . import offload
+
+    dev = csr.device
+    lab = torch.as_tensor(labels, device=dev).to(torch.int32)
+    if lab.shape[0] != csr.n_rows:
+        raise ValueError(f"labels must be ({csr.n_rows},), got "
+                         f"{tuple(lab.shape)}")
+    dense, n_c_dev = offload.compact_labels(lab)
+    m = csr.nnz
+    if m == 0:
+        # the coarse vertex count sizes indptr: read to the host
+        # repro-lint: disable=host-sync
+        n_c = int(n_c_dev)
+        return CSR(torch.zeros(n_c + 1, dtype=torch.int32, device=dev),
+                   torch.zeros(0, dtype=torch.int32, device=dev),
+                   torch.zeros(0, dtype=torch.float32, device=dev),
+                   n_c, n_c), dense
+    vals = csr.values if csr.values is not None else torch.ones(
+        m, dtype=torch.float32, device=dev)
+    rows, cols = csr.index64()
+    key, order = torch.sort((dense[rows].long() << 32) | dense[cols].long(),
+                            stable=True)
+    start, run = offload.run_starts(key)
+    # the coarse shapes depend on the labels: the vertex and edge counts
+    # are read to the host together, the call's one intended sync
+    # repro-lint: disable=host-sync
+    n_c, n_runs = torch.stack([n_c_dev.long(), run[-1] + 1]).tolist()
+    w = offload.run_sum(run, vals[order], n_runs)
+    # each run's key lands in its slot, the rest in the spare last one
+    ukey = key.new_empty(n_runs + 1).index_put_(
+        (torch.where(start, run, n_runs),), key)[:n_runs]
+    urows = ukey >> 32
+    indptr = torch.zeros(n_c + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(urows, minlength=n_c), 0)
+    return CSR(indptr.to(torch.int32), (ukey & 0xFFFFFFFF).to(torch.int32),
+               w, n_c, n_c), dense
 
 
 def rmat(scale: int, edge_factor: int = 16, *, a=0.57, b=0.19, c=0.19,

@@ -1,6 +1,6 @@
 """Plain torch versions of the port's kernels: the BBCSR products computed
-straight off the tile arrays, segment sum, segment OR, EmbeddingBag and
-attention.  The kernel wrappers take them for CPU tensors, and the card's
+straight off the tile arrays, segment sum, segment OR, the weighted label
+mode and in-order run sums, EmbeddingBag and attention.  The kernel wrappers take them for CPU tensors, and the card's
 checks hold each kernel against them.
 
 The 'add' versions form each product in float32, as the kernels do, and
@@ -16,7 +16,8 @@ import torch
 from ..core.graph import BBCSR
 
 __all__ = ["spmv_bbcsr_ref", "spmspv_bbcsr_ref", "combine_identity",
-           "segment_sum_ref", "segment_or_ref", "embedding_bag_ref",
+           "segment_sum_ref", "segment_or_ref", "run_sum_ref",
+           "segment_mode_ref", "embedding_bag_ref",
            "embedding_bag_pieces_ref",
            "attention_mask",
            "flash_attention_ref", "attention_pieces", "combine_pieces",
@@ -116,6 +117,38 @@ def segment_or_ref(idx: torch.Tensor, words: torch.Tensor,
         # bit 31 is the sign bit: -2^31, not 1 << 31, stays in int32
         out |= hit * (1 << s if s < 31 else -(1 << 31))
     return out
+
+
+def run_sum_ref(idx: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """out (n,): out[v] = the weights of the items with idx == v added one
+    after the other in stream order, from 0 (the reference's
+    ``jax.ops.segment_sum`` on the CPU), in f32 — f64 for float64 weights;
+    ids outside [0, n) dropped.
+
+    torch's CPU ``index_add_`` adds in item order (held by the port's
+    tests); on the card its atomics do not, so CUDA inputs are summed on
+    the host and the result moved back."""
+    dtype = torch.float64 if w.dtype == torch.float64 else torch.float32
+    keep = (idx >= 0) & (idx < n)
+    idx, w = idx[keep].long().cpu(), w[keep].to(dtype).cpu()
+    return torch.zeros(n, dtype=dtype).index_add_(0, idx, w).to(keep.device)
+
+
+def segment_mode_ref(dst: torch.Tensor, label: torch.Tensor, w: torch.Tensor,
+                     n: int):
+    """(best_w (n,) f32, best_label (n,) int32) over a stream sorted by
+    (dst, label), labels >= 0: each (dst, label) run's weights summed in
+    stream order (:func:`run_sum_ref`), then the reference's two-plane pick
+    (``offload.segment_argmax``: the largest sum, the smallest label that
+    reaches it); (-inf, -1) where no run sums above -inf."""
+    from ..core.offload import run_starts, segment_argmax
+    if dst.numel() == 0:
+        return (torch.full((n,), float("-inf"), device=w.device),
+                torch.full((n,), -1, dtype=torch.int32, device=w.device))
+    start, run = run_starts(dst, label)
+    sums = run_sum_ref(run, w, int(run[-1]) + 1)
+    return segment_argmax(torch.where(start, dst.long(), -1), sums[run],
+                          label, n)
 
 
 def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,

@@ -225,8 +225,11 @@ def test_batched_error_paths():
     noop = dict(msg_fn=None, update_fn=None)
     with pytest.raises(ValueError, match="copy"):
         TE.VertexProgram(edge_op="mul", combine="or", **noop)
-    with pytest.raises(ValueError):                # structured: not taken
-        TE.VertexProgram(edge_op="copy", combine="sample", **noop)
+    with pytest.raises(ValueError, match="edge_op must be"):
+        TE.VertexProgram(edge_op="add", combine="sample", **noop)
+    structured = TE.VertexProgram(edge_op="copy", combine="sample", **noop)
+    with pytest.raises(NotImplementedError, match="lane-batched"):
+        TE.run_batched(t, structured, {}, torch.ones((2, n)), max_iters=1)
     prog = TA.msbfs_program(2)
     f0 = TE.pack_lanes(torch.eye(2, n, dtype=torch.int32))
     state0 = {"seen": f0, "level": torch.zeros((2, n), dtype=torch.int32)}

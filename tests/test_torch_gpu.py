@@ -803,3 +803,160 @@ def test_service_matches_cpu(cuda):
             assert type(a) is type(b) and (a == b or a != a and b != b)
     assert svc_g.stats.as_dict() == svc_c.stats.as_dict()
     assert svc_g.stats.cache_hits > 0 and svc_g.stats.updates == 1
+
+
+# -- structured combines: segment_mode, run_sum, LPA, Louvain, sampling ------
+
+def _cpu(g):
+    from repro_torch.core import csr_from_numpy
+    return csr_from_numpy(g.indptr.cpu().numpy(), g.indices.cpu().numpy(),
+                          None if g.values is None else g.values.cpu().numpy(),
+                          g.n_rows, g.n_cols, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["hub_runs", "ties", "random", "empty"])
+def test_segment_mode_kernel_matches_plain(cuda, case):
+    """Bit-equal to the plain version on a (dst, label)-sorted stream: one
+    hub destination taking 200k votes in a few long label runs, integer
+    weights full of ties, random f32 weights with -inf items and ids out of
+    range, and an empty stream (no launch)."""
+    from repro_torch.core import offload
+    from repro_torch.kernels import segment_mode as SM
+    gen = _gen(31)
+    n = 3000
+    if case == "hub_runs":
+        idx = torch.cat([torch.full((200_000,), 7, device=cuda),
+                         torch.randint(0, n, (50_000,), device=cuda,
+                                       generator=gen)])
+        lab = torch.randint(0, 5, (idx.numel(),), device=cuda, generator=gen)
+        w = torch.rand(idx.numel(), device=cuda, generator=gen)
+    elif case == "ties":
+        idx = torch.randint(0, n, (80_000,), device=cuda, generator=gen)
+        lab = torch.randint(0, 40, (idx.numel(),), device=cuda,
+                            generator=gen)
+        w = torch.randint(0, 3, (idx.numel(),), device=cuda,
+                          generator=gen).float()
+    elif case == "random":
+        idx = torch.randint(-3, n + 3, (80_000,), device=cuda, generator=gen)
+        lab = torch.randint(-2, 2000, (idx.numel(),), device=cuda,
+                            generator=gen)
+        w = torch.rand(idx.numel(), device=cuda, generator=gen) * 1e3
+        w[torch.rand(idx.numel(), device=cuda, generator=gen) < 0.01] = \
+            float("-inf")
+    else:
+        idx = torch.zeros(0, dtype=torch.int64, device=cuda)
+        lab, w = idx.clone(), torch.zeros(0, device=cuda)
+    valid = (idx >= 0) & (idx < n) & (lab >= 0)
+    key, order = torch.sort(
+        (torch.where(valid, idx, n).long() << 32)
+        | torch.where(valid, lab, offload.LABEL_PAD).long(), stable=True)
+    sw = torch.where(valid[order], w[order], 0.0)
+    before = SM.LAUNCHES["segment_mode"]
+    got = SM.segment_mode_kernel_call(key >> 32, key & 0xFFFFFFFF, sw, n)
+    torch.cuda.synchronize()
+    assert SM.LAUNCHES["segment_mode"] == before + 1
+    want = ref.segment_mode_ref(key >> 32, key & 0xFFFFFFFF, sw, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the offload entry sorts and launches the same kernel; and the CPU
+    # path gives the same bits
+    full = offload.segment_weighted_mode(idx, lab, w, n)
+    cpu = offload.segment_weighted_mode(idx.cpu(), lab.cpu(), w.cpu(), n)
+    for a, b, c in zip(full, got, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_run_sum_in_order(cuda):
+    """run_sum adds each id's weights in stream order, like the CPU's
+    index_add_: bit-equal to the plain version (which sums on the host)
+    over runs of one to 100k items of f32 weights spanning six orders of
+    magnitude."""
+    from repro_torch.kernels import segment_mode as SM
+    gen = _gen(32)
+    n = 5000
+    idx = torch.sort(torch.cat([
+        torch.full((100_000,), 3, device=cuda),
+        torch.randint(-2, n + 2, (60_000,), device=cuda, generator=gen)]),
+        stable=True).values
+    w = torch.rand(idx.numel(), device=cuda, generator=gen) * \
+        10.0 ** torch.randint(-3, 3, (idx.numel(),), device=cuda,
+                              generator=gen).float()
+    before = SM.LAUNCHES["run_sum"]
+    got = SM.run_sum_kernel_call(idx, w, n)
+    torch.cuda.synchronize()
+    assert SM.LAUNCHES["run_sum"] == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.run_sum_ref(idx, w, n))
+    # the double entry, as modularity takes it
+    got64 = SM.run_sum_kernel_call(idx, w.double(), n)
+    assert got64.dtype == torch.float64
+    assert torch.equal(got64, ref.run_sum_ref(idx, w.double(), n))
+
+
+def test_lpa_card_matches_cpu(cuda):
+    """label_propagation at scale 12 on the card equals the CPU path bit
+    for bit in every mode, and two card runs give equal labels."""
+    from repro_torch.core.algorithms import label_propagation
+    from repro_torch.kernels import segment_mode as SM
+    g = rmat(12, 16, seed=8)
+    c = _cpu(g)
+    before = SM.LAUNCHES["segment_mode"]
+    for mode in ("pull", "push", "auto"):
+        got = label_propagation(g, iters=6, mode=mode)
+        assert torch.equal(got.cpu(), label_propagation(c, iters=6,
+                                                        mode=mode))
+    assert torch.equal(label_propagation(g, iters=6), got)
+    assert SM.LAUNCHES["segment_mode"] >= before + 24
+
+
+def test_multilevel_card_matches_cpu(cuda):
+    """multilevel at scale 12 (f32 weights) on the card equals the CPU path:
+    labels and scores bit for bit, through segment_mode and run_sum."""
+    from repro_torch.core.algorithms import multilevel
+    from repro_torch.kernels import segment_mode as SM
+    g = rmat(12, 16, seed=9)
+    before = dict(SM.LAUNCHES)
+    lab, scores = multilevel(g)
+    torch.cuda.synchronize()
+    assert SM.LAUNCHES["segment_mode"] > before["segment_mode"]
+    assert SM.LAUNCHES["run_sum"] > before["run_sum"]
+    lab_c, scores_c = multilevel(_cpu(g))
+    assert torch.equal(lab.cpu(), lab_c) and scores == scores_c
+    assert len(scores) >= 1 and all(b > a for a, b in zip(scores,
+                                                          scores[1:]))
+
+
+@pytest.mark.parametrize("edge_op", ["copy", "mul"])
+def test_sample_push_equals_pull_on_card(cuda, edge_op):
+    """The 'sample' combine keys each priority on the edge's CSR position,
+    so push and pull pick alike on the card, and the card equals the CPU
+    for the uniform draw; every pick is a real in-neighbour's payload."""
+    from repro_torch.core.graph import _edge_keys
+
+    def prog():
+        def msg_fn(s, f):
+            return torch.where(f > 0, s["v"], -1)
+
+        def upd(s, acc, f, it):
+            return {"v": s["v"], "p": acc[1]}, torch.zeros_like(f)
+        return engine.VertexProgram(edge_op=edge_op, combine="sample",
+                                    msg_fn=msg_fn, update_fn=upd)
+
+    g = rmat(12, 16, seed=10)
+    n = g.n_rows
+    f0 = (torch.rand(n, device=cuda, generator=_gen(33)) < 0.3).to(
+        torch.int32)
+    v0 = torch.arange(n, dtype=torch.int32, device=cuda)
+    picks = [engine.run(g, prog(), {"v": v0}, f0, max_iters=1, mode=m,
+                        key=123)["p"] for m in ("push", "pull")]
+    assert torch.equal(picks[0], picks[1])
+    p = picks[0]
+    hit = p >= 0
+    assert bool(f0[p[hit].long()].all())
+    keys = _edge_keys(g)
+    want = p[hit].long() * n + torch.nonzero(hit).squeeze(1)
+    assert bool(torch.isin(want, keys).all())
+    if edge_op == "copy":
+        c = _cpu(g)
+        got = engine.run(c, prog(), {"v": v0.cpu()}, f0.cpu(), max_iters=1,
+                         mode="pull", key=123)["p"]
+        assert torch.equal(got, p.cpu())
