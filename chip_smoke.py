@@ -8,12 +8,25 @@ Phases, each of which exits non-zero on failure:
 1. device: the card's name, capability, and its name and power limit as
    ``nvidia-smi`` reports them;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
-3. kernel parity on an RMAT graph (``rmat(scale, 16, seed=7)``, default
-   256/512/512 tile geometry): each BBCSR kernel against its plain torch
-   version on the card — SpMV (B1), SpMSpV 'add' on a frontier touching
-   about 1% of the column blocks (B2), SpMSpV 'min' / 'max' all-active and
-   sparse (B3); min/max exact, 'add' within rtol 1e-5 / atol 1e-5; B1
-   and B2 run twice on the same inputs must give equal bits (``[repro]``);
+   then the tune phase (``[tune]`` lines): ``repro_torch.tune.autotune``
+   at scale 16 on the card (B1 / B3 timed per BBCSR geometry, the 'add'
+   geometries gated to the default's bits), written to
+   ``build/tuned_smoke.json``, not the committed file; ``kernel_rows`` at
+   the run's scale (default vs tuned geometry per family, flash attention
+   b4h8s1024 in f32, an 8k-lookup EmbeddingBag) and the STREAM-triad peak
+   beside the nominal 3.35 TB/s; then, on the run's graph, the geometry
+   ``build_pull_operand`` resolves per family, and where the committed
+   'add' geometry is not the default, SpMV under both must give equal
+   bits; ``tune.autotune_fallback`` must not move from there through
+   connected components (a missing or misread tuned file would run
+   defaults unseen);
+3. kernel parity on an RMAT graph (``rmat(scale, 16, seed=7)``, the tile
+   geometry of the committed card entry): each BBCSR kernel against its
+   plain torch version on the card — SpMV (B1), SpMSpV 'add' on a
+   frontier touching about 1% of the column blocks (B2), SpMSpV 'min' /
+   'max' all-active and sparse (B3); min/max exact, 'add' within rtol
+   1e-5 / atol 1e-5; B1 and B2 run twice on the same inputs must give
+   equal bits (``[repro]``);
 4. the main path through the port's public entry points, each path with
    the launch counts zeroed just before it and read just after: SpMV,
    BFS on the unit pull operand, SSSP on the (min,+) operand (both against
@@ -147,6 +160,9 @@ SAMPLE_DRAWS = 1_000_000           # chi-square draws at the largest hub
 SAGE_FANOUTS, SAGE_SEEDS = (25, 10), 1024   # GraphSAGE's fanouts
 REPAIR_INSERTS = 4096
 SERVICE_TRACE = os.path.join(ROOT, "build", "service_trace.json")
+TUNE_SCALE = 16                    # the phase's sweep; the CLI sweeps 20
+TUNE_OUT = os.path.join(ROOT, "build", "tuned_smoke.json")
+TILE = ("block_rows", "block_cols", "tile_nnz")
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
@@ -252,6 +268,96 @@ def heaviest_block_diagnostic(bb, rb_slots, x, all_act, reps: int) -> dict:
         f"full {out['min_full_ms']!r} ms, block alone "
         f"{out['min_alone_ms']!r} ms")
     return out
+
+
+def tune_phase(args) -> dict:
+    """The sweep at TUNE_SCALE on the card (into TUNE_OUT), the kernel
+    measurement lane at the run's scale and the STREAM peak.  Returns the
+    phase's numbers."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.tune.sweep import format_entry
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    entry = tune.autotune(TUNE_SCALE, reps=3)
+    sweep_s = time.perf_counter() - t_phase
+    with open(TUNE_OUT, "w") as fh:
+        json.dump({"version": 1, "tool": "chip_smoke.py",
+                   "entries": [entry]}, fh, indent=1, sort_keys=True)
+    for line in format_entry(entry):
+        log(f"[tune] (cuda, {TUNE_SCALE}) {line}")
+    committed = tune.lookup("cuda", TUNE_SCALE)
+    same = committed is not None and committed["scale"] == TUNE_SCALE and \
+        all(committed["params"][k] == v for k, v in entry["params"].items()
+            if k.startswith("kernels.bbcsr"))
+    log(f"[tune] sweep at scale {TUNE_SCALE}: {sweep_s!r} s, written to "
+        f"{os.path.relpath(TUNE_OUT, ROOT)}; its winners equal the "
+        f"committed entry's: {same}")
+    t0 = time.perf_counter()
+    rows = tune.kernel_rows(args.scale, reps=3)
+    for r in rows:
+        cfg = "/".join(str(r["config"][k]) for k in TILE) \
+            if "config" in r else ""
+        # bytes_model is the reference's TPU stream model (whole padded
+        # tiles, and for 'min' a whole BFS), not the bytes the port's
+        # kernel moves: its rate is a ranking figure, not a device rate
+        log(f"[tune] kernel_rows {r['name']} {cfg}: {r['us']!r} us "
+            f"({r['measured']}); the reference's byte model "
+            f"{r['bytes_model']} B, {r['bytes_per_s'] / 1e9!r} GB/s by it")
+    rows_s = time.perf_counter() - t0
+    peak = tune.stream_peak_bytes_per_s()
+    log(f"[tune] STREAM triad peak {peak / 1e12!r} TB/s: "
+        f"{peak / HBM_BYTES_PER_S!r} of the nominal "
+        f"{HBM_BYTES_PER_S / 1e12!r} TB/s")
+    out = {"sweep": entry, "sweep_s": sweep_s, "winners_committed": same,
+           "kernel_rows": rows, "kernel_rows_s": rows_s,
+           "stream_peak_bytes_per_s": peak,
+           "phase_s": time.perf_counter() - t_phase,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[tune] phase wall {out['phase_s']!r} s")
+    log(f"[mem] tune phase peak allocated {out['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    return out
+
+
+def tuned_geometry(g, x) -> dict:
+    """The geometry build_pull_operand resolves on ``g`` per family (it
+    must come from the committed card entry); where the 'add' geometry is
+    not the default, SpMV under both must give equal bits.  Both operands
+    are freed."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.core import engine
+    from repro_torch.kernels import spmv_dma as K
+    entry = tune.lookup("cuda", tune.scale_of(g.n_rows))
+    if entry is None:
+        fail(f"the committed tuned file has no card entry within "
+             f"{tune.SCALE_WINDOW} of scale {tune.scale_of(g.n_rows)}")
+    geo = {fam: {k: tune.resolve(f"kernels.{fam}.{k}", n=g.n_rows,
+                                 device=g.device) for k in TILE}
+           for fam in ("bbcsr_add", "bbcsr_min")}
+    for fam, cfg in geo.items():
+        log(f"[tune] rmat graph resolves {fam} "
+            f"{'/'.join(str(cfg[k]) for k in TILE)} from the card entry at "
+            f"scale {entry['scale']} ({entry['device']}, "
+            f"{entry['power_limit']})")
+    default = {k: tune.DEFAULTS[f"kernels.bbcsr_add.{k}"] for k in TILE}
+    if geo["bbcsr_add"] == default:
+        log("[tune] the committed 'add' geometry is the default: SpMV runs "
+            "under one geometry")
+        return geo
+    y_t = K.spmv_bbcsr_kernel_call(engine.build_pull_operand(g), x)
+    y_d = K.spmv_bbcsr_kernel_call(engine.build_pull_operand(g, **default),
+                                   x)
+    torch.cuda.synchronize()
+    same = torch.equal(y_t, y_d)
+    log(f"[tune] SpMV under the tuned and the default 'add' geometry "
+        f"bit-equal: {same}")
+    if not same:
+        fail("the tuned 'add' geometry changes SpMV's bits on this graph")
+    del y_t, y_d
+    torch.cuda.empty_cache()
+    return geo
 
 
 def masked_attention(q, k, v, mask):
@@ -1255,6 +1361,7 @@ def main() -> int:
                                              sssp_program, auto_delta)
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import segment_mode as SM
+    from repro_torch.obs import get_registry
     from repro_torch.kernels import segment_or as SO
     from repro_torch.kernels import spmv_dma as K
 
@@ -1280,6 +1387,9 @@ def main() -> int:
                     "spill" in line:
                 log(f"[build]   {line.strip()}")
 
+    # -- tune ----------------------------------------------------------------
+    tuned = tune_phase(args)
+
     # -- graph ---------------------------------------------------------------
     t0 = time.perf_counter()
     g = rmat(args.scale, 16, seed=7)
@@ -1287,6 +1397,11 @@ def main() -> int:
     n = g.n_rows
     log(f"[graph] rmat({args.scale}, 16, seed=7): n={n} nnz={g.nnz} "
         f"in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand(n, device="cuda", generator=gen)
+    fallback = get_registry().counter("tune.autotune_fallback")
+    fallbacks0 = fallback.value
+    tuned["geometry"] = tuned_geometry(g, x)
     t0 = time.perf_counter()
     bb = engine.build_pull_operand(g)
     torch.cuda.synchronize()
@@ -1303,8 +1418,6 @@ def main() -> int:
         f"{float(rb_slots.double().mean())!r}; tiles max "
         f"{int(rb_tiles.max())} mean {float(rb_tiles.double().mean())!r}")
 
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.rand(n, device="cuda", generator=gen)
     # B2/B3 sparse frontier: 8 vertices in each of ~1% of the column blocks
     n_cb = bb.n_col_blocks
     blocks = torch.randperm(n_cb, device="cuda", generator=gen)[
@@ -1548,6 +1661,12 @@ def main() -> int:
         fail("connected-component labels are not min-member roots that "
              "cover the BFS tree of vertex 0")
     log(f"[check] cc: {n_comp} components, stats {cc_stats}")
+    moved = fallback.value - fallbacks0
+    log(f"[check] tune.autotune_fallback moved by {moved} over phases 3-4 "
+        f"(the graph path, the batched lanes, the service, PageRank, CC)")
+    if moved:
+        fail("a tunable of the graph path fell back to its default: the "
+             "committed tuned file was missing or misread")
     log(f"[mem] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
 
@@ -1601,6 +1720,7 @@ def main() -> int:
                    "kernels": kernels, "walls_s": walls,
                    "service": service, "structured": structured,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
+                   "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)

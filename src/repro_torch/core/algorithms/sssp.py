@@ -67,7 +67,8 @@ def auto_delta(csr: CSR, *, bins: int = 64, light_edges_per_vertex: float = 4.0,
     if csr.values is None or csr.nnz == 0:
         return 1.0
     w = csr.values.cpu().numpy()
-    mul = tune.resolve("sssp.delta_scale") if scaled else 1.0
+    mul = tune.resolve("sssp.delta_scale", n=csr.n_rows,
+                       device=csr.device) if scaled else 1.0
     avg_deg = max(1.0, csr.nnz / max(1, csr.n_rows))
     hist, edges = np.histogram(w, bins=bins)
     cdf = np.cumsum(hist) / max(1, w.size)

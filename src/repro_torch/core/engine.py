@@ -207,11 +207,13 @@ def build_pull_operand(csr: CSR, *, unit_values: bool = False,
     ``spmv_dma(bb, msg)`` computes exactly the engine's dense step for an
     'add' program (and ``spmspv_dma`` its sparse step), on the CSR's device.
 
-    The tile geometry defaults to ``combine``'s kernel family in
-    :mod:`repro_torch.tune`; explicit ``block_rows=`` / ``block_cols=`` /
-    ``tile_nnz=`` kwargs win per key."""
+    The tile geometry defaults to the tuned entry of ``combine``'s kernel
+    family for the CSR's device type and graph scale
+    (:mod:`repro_torch.tune`); explicit ``block_rows=`` / ``block_cols=``
+    / ``tile_nnz=`` kwargs win per key."""
     family = "bbcsr_min" if combine in ("min", "max") else "bbcsr_add"
-    params = {k: _tune.resolve(f"kernels.{family}.{k}", bb_kwargs.get(k))
+    params = {k: _tune.resolve(f"kernels.{family}.{k}", bb_kwargs.get(k),
+                               n=csr.n_rows, device=csr.device)
               for k in ("block_rows", "block_cols", "tile_nnz")}
     params.update({k: v for k, v in bb_kwargs.items()
                    if k not in ("block_rows", "block_cols", "tile_nnz")})
@@ -831,7 +833,8 @@ def run_batched(csr: CSR, prog: VertexProgram, state0: Any,
 
 
 def frontier_edge_capacity(m: int, switch_frac: float, *,
-                           slack: Optional[float] = None) -> int:
+                           slack: Optional[float] = None,
+                           n: Optional[int] = None, device=None) -> int:
     """Per-peer routing capacity for the compacted sparse push.
 
     While the engine is in the push regime the frontier holds at most
@@ -839,10 +842,11 @@ def frontier_edge_capacity(m: int, switch_frac: float, *,
     about ``switch_frac * m`` active edges; ``slack`` covers degree skew.
     The local placement routes nothing: the service's route-byte model
     (``traffic.push_level_route_bytes``) prices its push levels at this
-    capacity.  ``slack`` None takes ``engine.push_slack``
-    (``repro_torch.tune``).
+    capacity.  ``slack`` None takes the tuned ``engine.push_slack``
+    (``repro_torch.tune``) for ``device``'s type at the scale of ``n``
+    (global vertices) when the caller knows them.
     """
-    slack = _tune.resolve("engine.push_slack", slack)
+    slack = _tune.resolve("engine.push_slack", slack, n=n, device=device)
     return max(1, min(m, int(m * switch_frac * slack)))
 
 

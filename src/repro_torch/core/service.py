@@ -336,8 +336,10 @@ class GraphService:
                 "GraphService(mesh=...): the distributed placement is not "
                 "ported yet (ROADMAP §A.8); build the service without a mesh "
                 "to serve from the local engine")
+        g0 = csr.csr if isinstance(csr, GraphHandle) else csr
         batch_budget = int(_tune.resolve("service.batch_budget",
-                                         batch_budget))
+                                         batch_budget, n=g0.n_rows,
+                                         device=g0.device))
         if batch_budget < 1:
             raise ValueError("batch_budget must be >= 1")
         if placement not in ("sync", "async"):
@@ -401,7 +403,9 @@ class GraphService:
         self._ppr_k = min(self.ppr_k_max, csr.n_rows)
         m_per = -(-csr.nnz // self.stats.n_model_shards)
         self._edge_cap = engine.frontier_edge_capacity(
-            m_per, _tune.resolve("engine.switch_frac"))
+            m_per, _tune.resolve("engine.switch_frac", n=csr.n_rows,
+                                 device=csr.device),
+            n=csr.n_rows, device=csr.device)
         self._m_per_shard = m_per
 
     def apply_updates(self, inserts=None, deletes=None) -> UpdateReport:

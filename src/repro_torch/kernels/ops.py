@@ -41,8 +41,10 @@ def segment_sum_sorted(data: torch.Tensor, seg: torch.Tensor,
     float32; seg = -1 rows are dropped.  Sorted ids are the contract of the
     reference; the kernel takes any order and any size.
 
-    block_n: rows one CTA walks; None takes the port's default."""
-    block_n = int(_tune.resolve("kernels.segment_sum.block_n", block_n))
+    block_n: rows one CTA walks; None takes the tuned value
+    (:mod:`repro_torch.tune`; an explicit value wins)."""
+    block_n = int(_tune.resolve("kernels.segment_sum.block_n", block_n,
+                                n=num_segments, device=data.device))
     return _ss.segment_sum_kernel_call(data, seg, num_segments,
                                        block_n=block_n)
 
@@ -85,9 +87,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     block_q / block_k: the folded kernels' tile (folded rows per CTA, keys
     per tile; the bf16 wgmma path, which prefill and window calls take, has
-    a fixed 128 x 128 tile); None takes the port's defaults."""
-    block_q = int(_tune.resolve("kernels.flash_attention.block_q", block_q))
-    block_k = int(_tune.resolve("kernels.flash_attention.block_k", block_k))
+    a fixed 128 x 128 tile); None takes the tuned values
+    (:mod:`repro_torch.tune`; explicit values win)."""
+    seq = q.shape[-2]
+    block_q = int(_tune.resolve("kernels.flash_attention.block_q", block_q,
+                                n=seq, device=q.device))
+    block_k = int(_tune.resolve("kernels.flash_attention.block_k", block_k,
+                                n=seq, device=q.device))
     return _fa.flash_attention_kernel_call(
         q, k, v, causal=causal, window=window, scale=scale, block_q=block_q,
         block_k=block_k)

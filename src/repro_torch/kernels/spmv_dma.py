@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.graph import BBCSR
+from ..tune.space import SMEM_LIMIT
 from . import _build
 from . import ref
 
@@ -47,7 +48,6 @@ SHARE_MIN = 128
 SHARE_MAX = 4096
 _COMBINE_CODE = {"add": 0, "min": 1, "max": 2}
 _PLAN_TILES = 2048           # tiles per CTA of the plan kernels
-_SMEM_LIMIT = 227 * 1024     # shared memory one CTA may opt in to (H100)
 
 # operand id -> its SpMV Plan (None until the first SpMV), kept once the
 # operand has passed its checks and dropped with the operand
@@ -151,9 +151,9 @@ def _check_operand(bb: BBCSR) -> None:
             raise ValueError(f"bb.{name}: want contiguous {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
     smem = _lib().bbcsr_smem_bytes(bb.block_rows)
-    if smem > _SMEM_LIMIT:
+    if smem > SMEM_LIMIT:
         raise ValueError(f"block_rows={bb.block_rows} needs {smem} B of "
-                         f"shared memory per CTA, over {_SMEM_LIMIT}")
+                         f"shared memory per CTA, over {SMEM_LIMIT}")
 
 
 def _checked(bb: BBCSR) -> dict:

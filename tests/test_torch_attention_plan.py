@@ -21,8 +21,10 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 
 N_SM = 132   # an H100's SMs; the plan takes the count as an argument
-BQ = tune.DEFAULTS["kernels.flash_attention.block_q"]
-BK = tune.DEFAULTS["kernels.flash_attention.block_k"]
+# the tiles ops.flash_attention resolves for a decode step (Sq = 1) on the
+# card, where the qwen3-14b cases below run
+BQ = tune.resolve("kernels.flash_attention.block_q", n=1, device="cuda")
+BK = tune.resolve("kernels.flash_attention.block_k", n=1, device="cuda")
 
 PLAN_CASES = [  # B, Hkv, Sq, Skv, g, block_q, block_k, causal, window
     (1, 8, 1, 32768, 5, BQ, BK, True, None),      # qwen3-14b, batch 1

@@ -730,6 +730,82 @@ def test_batched_lanes_match_cpu(cuda):
                                rtol=1e-5, atol=1e-5)
 
 
+# -- tuning: the resolver, the mirror and the gate on the card -------------
+
+def _same_knobs_on_both_backends(tmp_path, monkeypatch, scale):
+    """Point the resolver at a file whose "cpu" and "cuda" entries at
+    ``scale`` hold the committed CPU entry's knobs."""
+    import importlib
+    import json
+
+    from repro_torch import tune
+    resolve_mod = importlib.import_module("repro_torch.tune.resolve")
+    params = tune.lookup("cpu", scale)["params"]
+    path = tmp_path / "tuned.json"
+    path.write_text(json.dumps({"version": 1, "entries": [
+        {"backend": b, "scale": scale, "params": params}
+        for b in ("cpu", "cuda")]}))
+    monkeypatch.setattr(resolve_mod, "TUNED_PATH", str(path))
+
+
+@pytest.mark.parametrize("block_rows", [32, 64, 128, 256, 512])
+def test_smem_mirror_equals_the_library(cuda, block_rows):
+    from repro_torch.tune import space
+    assert K._lib().bbcsr_smem_bytes(block_rows) == \
+        space.bbcsr_smem_bytes(block_rows)
+
+
+def _geometry(bb):
+    return {"block_rows": bb.block_rows, "block_cols": bb.block_cols,
+            "tile_nnz": bb.tile_nnz}
+
+
+def test_cuda_csr_resolves_the_card_entry(cuda):
+    """At scale 14 the committed "cuda" entry at 16 and "cpu" entry at 12
+    are both in the window: a CUDA graph builds its operands from the
+    former, the same graph on the CPU from the latter, neither counted as
+    a fallback."""
+    from repro_torch import tune
+    from repro_torch.obs import get_registry
+    g = rmat(14, 8, seed=0)
+    c = _cpu(g)
+    counter = get_registry().counter("tune.autotune_fallback")
+    before = counter.value
+    for combine in ("add", "min"):
+        fam = "bbcsr_min" if combine == "min" else "bbcsr_add"
+        for graph, backend in ((g, "cuda"), (c, "cpu")):
+            bb = engine.build_pull_operand(graph, combine=combine)
+            params = tune.lookup(backend, 14)["params"]
+            assert _geometry(bb) == {k: params[f"kernels.{fam}.{k}"]
+                                     for k in _geometry(bb)}
+            assert bb.vals.device.type == backend
+    assert tune.lookup("cuda", 14)["scale"] == 16
+    assert counter.value == before
+
+
+@pytest.mark.parametrize("graph", ["probe", "chip_smoke"])
+def test_admitted_add_geometries_give_default_bits(cuda, graph):
+    """Every 'add' geometry the committed scale-16 sweep admitted gives the
+    default geometry's SpMV bits at RMAT-16: on the sweep's probe and on
+    chip_smoke's graph, which the gate never saw."""
+    from repro_torch import tune
+    from repro_torch.tune import space
+    from repro_torch.tune.sweep import _inputs
+    g = rmat(16, 8, seed=0) if graph == "probe" else rmat(16, 16, seed=7)
+    entry = [e for e in tune.load_tuned()["entries"]
+             if (e["backend"], e["scale"]) == ("cuda", 16)][0]
+    admitted = [cfg for cfg, _ in
+                entry["scores"]["kernels.bbcsr_add"]["candidates"]]
+    default = space.kernel_grid("kernels.bbcsr_add")[0]
+    assert admitted[0] == default and len(admitted) >= 2
+    x, _ = _inputs(g.n_rows, "add", cuda)
+    want = K.spmv_bbcsr_kernel_call(
+        engine.build_pull_operand(g, **default), x)
+    for cfg in admitted[1:]:
+        got = K.spmv_bbcsr_kernel_call(engine.build_pull_operand(g, **cfg), x)
+        assert torch.equal(got, want), cfg
+
+
 # -- the local graph query service ------------------------------------------
 
 class _TickClock:
@@ -757,15 +833,17 @@ def _serve(g, queries, inserts):
     return svc, out
 
 
-def test_service_matches_cpu(cuda):
+def test_service_matches_cpu(cuda, tmp_path, monkeypatch):
     """One seeded mixed stream (all four kinds, repeats, an edge update in
     one partition between two passes) through a CUDA service and a CPU
     service on rmat(10): Reachability, Distance and NeighborSample draws
     (the keyed hash is device-independent) and the spliced CSR bit-equal,
-    PPR within 1e-5, stats equal."""
+    PPR within 1e-5, stats equal.  Each backend resolves its own tuned
+    entry, so both read one file holding equal knobs for either."""
     import numpy as np
     from repro_torch.core import (Distance, NeighborSample, PPRTopK,
                                   Reachability, csr_from_numpy)
+    _same_knobs_on_both_backends(tmp_path, monkeypatch, 10)
     g = rmat(10, 8, seed=3)
     c = csr_from_numpy(g.indptr.cpu().numpy(), g.indices.cpu().numpy(),
                        g.values.cpu().numpy(), g.n_rows, g.n_cols,

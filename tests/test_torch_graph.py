@@ -171,11 +171,12 @@ PORT_TILES = ("kernels.segment_sum.block_n",
               "kernels.flash_attention.block_k")
 
 
-def test_tune_defaults_are_the_reference_defaults():
+def test_tune_defaults_are_the_reference_defaults(tmp_path):
     from repro_torch.kernels import flash_attention as TFA
+    no_file = str(tmp_path / "absent.json")     # no entry: the defaults
     for name, value in TT.DEFAULTS.items():
         assert name in REF_DEFAULTS
-        assert TT.resolve(name) == value
+        assert TT.resolve(name, path=no_file) == value
         if name not in PORT_TILES:
             assert REF_DEFAULTS[name] == value
     assert TT.DEFAULTS["kernels.flash_attention.block_q"] in TFA.BLOCK_Q

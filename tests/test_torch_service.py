@@ -14,9 +14,9 @@ and ``GraphService`` against the live reference, on the same numpy inputs.
   the scores are clear of ties, scores within rtol 1e-5 / atol 1e-6: f32
   sums in another order), ``stats.as_dict()``, the cache's keys, the spans
   and the decoded level runs all equal the reference's.  The port's
-  ``sssp.delta_scale`` and engine knobs are set to the values the
-  reference resolves from its tuned file (the port's own default
-  delta_scale differs by design, ROADMAP §C.3).
+  resolver reads a tuned file holding the ``sssp.delta_scale`` and engine
+  knobs that the reference resolves from its own, and both sides must
+  resolve equal knobs.
 * ``NeighborSample`` by distribution (the reference's threefry keys cannot
   be replayed): real out-neighbours, sinks stay put, draws independent of
   the batch around them, cache reuse across an epoch that leaves the
@@ -25,6 +25,7 @@ and ``GraphService`` against the live reference, on the same numpy inputs.
 * Error paths and ``load_cost_priors`` equal to the reference's.
 """
 import dataclasses
+import importlib
 import json
 
 import numpy as np
@@ -42,6 +43,9 @@ from repro_torch.core import graph as TG
 from repro_torch.core import service as TS
 from repro_torch.obs import MetricsRegistry as TMetrics
 from repro_torch.obs import Observability as TObs
+
+# the module (the package's ``resolve`` is the function)
+TR = importlib.import_module("repro_torch.tune.resolve")
 
 RTOL, ATOL = 1e-5, 1e-6
 G = RG.rmat(7, 8, seed=11)
@@ -365,20 +369,34 @@ def _run_service(mod, obs_cls, metrics_cls, g):
     return log
 
 
+KNOBS = ("sssp.delta_scale", "engine.switch_frac", "engine.push_slack")
+
+
 @pytest.fixture(scope="module")
-def streams():
+def streams(tmp_path_factory):
+    # the port's resolver reads a tuned file holding the values the
+    # reference resolves from its own, so both services run the same knobs
     n = BLOBS.n_rows
+    path = tmp_path_factory.mktemp("tuned") / "tuned.json"
+    path.write_text(json.dumps({"version": 1, "entries": [
+        {"backend": "cpu", "scale": TT.scale_of(n),
+         "params": {name: RT.resolve(name, n=n) for name in KNOBS}}]}))
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("sssp.delta_scale", "engine.switch_frac",
-                     "engine.push_slack"):
-            mp.setitem(TT.DEFAULTS, name, RT.resolve(name, n=n))
+        mp.setattr(TR, "TUNED_PATH", str(path))
+        knobs = {name: (TT.resolve(name, n=n, device="cpu"),
+                        RT.resolve(name, n=n)) for name in KNOBS}
         ref = _run_service(RS, RObs, RMetrics, BLOBS)
         got = _run_service(TS, TObs, TMetrics, port(BLOBS))
-    return ref, got
+    return ref, got, knobs
+
+
+def test_service_runs_the_reference_knobs(streams):
+    knobs = streams[2]
+    assert all(port_v == ref_v for port_v, ref_v in knobs.values()), knobs
 
 
 def test_service_flushes_the_same_tickets_in_order(streams):
-    ref, got = streams
+    ref, got, _ = streams
     assert got["tickets"] == ref["tickets"]
     assert got["auto"] == ref["auto"]
     assert sorted(got["results"]) == sorted(ref["results"])
@@ -387,7 +405,7 @@ def test_service_flushes_the_same_tickets_in_order(streams):
 
 
 def test_service_traversal_answers_match(streams):
-    ref, got = streams
+    ref, got, _ = streams
     n_checked = 0
     for t, (kind, _) in ref["queries"].items():
         a, b = ref["results"][t], got["results"][t]
@@ -403,7 +421,7 @@ def test_service_traversal_answers_match(streams):
 
 
 def test_service_ppr_answers_match(streams):
-    ref, got = streams
+    ref, got, _ = streams
     n_ppr = 0
     for t, (kind, q) in ref["queries"].items():
         if kind != "ppr":
@@ -422,7 +440,7 @@ def test_service_ppr_answers_match(streams):
 
 
 def test_service_samples_are_real_neighbours(streams):
-    ref, got = streams
+    ref, got, _ = streams
     indptr, indices = np.asarray(BLOBS.indptr), np.asarray(BLOBS.indices)
     n_sample = 0
     for t, (kind, q) in ref["queries"].items():
@@ -437,7 +455,7 @@ def test_service_samples_are_real_neighbours(streams):
 
 
 def test_service_stats_match(streams):
-    ref, got = streams
+    ref, got, _ = streams
     assert got["stats"] == ref["stats"]
     st = ref["stats"]
     assert st["cache_hits"] and st["deadline_queries"] and st["updates"] == 1
@@ -446,7 +464,7 @@ def test_service_stats_match(streams):
 
 
 def test_service_cache_matches_after_updates(streams):
-    ref, got = streams
+    ref, got, _ = streams
     assert got["cache"] == ref["cache"]
     # the confined update left blob B's entries alone
     assert any(k[1] >= 128 for k in ref["cache"][0])
@@ -454,7 +472,7 @@ def test_service_cache_matches_after_updates(streams):
 
 
 def test_service_spans_match(streams):
-    ref, got = streams
+    ref, got, _ = streams
     assert len(got["spans"]) == len(ref["spans"])
     for r, t in zip(ref["spans"], got["spans"]):
         assert t == r
@@ -463,14 +481,14 @@ def test_service_spans_match(streams):
 
 
 def test_service_level_runs_match(streams):
-    ref, got = streams
+    ref, got, _ = streams
     assert got["level_runs"] == ref["level_runs"]
     assert {r[0].split("@")[0] for r in ref["level_runs"]} == \
         {"reach", "dist", "ppr"}
 
 
 def test_service_metrics_match(streams):
-    ref, got = streams
+    ref, got, _ = streams
     assert got["metrics"] == ref["metrics"]
     assert got["metrics"]["service.cache_invalidations"] > 0
 
