@@ -76,6 +76,25 @@ Phases, each of which exits non-zero on failure:
    ``repair_or_recompute`` of phase 4's BFS, SSSP and CC results must be
    bit-equal to fresh runs, and a batch with deletes must take the
    counted fallback; ``segment_mode`` and ``run_sum`` must be launched;
+   then the distributed phase (``[dist]`` lines): the graph is sharded
+   once on the host with the degree-balanced rule (its reverse by the same
+   rule, the symmetrized graph by its own) and saved with the earlier
+   phases' results under ``build/dist``; 4 ranks sharing the card over
+   gloo (CUDA tensors) run ``bfs_distributed`` (auto, and async with
+   sync_interval 4), ``sssp_distributed`` at phase 3's delta,
+   ``connected_components_distributed``, ``pagerank_distributed`` (phase
+   3's iterations), ``spmv_distributed`` in both modes,
+   ``msbfs_distributed`` over phase 4's 32 sources,
+   ``sssp_batched_distributed`` over the first 8 and
+   ``label_propagation_distributed(iters=8)``, each with the mesh's
+   collective counts and the kernels' launch counts zeroed just before it
+   and read just after; BFS, SSSP, CC, every msbfs and sssp_batched lane
+   and LPA must equal the local results bit for bit, PageRank (rtol 1e-4,
+   atol 1e-9, mass 1 within 1e-3) and SpMV (rtol 1e-4, atol 1e-5) be
+   close; ``segment_or`` and ``segment_mode`` must be launched; each
+   level's collectives and routed bytes must equal ``core.traffic``'s
+   model; then a 1-rank NCCL mesh runs the direction-optimizing BFS once
+   more (bit-equal);
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
    function (timed here only; the port never calls it), and B1 / B3 on the
@@ -154,6 +173,7 @@ BFS_RUNS = 10                      # warm BFS kernel-path runs, timed apart
 PPR_TOL = 1e-5                     # batched PPR, kernel vs plain path
 SERVICE_INSERTS = 4096             # the service phase's edge update
 LPA_ITERS = 8                      # configs/piuma_graph.py lpa_iters
+PAGERANK_ITERS = 20                # pagerank's default
 SMALL_SCALE = 16                   # card vs CPU path
 WALK_STEPS = 80                    # DeepWalk's walk length
 SAMPLE_DRAWS = 1_000_000           # chi-square draws at the largest hub
@@ -163,6 +183,14 @@ SERVICE_TRACE = os.path.join(ROOT, "build", "service_trace.json")
 TUNE_SCALE = 16                    # the phase's sweep; the CLI sweeps 20
 TUNE_OUT = os.path.join(ROOT, "build", "tuned_smoke.json")
 TILE = ("block_rows", "block_cols", "tile_nnz")
+DIST_RANKS = 4                     # ranks sharing the card (gloo)
+DIST_BATCHED = 8                   # sssp_batched_distributed's lanes
+DIST_K = 4                         # the async BFS's sync_interval
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+# distributed PageRank vs phase 3's: values average 1e-6 at RMAT-20, so
+# the absolute floor sits well under them
+DIST_PR_RTOL, DIST_PR_ATOL = 1e-4, 1e-9
+DIST_SPMV_RTOL, DIST_SPMV_ATOL = 1e-4, 1e-5
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
@@ -190,6 +218,37 @@ def log(*a):
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def descendants() -> list:
+    """The processes this one started that are still running (its process
+    tree, from /proc), as "pid command" strings."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] != "Z":
+            parent[int(d)] = int(fields[1])
+    tree, grew = {os.getpid()}, True
+    while grew:
+        new = {p for p, pp in parent.items() if pp in tree and p not in tree}
+        tree |= new
+        grew = bool(new)
+    out = []
+    for p in sorted(tree - {os.getpid()}):
+        try:
+            with open(f"/proc/{p}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        out.append(f"{p} {cmd.strip()}")
+    return out
 
 
 def host_s(fn) -> float:
@@ -1339,7 +1398,353 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
                multilevel_cpu_rmat16_s=cpu_ml_s, q_single_sweep=q_single,
                walks_s=walk_s, sample=chi, neighbor_sample_s=sage_s,
                ties_s=ties_s, repair=repair)
-    return row, out
+    return row, out, lpa
+
+
+def _dist_check(checks, name, ok, detail=""):
+    checks.append((name, bool(ok), detail))
+
+
+def _dist_levels(checks, label, stats, *, S, program, payload, cap, m,
+                 m_rev=None, flush_bytes=None, planes=0):
+    """Each level's collectives and routed bytes against the traffic
+    model: a sync level makes ``level_collectives(placement='sync', ...)``,
+    a push level routes ``push_level_route_bytes`` at its capacity (the
+    compacted one unless it fell back), a pull level's dgas gather routes
+    index, validity and value planes over the reverse graph's ``m_rev``
+    edges per shard (S * m_rev * (4 + 1 + 4) bytes), an async check makes
+    ``level_collectives(placement='async')`` and routes
+    ``flush_route_bytes``.  ``planes``: routed value planes past the
+    model's one (each one all_to_all more)."""
+    from repro_torch.core import traffic
+    bad = []
+    for i, lv in enumerate(stats["levels"]):
+        routed = lv["bytes"]["all_to_all"]
+        if flush_bytes is not None:
+            want = (traffic.level_collectives(placement="async"), flush_bytes)
+        elif lv["push"]:
+            c = cap if 0 < cap < m and not lv["fallback"] else m
+            want = (traffic.level_collectives(
+                placement="sync", program_collectives=program) + planes,
+                traffic.push_level_route_bytes(S, c, payload))
+        else:
+            want = (traffic.level_collectives(
+                placement="sync", program_collectives=program) + planes,
+                S * m_rev * (4 + 1 + 4) if m_rev else None)
+        if (lv["collectives"], routed) != want:
+            bad.append((i, lv["collectives"], routed, want))
+    _dist_check(checks, f"{label} collectives and bytes vs traffic", not bad,
+                f"{len(stats['levels'])} levels; mismatches {bad[:3]}")
+
+
+def dist_rank(mesh, spec):
+    """One rank of the distributed phase: its shards on the card, every
+    path with the mesh's counts and the kernels' launch counts zeroed
+    just before it and read just after; rank 0 gathers each result,
+    unshards it and holds it to the saved local result."""
+    import numpy as np
+    import torch
+    from repro_torch import tune
+    from repro_torch.core import dgas, engine
+    from repro_torch.core.algorithms import (
+        GraphShard, bfs_distributed, connected_components_distributed,
+        label_propagation_distributed, msbfs_distributed,
+        pagerank_distributed, spmv_distributed, sssp_batched_distributed,
+        sssp_distributed, unshard_vertex_array)
+    from repro_torch.core import traffic
+    from repro_torch.kernels import segment_mode as SM
+    from repro_torch.kernels import segment_or as SO
+
+    S, r, dev = mesh.size, mesh.rank, mesh.device
+    d = spec["dir"]
+
+    def load(name):
+        return np.load(os.path.join(d, name + ".npy"), mmap_mode="r")
+
+    def shard(name):
+        return GraphShard(*(torch.from_numpy(np.array(load(f"{name}_{f}")[r]))
+                            .to(dev) for f in ("src", "dst", "val")),
+                          spec["n"], S, r)
+
+    t0 = time.perf_counter()
+    fwd, rev, sym = shard("fwd"), shard("rev"), shard("sym")
+    lpa_t = shard("lpa")
+    att = dgas.custom_boundary_rule(load("att"), spec["n"])
+    att_s = dgas.custom_boundary_rule(load("att_sym"), spec["n"])
+    x_att = dgas.block_rule(spec["n"], S)
+    gid, real = x_att.resident(r, "cpu")
+    x_local = torch.where(real, torch.from_numpy(np.array(load("x")))[
+        gid.clamp(max=spec["n"] - 1)], 0.0).to(dev)
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    paths, checks, results = {}, [], {}
+
+    def run(label, fn):
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+        mesh.reset_counts()
+        SO.reset_launches()
+        SM.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        counts = mesh.counts()
+        mesh.barrier()
+        wall = time.perf_counter() - t0
+        res, stats = out if isinstance(out, tuple) else (out, None)
+        row = {"wall_s": wall, "collectives": counts["collectives"],
+               "bytes": counts["bytes"], "seconds": counts["seconds"],
+               "launches": {"segment_or": SO.LAUNCHES["segment_or"],
+                            "segment_mode": SM.LAUNCHES["segment_mode"]}}
+        if stats is not None:
+            row.update({k: stats[k] for k in ("iters", "pushes", "pulls",
+                                              "fallbacks")})
+            row["levels"] = stats["levels"]
+        paths[label] = row
+        results[label] = mesh.gather(res)
+        return stats
+
+    n = spec["n"]
+    sw = tune.resolve("engine.switch_frac", None, n=n, device=dev)
+    cap = engine.frontier_edge_capacity(fwd.edges_per_shard, sw, n=n,
+                                        device=dev)
+    cap_s = engine.frontier_edge_capacity(sym.edges_per_shard, sw, n=n,
+                                          device=dev)
+    st = {}
+    st["bfs auto"] = run("bfs auto", lambda: bfs_distributed(
+        fwd, att, 0, mesh, g_rev=rev, mode="auto", return_stats=True))
+    st["sssp"] = run("sssp", lambda: sssp_distributed(
+        fwd, att, 0, mesh, delta=spec["delta"], return_stats=True))
+    st["cc"] = run("cc", lambda: connected_components_distributed(
+        sym, att_s, mesh, return_stats=True))
+    st["pagerank"] = run("pagerank", lambda: pagerank_distributed(
+        fwd, att, mesh, iters=spec["pr_iters"], return_stats=True))
+    for mode in ("dgas", "allgather"):
+        run(f"spmv {mode}", lambda: spmv_distributed(fwd, x_local, x_att,
+                                                     att, mesh, mode=mode))
+    sources = np.array(spec["sources"], np.int32)
+    st["msbfs"] = run("msbfs", lambda: msbfs_distributed(
+        fwd, att, sources, mesh, return_stats=True))
+    st["sssp_batched"] = run("sssp_batched", lambda: sssp_batched_distributed(
+        fwd, att, sources[:spec["batched"]], mesh, delta=spec["delta"],
+        return_stats=True))
+    st["lpa"] = run("lpa", lambda: label_propagation_distributed(
+        lpa_t, x_att, mesh, iters=spec["lpa_iters"], return_stats=True))
+    st["bfs async"] = run("bfs async", lambda: bfs_distributed(
+        fwd, att, 0, mesh, placement="async", sync_interval=spec["k"],
+        return_stats=True))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    mine = {"rank": r, "backend": mesh.backend, "device": str(dev),
+            "load_s": load_s, "peak_gib": peak, "paths": paths}
+    if r != 0:
+        return mine
+
+    # -- rank 0: the results against the local ones -----------------------
+    def glob(label, a=att):
+        return unshard_vertex_array(results[label], a)
+
+    def exact(name, got, want):
+        same = torch.equal(got, torch.from_numpy(np.asarray(want)))
+        _dist_check(checks, name, same, "bit-equal" if same else "differs")
+
+    exact("bfs auto vs phase 3 bfs", glob("bfs auto"), load("ref_bfs"))
+    exact("bfs async vs phase 3 bfs", glob("bfs async"), load("ref_bfs"))
+    exact("sssp vs phase 3 sssp", glob("sssp"), load("ref_sssp"))
+    exact("cc vs phase 3 cc", glob("cc", att_s), load("ref_cc"))
+    pr = glob("pagerank")
+    want = torch.from_numpy(np.array(load("ref_pagerank")))
+    diff = float((pr - want).abs().max())
+    mass = float(pr.double().sum())
+    _dist_check(checks, "pagerank vs phase 3 pagerank",
+                torch.allclose(pr, want, rtol=DIST_PR_RTOL,
+                               atol=DIST_PR_ATOL) and abs(mass - 1) <= 1e-3,
+                f"max |diff| {diff!r}, mass {mass!r} (rtol {DIST_PR_RTOL} "
+                f"atol {DIST_PR_ATOL})")
+    y_ref = torch.from_numpy(np.array(load("ref_spmv")))
+    for mode in ("dgas", "allgather"):
+        y = glob(f"spmv {mode}")
+        _dist_check(checks, f"spmv {mode} vs local spmv",
+                    torch.allclose(y, y_ref, rtol=DIST_SPMV_RTOL,
+                                   atol=DIST_SPMV_ATOL),
+                    f"max |diff| {float((y - y_ref).abs().max())!r}")
+    lv_b, d_b = load("ref_msbfs"), load("ref_sssp_batched")
+    bad = [b for b in range(len(sources)) if not torch.equal(
+        unshard_vertex_array(results["msbfs"][:, b], att),
+        torch.from_numpy(np.array(lv_b[b])))]
+    _dist_check(checks, f"msbfs {len(sources)} lanes vs phase 4 msbfs",
+                not bad, f"lanes differing {bad}")
+    bad = [b for b in range(spec["batched"]) if not torch.equal(
+        unshard_vertex_array(results["sssp_batched"][:, b], att),
+        torch.from_numpy(np.array(d_b[b])))]
+    _dist_check(checks, f"sssp_batched {spec['batched']} lanes vs phase 4",
+                not bad, f"lanes differing {bad}")
+    exact("lpa vs the structured phase's lpa", glob("lpa", x_att),
+          load("ref_lpa"))
+    for k, label in (("segment_or", "msbfs"), ("segment_mode", "lpa")):
+        _dist_check(checks, f"{k} launched on the {label} path",
+                    paths[label]["launches"][k] > 0,
+                    f"{paths[label]['launches'][k]} launches on this rank")
+
+    # -- each level's collectives and bytes against the traffic model ------
+    m, m_s = fwd.edges_per_shard, sym.edges_per_shard
+    m_t = lpa_t.edges_per_shard
+    P = traffic.ROUTE_PAYLOAD_BYTES
+    for label, kw in (
+            ("bfs auto", dict(program=0, payload=P, cap=cap, m=m,
+                              m_rev=rev.edges_per_shard)),
+            ("sssp", dict(program=2, payload=P, cap=cap, m=m)),
+            ("cc", dict(program=0, payload=P, cap=cap_s, m=m_s)),
+            ("pagerank", dict(program=1, payload=P, cap=cap, m=m)),
+            ("msbfs", dict(program=0, cap=cap, m=m,
+                           payload=traffic.batched_payload_bytes(
+                               len(sources), packed=True))),
+            ("sssp_batched", dict(program=2, cap=cap, m=m,
+                                  payload=traffic.batched_payload_bytes(
+                                      spec["batched"]))),
+            # (voter, label, weight) and validity: 4 + 4 + 4 + 1 bytes in
+            # four planes, one more than the model's index / value /
+            # validity
+            ("lpa", dict(program=0, payload=13, cap=0, m=m_t, planes=1)),
+            ("bfs async", dict(program=0, payload=P, cap=0, m=m,
+                               flush_bytes=traffic.flush_route_bytes(
+                                   S, att.per_shard, 4)))):
+        _dist_levels(checks, label, st[label], S=S, **kw)
+    mine["checks"] = checks
+    mine["caps"] = {"fwd": [cap, m], "sym": [cap_s, m_s], "lpa": [0, m_t]}
+    return mine
+
+
+def dist_nccl_rank(mesh, spec):
+    """The 1-rank NCCL mesh: direction-optimizing BFS on the whole graph
+    (one shard), the backend a multi-card cell would use."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.algorithms import bfs_distributed, shard_graph
+    from repro_torch.core.graph import csr_from_numpy
+    d, n, dev = spec["dir"], spec["n"], mesh.device
+    load = lambda name: np.load(os.path.join(d, name + ".npy"))
+    csr = csr_from_numpy(load("indptr"), load("indices"), load("values"), n,
+                         n, device=dev)
+    g1, att1 = shard_graph(csr, 1)
+    rev1 = engine.reverse_graph(csr, att1)
+    fwd, rev = g1.shard(0, dev), rev1.shard(0, dev)
+    torch.cuda.synchronize(dev)
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    lv, stats = bfs_distributed(fwd, att1, 0, mesh, g_rev=rev, mode="auto",
+                                return_stats=True)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    same = torch.equal(lv.cpu(), torch.from_numpy(load("ref_bfs")))
+    return {"backend": mesh.backend, "wall_s": wall, "same": same,
+            "counts": mesh.counts(),
+            **{k: stats[k] for k in ("iters", "pushes", "pulls",
+                                     "fallbacks")}}
+
+
+def dist_phase(g, x, ref: dict, smi: str) -> dict:
+    """The distributed phase: shard the graph once on the host (the
+    degree-balanced rule; its reverse by the same rule; the symmetrized
+    graph by its own; LPA's transpose by the block rule), save the shards and the earlier phases' results
+    under build/dist, spawn DIST_RANKS ranks sharing the card over gloo
+    (CUDA tensors) and run every distributed path there, then a 1-rank
+    NCCL BFS.  Returns the phase's numbers; fails on any check."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.algorithms import shard_graph, symmetrize
+    from repro_torch.core.dgas import block_rule
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    log(f"[dist] card: {smi}")
+    os.makedirs(DIST_DIR, exist_ok=True)
+    gsh, att = shard_graph(g, DIST_RANKS)
+    g_rev = engine.reverse_graph(g, att)
+    gss, att_s = shard_graph(symmetrize(g), DIST_RANKS)
+    # LPA's votes flow over the transpose, sharded by vote-source owner
+    # under the block rule, so each run adds in ascending source order
+    glpa, _ = shard_graph(g.transpose(), DIST_RANKS,
+                          row_att=block_rule(g.n_rows, DIST_RANKS))
+    arrays = {"att": att.boundaries.numpy(), "att_sym": att_s.boundaries.numpy(),
+              "indptr": g.indptr.cpu().numpy(),
+              "indices": g.indices.cpu().numpy(),
+              "values": g.values.cpu().numpy(), "x": x.cpu().numpy(),
+              **{f"ref_{k}": v for k, v in ref.items()}}
+    for name, sg in (("fwd", gsh), ("rev", g_rev), ("sym", gss),
+                     ("lpa", glpa)):
+        for f in ("src", "dst", "val"):
+            arrays[f"{name}_{f}"] = getattr(sg, f).numpy()
+    for name, a in arrays.items():
+        np.save(os.path.join(DIST_DIR, name + ".npy"), a)
+    prep_s = time.perf_counter() - t_phase
+    log(f"[dist] host sharding into {DIST_RANKS} (degree-balanced "
+        f"boundaries {att.boundaries.tolist()}, per_shard {att.per_shard}; "
+        f"{gsh.edges_per_shard} edges per shard, reverse "
+        f"{g_rev.edges_per_shard}, symmetrized {gss.edges_per_shard}, LPA's "
+        f"block-ruled transpose {glpa.edges_per_shard}) and saving: "
+        f"{prep_s!r} s")
+    del gsh, g_rev, gss, glpa, arrays
+    torch.cuda.empty_cache()
+    spec = dict(dir=DIST_DIR, n=g.n_rows, delta=float(ref["delta"]),
+                pr_iters=int(ref["pr_iters"]), lpa_iters=LPA_ITERS,
+                sources=[int(v) for v in ref["sources"]],
+                batched=DIST_BATCHED, k=DIST_K)
+    for init in ("init4", "init1"):
+        if os.path.exists(os.path.join(DIST_DIR, init)):
+            os.unlink(os.path.join(DIST_DIR, init))
+    t0 = time.perf_counter()
+    ranks = M.spawn(dist_rank, DIST_RANKS, device="cuda",
+                    init_file=os.path.join(DIST_DIR, "init4"), args=(spec,),
+                    timeout=900)
+    ranks_s = time.perf_counter() - t0
+    rep = ranks[0]
+    log(f"[dist] {DIST_RANKS} ranks on {[r['device'] for r in ranks]}, "
+        f"backend {rep['backend']} (gloo over CUDA tensors: the ranks share "
+        f"one card), spawn to exit {ranks_s!r} s; loading the shards "
+        f"{[round(r['load_s'], 3) for r in ranks]} s; peak allocated per "
+        f"rank {[round(r['peak_gib'], 3) for r in ranks]} GiB")
+    log(f"[dist] capacities [compacted, full] {rep['caps']}")
+    launched = {"segment_or": 0, "segment_mode": 0}
+    for label, row in rep["paths"].items():
+        walls = [r["paths"][label]["wall_s"] for r in ranks]
+        stats = {k: row[k] for k in ("iters", "pushes", "pulls", "fallbacks")
+                 if k in row}
+        launches = {k: sum(r["paths"][label]["launches"][k] for r in ranks)
+                    for k in launched}
+        for k in launched:
+            launched[k] += launches[k]
+        inside = [sum(r["paths"][label]["seconds"].values()) for r in ranks]
+        log(f"[dist] {label}: wall {max(walls)!r} s (per rank {walls}); "
+            f"{stats}; collectives {row['collectives']}, bytes per rank "
+            f"{row['bytes']}; host seconds inside the collectives per rank "
+            f"{inside} ({max(i / w for i, w in zip(inside, walls)):.3f} of "
+            f"the wall at most); launches over the ranks {launches}")
+    nccl = M.spawn(dist_nccl_rank, 1, device="cuda",
+                   init_file=os.path.join(DIST_DIR, "init1"), args=(spec,),
+                   timeout=600)[0]
+    log(f"[dist] 1-rank {nccl['backend']} bfs auto: wall "
+        f"{nccl['wall_s']!r} s, iters {nccl['iters']} pushes "
+        f"{nccl['pushes']} pulls {nccl['pulls']}, collectives "
+        f"{nccl['counts']['collectives']}; bit-equal to phase 3 "
+        f"{nccl['same']}")
+    checks = rep["checks"] + [("nccl bfs auto vs phase 3 bfs", nccl["same"],
+                               f"backend {nccl['backend']}")]
+    if nccl["backend"] != "nccl" or rep["backend"] != "gloo":
+        checks.append(("backends", False, f"{rep['backend']} / "
+                       f"{nccl['backend']}"))
+    for name, ok, detail in checks:
+        log(f"[check] dist {name}: {'ok' if ok else 'FAILED'}; {detail}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[dist] phase wall {phase_s!r} s (budget 120 s); sssp_batched over"
+        f" {DIST_BATCHED} of the {len(spec['sources'])} sources, no other "
+        f"cut")
+    failed = [c[0] for c in checks if not c[1]]
+    if failed:
+        fail(f"the distributed phase failed: {failed}")
+    return {"phase_s": phase_s, "prep_s": prep_s, "ranks_s": ranks_s,
+            "launches": launched, "ranks": ranks, "nccl": nccl}
 
 
 def main() -> int:
@@ -1631,6 +2036,9 @@ def main() -> int:
     log(f"[service] launches {path_launches['service']}")
     if path_launches["service"]["segment_or"] == 0:
         fail("the service's Reachability batch did not launch segment_or")
+    dist_ref = {"sources": sources, "msbfs": lv_b.cpu().numpy(),
+                "sssp_batched": d_b[:DIST_BATCHED].cpu().numpy(),
+                "delta": np.float32(delta)}
     del lv_b, d_b, top_v, top_i
     d_p, stats_p = path("sssp (plain)",
                         lambda: sssp(g, 0, delta=delta, return_stats=True))
@@ -1645,7 +2053,7 @@ def main() -> int:
     if bfs_reached != sssp_reached:
         fail("BFS and SSSP reach different vertex sets")
 
-    pr = path("pagerank", lambda: pagerank(g))
+    pr = path("pagerank", lambda: pagerank(g, iters=PAGERANK_ITERS))
     mass = float(pr.double().sum())
     log(f"[check] pagerank mass {mass!r}")
     if not (torch.isfinite(pr).all() and abs(mass - 1.0) <= 1e-3):
@@ -1675,12 +2083,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sm_row, structured = structured_phase(g, lv_p, d_p, labels, delta,
-                                          counted, err, args)
+    sm_row, structured, lpa = structured_phase(g, lv_p, d_p, labels, delta,
+                                               counted, err, args)
     structured["phase_s"] = time.perf_counter() - t0
     log(f"[structured] phase wall {structured['phase_s']!r} s")
     log(f"[mem] structured phase peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the distributed phase, on the same graph, held to phases 3-4's and
+    # the structured phase's results
+    dist_ref.update(bfs=lv_p.cpu().numpy(), sssp=d_p.cpu().numpy(),
+                    cc=labels.cpu().numpy(), pagerank=pr.cpu().numpy(),
+                    spmv=spmv(g, x).cpu().numpy(), lpa=lpa.cpu().numpy(),
+                    pr_iters=np.int32(PAGERANK_ITERS))
+    del lpa
+    torch.cuda.empty_cache()
+    dist = dist_phase(g, x, dist_ref, smi)
+    launches["segment_or"] += dist["launches"]["segment_or"]
+    sm_row["launches"] += dist["launches"]["segment_mode"]
+    sm_row["entry_launches"]["segment_mode"] += \
+        dist["launches"]["segment_mode"]
     launches["segment_mode"] = sm_row.pop("launches")
     timed["segment_mode"] = sm_row
     for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select",
@@ -1719,9 +2140,14 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "scale": args.scale,
                    "kernels": kernels, "walls_s": walls,
                    "service": service, "structured": structured,
+                   "dist": dist,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)
+    left = descendants()
+    if left:
+        fail(f"processes this run started are still running: {left}")
+    log("[procs] every process this run started has ended")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

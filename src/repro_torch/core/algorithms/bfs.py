@@ -3,19 +3,24 @@
 The program: active vertices emit an indicator along out-edges; a destination
 combining a positive count for the first time is assigned the next level and
 joins the frontier.  Direction optimization (push the sparse frontier, pull
-once it saturates) is the engine's job, not BFS's.
+once it saturates) is the engine's job, not BFS's.  Distributed, push
+expands through remote atomics at the dst owner and pull gathers via
+fine-grained dgas reads over the reversed edge shards; each rank runs the
+call on its own (per_shard,) rows.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import engine
 from ..graph import CSR, BBCSR
 
 __all__ = ["bfs", "bfs_program", "bfs_level_program", "msbfs",
-           "msbfs_program"]
+           "msbfs_program", "bfs_distributed", "msbfs_distributed",
+           "source_rows"]
 
 _INF = float("inf")
 
@@ -129,6 +134,110 @@ def msbfs(csr: CSR, sources, *, max_levels: int | None = None,
                              max_iters=max_levels, mode=mode,
                              return_stats=return_stats, trace=trace,
                              trace_len=trace_len)
+    if return_stats:
+        state, stats = out
+        return state["level"].contiguous(), stats
+    return out["level"].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Distributed (one rank of a launch.mesh.Mesh; rows per the vertex ATT)
+# ---------------------------------------------------------------------------
+
+def source_rows(att, sources, mesh):
+    """The sources this rank owns: (lane indices, local offsets) as int64
+    tensors on the mesh's device."""
+    src = torch.as_tensor(np.asarray(sources, dtype=np.int64).reshape(-1))
+    mine = att.owner(src) == mesh.rank
+    lanes = torch.arange(src.shape[0])[mine]
+    return lanes.to(mesh.device), att.local(src[mine]).to(mesh.device)
+
+
+def bfs_distributed(g, att, source: int, mesh, *, max_levels: int = 64,
+                    g_rev=None, mode: str = "push", placement: str = "sync",
+                    sync_interval: Optional[int] = None,
+                    return_stats: bool = False):
+    """This rank's (per_shard,) int32 levels under ``att``; unreachable =
+    -1.  ``g`` is sharded by ``att`` (``shard_graph(csr, S, row_att=att)``
+    or its rank's shard).
+
+    mode='push' expands through remote atomics; pass ``g_rev``
+    (``engine.reverse_graph``) with mode='auto' for the direction-
+    optimizing variant.  placement='async' (push-only) runs the monotone
+    :func:`bfs_level_program` with bounded-staleness pacing: the same
+    levels, ``sync_interval`` x fewer global checks.  ``return_stats``
+    adds the engine's stats (``engine.run_distributed``).
+    """
+    per, dev = att.per_shard, mesh.device
+    _, local = source_rows(att, [source], mesh)
+    frontier0 = torch.zeros(per, dtype=torch.int32, device=dev)
+    frontier0[local] = 1
+    if placement == "async":
+        k = int(sync_interval) if sync_interval is not None else 8
+        dist0 = torch.full((per,), _INF, device=dev)
+        dist0[local] = 0.0
+        out = engine.run_distributed(
+            g, att, mesh, bfs_level_program(), {"dist": dist0}, frontier0,
+            max_iters=max_levels * k, mode=mode, placement="async",
+            sync_interval=k, return_stats=return_stats)
+        state, stats = out if return_stats else (out, None)
+        levels = _levels_from_dist(state["dist"])
+    else:
+        level0 = torch.full((per,), -1, dtype=torch.int32, device=dev)
+        level0[local] = 0
+        out = engine.run_distributed(g, att, mesh, bfs_program(),
+                                     {"level": level0}, frontier0,
+                                     max_iters=max_levels, g_rev=g_rev,
+                                     mode=mode, return_stats=return_stats)
+        state, stats = out if return_stats else (out, None)
+        levels = state["level"]
+    return (levels, stats) if return_stats else levels
+
+
+def msbfs_distributed(g, att, sources, mesh, *, max_levels: int = 64,
+                      push_edge_capacity: Optional[int] = None,
+                      return_stats: bool = False, placement: str = "sync",
+                      sync_interval: Optional[int] = None,
+                      trace: bool = False, trace_len: Optional[int] = None):
+    """Batched-lane BFS on the distributed push pipeline: this rank's
+    (B, per_shard) int32 levels under ``att``; row b equals
+    ``bfs_distributed(g, att, sources[b], mesh)`` bit for bit.  One
+    compacted exchange per level carries all B lanes as packed words
+    (``offload.remote_scatter_or``, the ``segment_or`` kernel at the owner
+    on the card).
+
+    placement='async' runs the monotone :func:`bfs_level_program` on
+    vmapped valued lanes instead (the packed program's first-touch level
+    stamp depends on delivery order; the min-level fixpoint does not),
+    with ``sync_interval`` local micro-steps per global check.
+    """
+    per, dev = att.per_shard, mesh.device
+    B = int(np.asarray(sources).reshape(-1).shape[0])
+    lanes, local = source_rows(att, sources, mesh)
+    if placement == "async":
+        k = int(sync_interval) if sync_interval is not None else 8
+        dist0 = torch.full((B, per), _INF, device=dev)
+        dist0[lanes, local] = 0.0
+        f0 = torch.zeros((B, per), dtype=torch.int32, device=dev)
+        f0[lanes, local] = 1
+        out = engine.run_batched_distributed(
+            g, att, mesh, bfs_level_program(), {"dist": dist0}, f0,
+            max_iters=max_levels * k, push_edge_capacity=push_edge_capacity,
+            return_stats=return_stats, placement="async", sync_interval=k,
+            trace=trace, trace_len=trace_len)
+        if return_stats:
+            state, stats = out
+            return _levels_from_dist(state["dist"]), stats
+        return _levels_from_dist(out["dist"])
+    bits = torch.zeros((B, per), dtype=torch.int32, device=dev)
+    bits[lanes, local] = 1
+    words0 = engine.pack_lanes(bits)
+    level0 = torch.full((B, per), -1, dtype=torch.int32, device=dev)
+    level0[lanes, local] = 0
+    out = engine.run_batched_distributed(
+        g, att, mesh, msbfs_program(B), {"seen": words0, "level": level0},
+        words0, max_iters=max_levels, push_edge_capacity=push_edge_capacity,
+        return_stats=return_stats, trace=trace, trace_len=trace_len)
     if return_stats:
         state, stats = out
         return state["level"].contiguous(), stats

@@ -6,7 +6,9 @@ engine's semiring.  A vertex whose label shrinks re-enters the frontier, so
 work decays to the slowly-converging boundary vertices, where the
 direction-optimizing switch pays off (dense first sweeps, sparse tail).
 Components are defined on the *undirected* structure; by default the input
-is symmetrized (A + A^T pattern).
+is symmetrized (A + A^T pattern).  Distributed, the label pushes are
+remote atomic *min* ops at the destination owner, and the caller hands in
+an already symmetric sharded graph.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from .. import engine
 from ..graph import CSR
 
-__all__ = ["connected_components", "cc_program", "symmetrize"]
+__all__ = ["connected_components", "cc_program", "symmetrize",
+           "connected_components_distributed"]
 
 _PAD_LABEL = 2 ** 30
 
@@ -58,6 +61,33 @@ def connected_components(csr: CSR, *, max_iters: Optional[int] = None,
     out = engine.run(g, cc_program(), state0, frontier0,
                      max_iters=max_iters, mode=mode,
                      return_stats=return_stats)
+    if return_stats:
+        state, stats = out
+        return state["label"], stats
+    return out["label"]
+
+
+def connected_components_distributed(g, att, mesh, *, max_iters: int = 256,
+                                     placement: str = "sync",
+                                     sync_interval: Optional[int] = None,
+                                     return_stats: bool = False):
+    """This rank's (per_shard,) int32 labels under ``att``.  ``g`` must
+    hold the symmetric edge set (shard ``symmetrize(csr)``).  The
+    min-label program is monotone, so placement='async' reaches the same
+    labels.  Every slot starts labelled with its global id
+    (``att.to_global``), padding slots too, as the reference starts them;
+    they have no edges.  ``return_stats`` adds the engine's stats."""
+    rank = torch.full((att.per_shard,), mesh.rank, device=mesh.device)
+    label0 = att.to_global(rank, torch.arange(att.per_shard,
+                                              device=mesh.device))
+    frontier0 = torch.ones(att.per_shard, dtype=torch.int32,
+                           device=mesh.device)
+    out = engine.run_distributed(g, att, mesh, cc_program(),
+                                 {"label": label0.to(torch.int32)}, frontier0,
+                                 max_iters=max_iters, mode="push",
+                                 placement=placement,
+                                 sync_interval=sync_interval,
+                                 return_stats=return_stats)
     if return_stats:
         state, stats = out
         return state["label"], stats

@@ -38,7 +38,8 @@ from .bfs import _levels_from_dist, bfs_level_program
 from .cc import cc_program, symmetrize
 from .sssp import auto_delta, sssp_program
 
-__all__ = ["bfs_repair", "cc_repair", "sssp_repair", "repair_or_recompute"]
+__all__ = ["bfs_repair", "cc_repair", "sssp_repair", "repair_or_recompute",
+           "bfs_repair_distributed", "cc_repair_distributed"]
 
 log = logging.getLogger("repro_torch.streaming")
 
@@ -159,3 +160,15 @@ def repair_or_recompute(kind: str, handle: GraphHandle, prev,
     if kind == "cc":
         return connected_components(csr, mode=mode)
     return sssp(csr, source, delta=auto_delta(csr), mode=mode)
+
+
+def bfs_repair_distributed(*args, **kwargs):
+    """Distributed BFS repair: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("bfs_repair_distributed is not ported yet: it "
+                              "comes with update_shards (ROADMAP §A.8)")
+
+
+def cc_repair_distributed(*args, **kwargs):
+    """Distributed CC repair: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("cc_repair_distributed is not ported yet: it "
+                              "comes with update_shards (ROADMAP §A.8)")

@@ -23,8 +23,17 @@ CPU and the card: per-vertex and per-community sums in stream order
 (:func:`offload.run_sum` over the CSR's row order, its cached
 destination-sorted stream or a stable sort of the labels), totals by
 :func:`offload.tree_sum`.  A sweep therefore gives the same bits in every
-run and on both devices.  The distributed sweeps wait for the distributed
-placement.
+run and on both devices.
+
+Distributed, :func:`label_propagation_distributed` takes the transposed
+edge list sharded by vote-source owner and pushes each sweep through the
+engine:
+(voter, label, weight) triples are owner-routed raw and reduced by the
+remote weighted mode at the voter's owner (``segment_mode`` on the card).
+Under a contiguous rule the votes of a run arrive in ascending source
+order, as the local dense step adds them, so the labels equal the local
+LPA's.  The distributed modularity, contraction and multilevel entry points
+are not ported yet (ROADMAP §A.8).
 """
 from __future__ import annotations
 
@@ -38,7 +47,9 @@ from ..graph import CSR, contract
 
 __all__ = ["label_propagation", "lpa_program", "louvain_candidate_program",
            "modularity", "louvain_local_moves", "multilevel",
-           "partition_equal"]
+           "partition_equal", "label_propagation_distributed",
+           "modularity_distributed", "contract_distributed",
+           "multilevel_distributed"]
 
 
 def partition_equal(a, b) -> bool:
@@ -91,6 +102,48 @@ def label_propagation(csr: CSR, *, iters: int = 10,
     state = engine.run(csr.transpose(), lpa_program(), state0, frontier0,
                        max_iters=iters, mode=mode)
     return state["label"]
+
+
+def label_propagation_distributed(g_t, att, mesh, *, iters: int = 10,
+                                  return_stats: bool = False):
+    """Distributed LPA: this rank's (per_shard,) int32 labels under ``att``.
+    ``g_t`` holds the *transposed* edge set sharded by vote-source owner
+    (``shard_graph(csr.transpose(), S, row_att=att)``, or its rank's
+    shard), as the reference shards it; under a contiguous rule (its
+    default is ``block_rule(n, S)``) the labels equal the local LPA's.
+    Each sweep pushes at full capacity (the frontier is all-ones, so a
+    compacted push would always fall back).  ``return_stats`` adds the
+    engine's stats."""
+    dev = mesh.device
+    gid, real = att.resident(mesh.rank, dev)
+    state0 = {"label": torch.where(real, gid, 0).to(torch.int32)}
+    frontier0 = torch.ones(att.per_shard, dtype=torch.int32, device=dev)
+    out = engine.run_distributed(g_t, att, mesh, lpa_program(), state0,
+                                 frontier0, max_iters=iters, mode="push",
+                                 push_edge_capacity=0,
+                                 return_stats=return_stats)
+    if return_stats:
+        state, stats = out
+        return state["label"], stats
+    return out["label"]
+
+
+def modularity_distributed(*args, **kwargs):
+    """Distributed modularity: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("modularity_distributed is not ported yet "
+                              "(ROADMAP §A.8)")
+
+
+def contract_distributed(*args, **kwargs):
+    """Distributed contraction: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("contract_distributed is not ported yet "
+                              "(ROADMAP §A.8)")
+
+
+def multilevel_distributed(*args, **kwargs):
+    """Distributed multi-level Louvain: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("multilevel_distributed is not ported yet "
+                              "(ROADMAP §A.8)")
 
 
 def _values(csr: CSR) -> torch.Tensor:

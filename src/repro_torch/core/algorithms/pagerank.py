@@ -2,16 +2,19 @@
 :mod:`repro_torch.core.engine` vertex programs.
 
 The frontier never shrinks (every vertex pushes mass every iteration), so the
-engine runs the dense direction throughout.
+engine runs the dense direction throughout (locally; distributed, every
+level pushes at full capacity).
 """
 from __future__ import annotations
 
 import torch
 
-from .. import engine
+from .. import engine, offload
 from ..graph import CSR
+from .distgraph import local_shard
 
-__all__ = ["pagerank", "ppr", "ppr_batched", "ppr_topk", "ppr_program"]
+__all__ = ["pagerank", "ppr", "ppr_batched", "ppr_topk", "ppr_program",
+           "pagerank_distributed"]
 
 
 def _inv_degrees(csr: CSR):
@@ -112,3 +115,46 @@ def ppr_topk(csr: CSR, sources, k: int, *, damping: float = 0.85,
     if return_stats:
         return vals, idx.to(torch.int32), stats
     return vals, idx.to(torch.int32)
+
+
+def pagerank_distributed(g, att, mesh, *, damping: float = 0.85,
+                         iters: int = 20, return_stats: bool = False):
+    """This rank's (per_shard,) f32 PageRank rows; ``att`` owns both the
+    vertex data and ``g``'s source rows.  Degrees come from a remote
+    scatter-add of the rank's own edges; the dangling mass is one
+    all-reduce a level.
+
+    Padding slots (past a shard's span) stay 0.  The reference updates
+    them like vertices, so under a rule with padding they collect mass as
+    dangling sinks and the vector leaves the local ``pagerank`` (ROADMAP
+    §C.5); the port holds the local result."""
+    n, per, dev = att.n_global, att.per_shard, mesh.device
+    shard = local_shard(g, mesh)
+    ones = torch.where(shard.src >= 0, 1.0, 0.0)
+    deg = offload.remote_scatter_add(
+        torch.zeros(per, dtype=torch.float32, device=dev), shard.src, ones,
+        att, mesh, capacity=shard.edges_per_shard)
+    inv_deg = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1.0), 0.0)
+    _, real = att.resident(mesh.rank, dev)
+
+    def msg_fn(state, frontier):
+        return state["x"] * inv_deg
+
+    def update_fn(state, acc, frontier, it):
+        x = state["x"]
+        dangling = offload.hierarchical_psum(
+            torch.where(deg > 0, 0.0, x).sum(), mesh)
+        x = (1 - damping) / n + damping * (acc + dangling / n)
+        return {"x": torch.where(real, x, 0.0)}, frontier
+
+    prog = engine.VertexProgram(edge_op="copy", combine="add",
+                                msg_fn=msg_fn, update_fn=update_fn)
+    x0 = torch.where(real, 1.0 / n, 0.0).to(torch.float32)
+    frontier0 = torch.ones(per, dtype=torch.int32, device=dev)
+    out = engine.run_distributed(g, att, mesh, prog, {"x": x0}, frontier0,
+                                 max_iters=iters, mode="push",
+                                 return_stats=return_stats)
+    if return_stats:
+        state, stats = out
+        return state["x"], stats
+    return out["x"]

@@ -3,8 +3,8 @@
 Pure pointer chasing: every step is two dependent fine-grained reads
 (degree / offset from indptr, then the sampled neighbour from the edge
 array).  Each step is one `engine.sample_neighbors` pass; this module keeps
-only the loop over steps.  The walker-queue form (`run_queue`) belongs to
-the distributed placement.
+only the loop over steps.  The walker-queue form (`run_queue`,
+`random_walks_distributed`) is not ported yet (ROADMAP §A.8).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 from .. import engine
 from ..graph import CSR
 
-__all__ = ["random_walks"]
+__all__ = ["random_walks", "random_walks_distributed"]
 
 
 def random_walks(csr: CSR, starts, n_steps: int, key) -> torch.Tensor:
@@ -37,3 +37,10 @@ def random_walks(csr: CSR, starts, n_steps: int, key) -> torch.Tensor:
             engine.fold_in(k, t), walkers))
         path[t + 1] = cur
     return path.T.contiguous()
+
+
+def random_walks_distributed(*args, **kwargs):
+    """Walks on the queue engine across ranks: not ported yet (ROADMAP
+    §A.8)."""
+    raise NotImplementedError("random_walks_distributed (walkers on "
+                              "run_queue) is not ported yet (ROADMAP §A.8)")

@@ -3,6 +3,11 @@
   spmv        — fine-grained gather + owner-side reduction (paper's base loop)
   spmv_ell    — padded-row vectorized variant
   spmv_bbcsr  — the BBCSR kernel (kernels/spmv_dma.py, csrc/bbcsr.cu)
+
+Distributed (one rank of a launch.mesh.Mesh):
+  spmv_distributed(mode="dgas")      — fine-grained remote gather of
+                                       exactly the needed x elements
+  spmv_distributed(mode="allgather") — baseline: replicate x
 """
 from __future__ import annotations
 
@@ -11,7 +16,7 @@ import torch
 from ..graph import CSR, BBCSR
 from .. import offload
 
-__all__ = ["spmv", "spmv_ell", "spmv_bbcsr"]
+__all__ = ["spmv", "spmv_ell", "spmv_bbcsr", "spmv_distributed"]
 
 
 def spmv(csr: CSR, x: torch.Tensor) -> torch.Tensor:
@@ -33,3 +38,16 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
 def spmv_bbcsr(bb: BBCSR, x: torch.Tensor) -> torch.Tensor:
     from ...kernels import ops as kops
     return kops.spmv_dma(bb, x)
+
+
+def spmv_distributed(g, x_local: torch.Tensor, x_att, row_att, mesh, *,
+                     mode: str = "dgas") -> torch.Tensor:
+    """y = A @ x with rows owned per ``row_att`` and x distributed per
+    ``x_att``: one pull step of the engine.  The row owner dgas-gathers
+    exactly the x elements its nonzeros name ("dgas"), or takes the
+    replicate-x baseline ("allgather").  Returns this rank's
+    (per_shard,) rows of y under ``row_att``."""
+    if mode not in ("dgas", "allgather"):
+        raise KeyError(mode)
+    from .. import engine
+    return engine.spmv_pass(g, x_local, x_att, row_att, mesh, mode=mode)

@@ -7,6 +7,10 @@ only *pending* vertices (improved since last expanded) whose distance falls
 inside the current bucket ``[0, bound)`` join the frontier; when the bucket
 drains, ``bound`` advances to ``min(pending dist) + delta``.
 
+Distributed, the relaxations are remote atomic *min* ops at the owner
+(``offload.remote_scatter_combine``), with the bucket bound agreed by a
+collective minimum (``offload.global_min``).
+
 Weights must be non-negative; an unweighted graph relaxes with unit weights
 (== BFS distances).
 """
@@ -17,11 +21,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import engine
+from .. import engine, offload
 from ..graph import CSR
 from ... import tune
+from .bfs import source_rows
 
-__all__ = ["sssp", "sssp_program", "auto_delta", "sssp_batched"]
+__all__ = ["sssp", "sssp_program", "auto_delta", "sssp_batched",
+           "sssp_distributed", "sssp_batched_distributed"]
 
 _INF = float("inf")
 
@@ -29,8 +35,8 @@ _INF = float("inf")
 def sssp_program(delta: float, *, global_min=None) -> engine.VertexProgram:
     """(min, +) relaxation with bucketed frontier admission.
 
-    global_min: optional f(x)->x reduction for a placement that must agree
-      on `min(pending dist)` across shards (identity here).
+    global_min: optional f(x)->x reduction so the distributed placement
+      agrees on `min(pending dist)` across shards (identity locally).
     """
     gmin = global_min if global_min is not None else (lambda x: x)
 
@@ -139,6 +145,82 @@ def sssp_batched(csr: CSR, sources, *, delta: Optional[float] = None,
                              max_iters=max_iters, mode=mode,
                              kernel_bb=kernel_bb, return_stats=return_stats,
                              trace=trace, trace_len=trace_len)
+    if return_stats:
+        state, stats = out
+        return state["dist"], stats
+    return out["dist"]
+
+
+def _dist_program(delta: float, placement: str, mesh):
+    """The sync placement agrees on the bucket bound across ranks (two
+    collective minima a level); async paces each rank's own bound from
+    its local pending set, as the local engine does: the (min, +) fixpoint
+    does not depend on the schedule."""
+    if placement == "async":
+        return sssp_program(delta)
+    return sssp_program(delta,
+                        global_min=lambda x: offload.global_min(x, mesh))
+
+
+def sssp_distributed(g, att, source: int, mesh, *, delta: float = 1.0,
+                     max_iters: int = 256, placement: str = "sync",
+                     sync_interval: Optional[int] = None,
+                     return_stats: bool = False):
+    """This rank's (per_shard,) f32 distances under ``att`` (unreachable =
+    +inf): remote atomic-min pushes.  placement='async': bounded-staleness
+    pacing with per-rank bucket bounds; the distances equal 'sync'
+    exactly.  ``return_stats`` adds the engine's stats."""
+    per, dev = att.per_shard, mesh.device
+    _, local = source_rows(att, [source], mesh)
+    dist0 = torch.full((per,), _INF, dtype=torch.float32, device=dev)
+    dist0[local] = 0.0
+    pending0 = torch.zeros(per, dtype=torch.bool, device=dev)
+    pending0[local] = True
+    frontier0 = torch.zeros(per, dtype=torch.int32, device=dev)
+    frontier0[local] = 1
+    state0 = {"dist": dist0, "pending": pending0,
+              "bound": torch.tensor(delta, dtype=torch.float32, device=dev)}
+    out = engine.run_distributed(g, att, mesh,
+                                 _dist_program(delta, placement, mesh),
+                                 state0, frontier0, max_iters=max_iters,
+                                 mode="push", placement=placement,
+                                 sync_interval=sync_interval,
+                                 return_stats=return_stats)
+    if return_stats:
+        state, stats = out
+        return state["dist"], stats
+    return out["dist"]
+
+
+def sssp_batched_distributed(g, att, sources, mesh, *, delta: float = 1.0,
+                             max_iters: int = 256,
+                             return_stats: bool = False,
+                             placement: str = "sync",
+                             sync_interval: Optional[int] = None,
+                             trace: bool = False,
+                             trace_len: Optional[int] = None):
+    """This rank's (B, per_shard) f32 distances under ``att``; row b equals
+    ``sssp_distributed(g, att, sources[b], mesh, delta=delta)``: all B
+    lanes' remote atomic-min relaxations share each level's compacted
+    exchange, and the per-lane bucket bounds are agreed by one collective
+    minimum of every lane."""
+    per, dev = att.per_shard, mesh.device
+    B = int(np.asarray(sources).reshape(-1).shape[0])
+    lanes, local = source_rows(att, sources, mesh)
+    dist0 = torch.full((B, per), _INF, dtype=torch.float32, device=dev)
+    dist0[lanes, local] = 0.0
+    pending0 = torch.zeros((B, per), dtype=torch.bool, device=dev)
+    pending0[lanes, local] = True
+    frontier0 = torch.zeros((B, per), dtype=torch.int32, device=dev)
+    frontier0[lanes, local] = 1
+    state0 = {"dist": dist0, "pending": pending0,
+              "bound": torch.full((B,), delta, dtype=torch.float32,
+                                  device=dev)}
+    out = engine.run_batched_distributed(
+        g, att, mesh, _dist_program(delta, placement, mesh), state0,
+        frontier0, max_iters=max_iters, return_stats=return_stats,
+        placement=placement, sync_interval=sync_interval, trace=trace,
+        trace_len=trace_len)
     if return_stats:
         state, stats = out
         return state["dist"], stats

@@ -1,13 +1,9 @@
 """Direction-optimizing vertex-program execution engine (torch).
 
-Counterpart of ``repro.core.engine`` on the local placement (one device),
-with its three lane representations: ``scalar`` (one traversal, :func:`run`),
-``valued`` (B traversals as (B, n) lanes, the single-source program vmapped
-over them) and ``packed`` (B boolean traversals bit-packed into (n, W) int32
-words, MS-BFS style), the last two through :func:`run_batched`.  Every
-frontier algorithm of this package is the same loop: per-vertex *messages*
-flow along edges and are combined at the destination, then a per-vertex
-*update* produces the next state and the next frontier::
+Counterpart of ``repro.core.engine``.  Every frontier algorithm of this
+package is the same loop: per-vertex *messages* flow along edges and are
+combined at the destination, then a per-vertex *update* produces the next
+state and the next frontier::
 
     msg  = msg_fn(state, frontier)            # (n,) — identity on inactive
     acc[v] = combine_{(u,v) in E} edge_op(msg[u], w_uv)
@@ -17,6 +13,20 @@ with ``edge_op`` in {mul, add, copy} and ``combine`` in {add, min, max}, or
 the batched-only bitwise ``or`` over packed lane words.  Frontier masking is
 folded into ``msg_fn`` (inactive vertices emit the combine identity), which
 is what makes push and pull produce the same acc.
+
+Two axes pick a point of the grid.  The **lane representation**:
+``scalar`` (one traversal), ``valued`` (B traversals as (B, n) lanes, the
+single-source program vmapped over them) and ``packed`` (B boolean
+traversals bit-packed into (n, W) int32 words, MS-BFS style).  The
+**placement**: ``local`` (one device: :func:`run`, :func:`run_batched`)
+or ``distributed`` (:func:`run_distributed`, :func:`run_batched_distributed`:
+one rank per shard of a ``launch.mesh.Mesh``, every rank running the same
+call on its own rows, owner-routed exchanges through ``offload``, one
+all-reduced count per level so every rank takes the same branch), the
+latter ``sync`` or ``async`` (bounded-staleness pacing: each rank runs
+``sync_interval`` - 1 collective-free micro-steps against its resident
+partition between global checks, deferring remote contributions into a
+dense combine outbox that one ``offload.buffered_flush`` delivers).
 
 The *structured* combines ``argmax_weighted`` and ``sample`` carry an int32
 payload message (-1 = inactive) and give the update a (score, payload)
@@ -32,7 +42,7 @@ Direction optimization: the **sparse / push** step expands only the active
 vertices' adjacency rows (work ∝ their edges); the **dense / pull** step is
 one edge-parallel pass.  'auto' pushes while the active count fits the push
 capacity (n/32 by default) and pulls otherwise.  With a BBCSR operand of A^T
-(:func:`build_pull_operand`) both directions run on the BBCSR kernels
+(:func:`build_pull_operand`) both local directions run on the BBCSR kernels
 instead: the dense step is SpMV ('add') or SpMSpV with every tile active
 ('min' / 'max'), the sparse step SpMSpV over the tiles whose column block
 holds an active vertex.
@@ -41,17 +51,21 @@ Batched lanes share one scan of the edges the **union frontier** touches:
 the direction switch, the push compaction and the BBCSR tile schedule all
 run on the union, and a lane inactive at a vertex emits the identity there.
 
-The loop (:func:`_core_loop`) is a Python loop that reads one pair of
-numbers from the device per level, the (union) active-vertex count and the
-active vertices' edge total: the count decides termination and direction,
-the total sizes the push step's edge buffer.
+The loop (:func:`_core_loop`) is a Python loop that reads one small count
+vector from the device per level: the (union) active-vertex count, the
+active vertices' edge total and, distributed, the shards whose active
+edges overflow the compacted push capacity.  The count decides
+termination and direction, the total sizes the local push step's edge
+buffer, the overflow flag the compaction.
 """
-# The `single-core` lint rule guards the JAX engine's lax.while_loop /
-# shard_map runner seam.  This engine's one stepping loop is the Python loop
-# in _core_loop, which both of its runners (run, run_batched) go through; it
-# has no lax loop to count, and the distributed runners that the rule's
-# shard_map checks are about are not ported yet, so the rule does not apply
-# to this file.
+# The `single-core` lint rule counts the JAX engine's lax loops and checks
+# its runner seam.  This engine has no lax loop to count: its one stepping
+# loop is the Python loop in _core_loop, which every runner of both
+# placements goes through (run / run_batched via _run_local,
+# run_distributed / run_batched_distributed via _run_distributed), and the
+# async placement's micro-steps are the fixed-length _scan_steps inside
+# the loop's pace hook.  run_queue is not ported yet.  So the rule does not
+# apply to this file.
 # repro-lint: disable-file=single-core
 from __future__ import annotations
 
@@ -67,6 +81,8 @@ from . import offload
 from .graph import BBCSR, CSR, to_bbcsr
 
 __all__ = ["VertexProgram", "ExecutionCore", "run", "run_batched",
+           "run_distributed", "run_batched_distributed", "spmv_pass",
+           "reverse_graph", "run_queue",
            "build_pull_operand", "tile_active", "lane_words", "pack_lanes",
            "unpack_lanes", "fold_in", "sample_neighbors",
            "frontier_edge_capacity", "Hierarchy", "run_multilevel"]
@@ -144,16 +160,18 @@ def _apply_edge(em: torch.Tensor, ev: Optional[torch.Tensor],
 def _scatter_combine(dest: torch.Tensor, idx: torch.Tensor,
                      vals: torch.Tensor, combine: str,
                      identity) -> torch.Tensor:
-    """Scatter-{add,min,max} into ``dest`` in place, out-of-range indices
-    dropped; returns ``dest``."""
+    """Scatter-{add,min,max} of ``vals`` into ``dest`` in place, indices
+    outside [0, len(dest)) dropped; ``vals`` may carry trailing lane dims
+    beyond ``idx`` (``dest`` then carries the same).  Returns ``dest``."""
     valid = (idx >= 0) & (idx < dest.shape[0])
-    safe = torch.where(valid, idx, torch.zeros_like(idx))
-    masked = torch.where(valid, vals.to(dest.dtype),
+    mask = valid.reshape(valid.shape + (1,) * (vals.dim() - 1))
+    masked = torch.where(mask, vals.to(dest.dtype),
                          dest.new_full((), identity))
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
     if combine == "add":
         return dest.index_add_(0, safe, masked)
-    return dest.scatter_reduce_(0, safe.long(), masked,
-                                "amin" if combine == "min" else "amax",
+    return dest.scatter_reduce_(0, safe.reshape(mask.shape).expand_as(masked),
+                                masked, "amin" if combine == "min" else "amax",
                                 include_self=True)
 
 
@@ -503,23 +521,33 @@ def _check_kernel_operand(prog: VertexProgram, kernel_bb: BBCSR) -> None:
 @dataclasses.dataclass(frozen=True)
 class ExecutionCore:
     """One lowered (program, lane representation, placement) point.  The
-    runner *plans* (builds these four callables), the core *steps*
+    runner *plans* (builds these callables), the core *steps*
     (:func:`_core_loop`).
 
       msg:    (state, frontier) -> messages (vmapped for valued lanes).
-      step:   (msg, frontier, alive, edges, it_key) -> (acc, was_push): the
-              level's direction decision and the chosen step; ``alive`` and
-              ``edges`` are the host-side counts of this level, ``it_key``
-              the level's draw key (None without a run key).
+      step:   (msg, frontier, counts, it_key) -> (acc, was_push, fallback):
+              the level's direction decision and the chosen step;
+              ``counts`` is the host-side tuple the level's ``count`` gave
+              (active vertices of the union frontier, their out-edges, and
+              under the distributed placement the shards whose active edges
+              overflow the compacted push capacity), ``it_key`` the level's
+              draw key (None without a run key).
       update: (state, acc, frontier, it) -> (state, next_frontier).
-      count:  frontier -> (2,) int64 device tensor [active vertices of the
-              union frontier, their out-edges].
+      count:  frontier -> small int64 device tensor [active vertices,
+              their out-edges, overflowing shards] (the last 0 locally);
+              one all-reduce under the distributed placement, so every
+              rank reads the same numbers and takes the same branch.
+      pace:   optional (state, frontier, it) -> (state, frontier, it), run
+              at the top of every level: the async placement's
+              sync_interval-1 collective-free local micro-steps before the
+              globally-checked step.  None keeps every level synchronous.
     """
 
     msg: Callable
     step: Callable
     update: Callable
     count: Callable
+    pace: Optional[Callable] = None
 
 
 def _lane_ops(prog: VertexProgram, lanes: str):
@@ -537,40 +565,49 @@ def _lane_ops(prog: VertexProgram, lanes: str):
 
 def _core_loop(core: ExecutionCore, state0: Any, frontier0: torch.Tensor, *,
                max_iters: int, key: Optional[torch.Tensor] = None,
-               trace_len: int = 0):
+               trace_len: int = 0, trace_flush: bool = False):
     """Run an :class:`ExecutionCore` to frontier exhaustion (or
-    `max_iters`).  The engine's only stepping loop.  Each level reads the
-    carried counts to the host once; that one read serves the termination
-    test, the direction choice and the push step's buffer size.  With a
-    ``key`` each level draws from ``fold_in(key, it)``, as the reference
+    `max_iters`).  The engine's only stepping loop, for both placements.
+    Each level reads the carried counts to the host once; that one read
+    serves the termination test, the direction choice, the push step's
+    buffer size and (distributed) the compaction's overflow branch.  With
+    a ``key`` each level draws from ``fold_in(key, it)``, as the reference
     folds its PRNG key.  Returns ``(state, stats)`` with stats =
-    {'iters', 'pushes', 'pulls'} (ints).
+    {'iters', 'pushes', 'pulls', 'fallbacks'} (ints; the local runners drop
+    'fallbacks', as the reference's do).
 
     trace_len > 0 adds ``stats['trace']``, a (trace_len, 4) int32 tensor on
     the frontier's device with one row ``[frontier, was_push, fallback,
     flush]`` per level (levels past trace_len dropped, rows after the last
-    level 0).  ``frontier`` is the active count entering the level and
-    ``fallback`` / ``flush`` are 0 on the local placement.  The rows are
-    the host-side counts the loop already holds, so tracing adds no device
+    level 0).  ``frontier`` is the active count entering the level,
+    ``flush`` mirrors ``was_push`` only with ``trace_flush`` (the async
+    placement, whose checked step is the outbox flush).  The rows are the
+    host-side counts the loop already holds, so tracing adds no device
     read, and made into one tensor after the loop."""
     state, frontier = state0, frontier0
-    it = pushes = 0
+    it = level = pushes = fallbacks = 0
     rows = []
     counts = core.count(frontier)
     while it < max_iters:
-        alive, edges = counts.tolist()
+        host = tuple(counts.tolist())
+        alive = host[0]
         if alive == 0:
             break
+        if core.pace is not None:
+            state, frontier, it = core.pace(state, frontier, it)
         msg = core.msg(state, frontier)
         it_key = None if key is None else fold_in(key, it)
-        acc, was_push = core.step(msg, frontier, alive, edges, it_key)
+        acc, was_push, fb = core.step(msg, frontier, host, it_key)
         state, frontier = core.update(state, acc, frontier, it)
         counts = core.count(frontier)
-        if it < trace_len:
-            rows.append((alive, was_push, 0, 0))
+        if level < trace_len:
+            rows.append((alive, was_push, fb, was_push if trace_flush else 0))
         it += 1
+        level += 1
         pushes += was_push
-    stats = {"iters": it, "pushes": pushes, "pulls": it - pushes}
+        fallbacks += fb
+    stats = {"iters": it, "pushes": pushes, "pulls": level - pushes,
+             "fallbacks": fallbacks}
     if trace_len:
         rows += [(0, 0, 0, 0)] * (trace_len - len(rows))
         stats["trace"] = torch.tensor(rows, dtype=torch.int32,
@@ -578,19 +615,29 @@ def _core_loop(core: ExecutionCore, state0: Any, frontier0: torch.Tensor, *,
     return state, stats
 
 
+def _scan_steps(body, carry, n: int, it0: int):
+    """The engine's one fixed-length step sequence: ``n`` calls of
+    ``body(carry, it0 + j)`` (the async placement's collective-free
+    micro-steps), as the reference's ``_scan_steps`` scans them."""
+    for j in range(n):
+        carry = body(carry, it0 + j)
+    return carry
+
+
 def _direction_step(dense, sparse, mode: str, threshold: int):
     """'pull' always takes the dense step; 'push' / 'auto' take the sparse
     step while the active count fits ``threshold`` (the push capacity) and
     fall back to dense above it."""
     if mode == "pull":
-        def step(msg, frontier, alive, edges, it_key):
-            return dense(msg, frontier, it_key), 0
+        def step(msg, frontier, counts, it_key):
+            return dense(msg, frontier, it_key), 0, 0
         return step
 
-    def step(msg, frontier, alive, edges, it_key):
+    def step(msg, frontier, counts, it_key):
+        alive, edges = counts[0], counts[1]
         if alive <= threshold:
-            return sparse(msg, frontier, alive, edges, it_key), 1
-        return dense(msg, frontier, it_key), 0
+            return sparse(msg, frontier, alive, edges, it_key), 1, 0
+        return dense(msg, frontier, it_key), 0, 0
     return step
 
 
@@ -698,7 +745,8 @@ def _local_core(csr: CSR, prog: VertexProgram, *, mode: str, C: int,
 
     def count(frontier):
         act = union(frontier)
-        return torch.stack([act.sum(), (deg * act).sum()])
+        return torch.stack([act.sum(), (deg * act).sum(),
+                            torch.zeros((), dtype=torch.int64, device=dev)])
 
     return ExecutionCore(msg=msg_of,
                          step=_direction_step(dense, sparse, mode, C),
@@ -741,7 +789,10 @@ def _run_local(csr: CSR, prog: VertexProgram, lanes: str, state0, frontier0,
     state, stats = _core_loop(core, state0, frontier0, max_iters=max_iters,
                               key=None if key is None else as_key(
                                   key, csr.device), trace_len=n_trace)
-    return (state, stats) if return_stats else state
+    if not return_stats:
+        return state
+    del stats["fallbacks"]   # the local placement routes nothing
+    return state, stats
 
 
 def run(csr: CSR, prog: VertexProgram, state0: Any, frontier0: torch.Tensor,
@@ -848,6 +899,494 @@ def frontier_edge_capacity(m: int, switch_frac: float, *,
     """
     slack = _tune.resolve("engine.push_slack", slack, n=n, device=device)
     return max(1, min(m, int(m * switch_frac * slack)))
+
+
+# ---------------------------------------------------------------------------
+# Distributed placement: one rank per shard over a launch.mesh.Mesh
+# ---------------------------------------------------------------------------
+
+def _owned_local(src: torch.Tensor, att) -> torch.Tensor:
+    """int64 local offsets of owned sources (0 on padding edges)."""
+    return torch.where(src >= 0, att.local(src.clamp(min=0)), 0).long()
+
+
+def _active_edge_mask(src, frontier, att):
+    """Per-shard mask of edges whose (owned) source is in the frontier."""
+    return (src >= 0) & (frontier[_owned_local(src, att)] > 0)
+
+
+def _compact_slots(valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """Positions of the True entries of ``valid``, in order, padded with
+    -1 to ``cap`` (the first ``cap`` when there are more), by cumsum and
+    scatter: no device read."""
+    pos = torch.cumsum(valid, 0) - 1
+    to = torch.where(valid & (pos < cap), pos, cap)
+    slots = torch.full((cap + 1,), -1, dtype=torch.int64, device=valid.device)
+    slots[to] = torch.arange(valid.shape[0], device=valid.device)
+    return slots[:cap]
+
+
+def _compact_active_edges(src, dst, val, active, cap: int):
+    """Frontier-proportional payload: the edges ``active`` names,
+    compacted into ``cap`` slots (padded with src = dst = -1, val = 0)."""
+    slots = _compact_slots(active, cap)
+    keep = slots >= 0
+    safe = slots.clamp(min=0)
+    return (torch.where(keep, src[safe], -1), torch.where(keep, dst[safe], -1),
+            torch.where(keep, val[safe], 0.0))
+
+
+def _push_step_shard(src, dst, val, msg, att, mesh, prog: VertexProgram,
+                     capacity: int):
+    """Scalar-lane push: the owner of src computes each contribution and
+    the dst owner combines it (PIUMA remote atomic).  ``capacity`` is the
+    per-peer routing budget: a level moves S * capacity slots."""
+    lsrc = _owned_local(src, att)
+    gidx = torch.where(src >= 0, dst, -1)
+    if prog.structured:
+        if prog.combine != "argmax_weighted":
+            raise NotImplementedError(
+                "distributed combine='sample' is queue-shaped work: run it "
+                "through sample_neighbors instead")
+        payload = offload.dma_gather(msg, lsrc, fill=-1).to(torch.int32)
+        payload = torch.where(src >= 0, payload, -1)
+        w = val if prog.edge_op == "mul" else torch.ones_like(val)
+        return offload.remote_scatter_weighted_mode(
+            att.per_shard, gidx, payload, w, att, mesh, capacity=capacity)
+    ident = msg.new_full((), prog.ident)
+    em = torch.where(src >= 0, offload.dma_gather(msg, lsrc, fill=prog.ident),
+                     ident)
+    ev = torch.where(src >= 0, _apply_edge(em, val, prog.edge_op), ident)
+    acc = _acc_init(att.per_shard, prog, msg.dtype, msg.device)
+    if prog.combine == "add":
+        return offload.remote_scatter_add(acc, gidx, ev, att, mesh,
+                                          capacity=capacity)
+    return offload.remote_scatter_combine(acc, gidx, ev, att, mesh,
+                                          combine=prog.combine,
+                                          identity=prog.ident,
+                                          capacity=capacity)
+
+
+def _batched_push_step(att, mesh, prog: VertexProgram, packed: bool):
+    """Lane-batched push: one routed item per active edge carries **all** B
+    lanes (packed words, or a trailing valued lane dim) to the dst
+    owner."""
+
+    def push_step(csrc, cdst, cval, msg, cap):
+        gidx = torch.where(csrc >= 0, cdst, -1)
+        lsrc = torch.where(csrc >= 0, att.local(csrc.clamp(min=0)), -1)
+        if packed:
+            em = offload.dma_gather(msg, lsrc, fill=0)
+            return offload.remote_scatter_or(att.per_shard, gidx, em, att,
+                                             mesh, capacity=cap)
+        em = offload.dma_gather(msg.T, lsrc, fill=prog.ident)   # (m, B)
+        ev = _apply_edge(em, cval[:, None], prog.edge_op)
+        ev = torch.where((csrc >= 0)[:, None], ev, em.new_full((), prog.ident))
+        acc0 = msg.new_full((att.per_shard, msg.shape[0]), prog.ident)
+        if prog.combine == "add":
+            acc = offload.remote_scatter_add(acc0, gidx, ev, att, mesh,
+                                             capacity=cap)
+        else:
+            acc = offload.remote_scatter_combine(
+                acc0, gidx, ev, att, mesh, combine=prog.combine,
+                identity=prog.ident, capacity=cap)
+        return acc.T                                            # (B, per)
+
+    return push_step
+
+
+def _push_dispatch(push_step, src, dst, val, att, union, edge_cap: int,
+                   m_fwd: int, compact: bool):
+    """The compaction plumbing shared by every lane representation: when
+    no shard's active-edge count overflows ``edge_cap`` (the level's
+    reduced count says so, alike on every rank) the level routes a
+    compacted edge list at that small capacity; an overflowing level falls
+    back to full-capacity routing (the fallback counter's numerator)."""
+
+    def push(msg, frontier, over: int):
+        if not compact:
+            return push_step(src, dst, val, msg, m_fwd), 0
+        if over:
+            return push_step(src, dst, val, msg, m_fwd), 1
+        active = _active_edge_mask(src, union(frontier), att)
+        csrc, cdst, cval = _compact_active_edges(src, dst, val, active,
+                                                 edge_cap)
+        return push_step(csrc, cdst, cval, msg, edge_cap), 0
+
+    return push
+
+
+def _pull_step_shard(own, remote, val, msg, att_in, att_out, mesh,
+                     prog: VertexProgram, capacity: int, gather_mode: str):
+    """Pull: the owner of the *output* vertex fetches messages from the
+    input owners (fine-grained ``dgas_gather``, or the ``all_gather``
+    baseline) and reduces locally."""
+    gidx = torch.where(remote >= 0, remote, -1)
+    local_own = torch.where(own >= 0, att_out.local(own.clamp(min=0)), -1)
+    if prog.structured:
+        if prog.combine != "argmax_weighted":
+            raise NotImplementedError(
+                "distributed combine='sample' is queue-shaped work: run it "
+                "through sample_neighbors instead")
+        payload = offload.dgas_gather(msg, gidx, att_in, mesh,
+                                      capacity=capacity, fill=-1)
+        w = val if prog.edge_op == "mul" else torch.ones_like(val)
+        return offload.segment_weighted_mode(local_own,
+                                             payload.to(torch.int32), w,
+                                             att_out.per_shard)
+    if gather_mode == "dgas":
+        em = offload.dgas_gather(msg, gidx, att_in, mesh, capacity=capacity,
+                                 fill=prog.ident)
+    else:
+        em = offload.all_gather_gather(msg, gidx, att_in, mesh,
+                                       fill=prog.ident)
+    ev = torch.where(own >= 0, _apply_edge(em, val, prog.edge_op),
+                     em.new_full((), prog.ident))
+    acc = _acc_init(att_out.per_shard, prog, msg.dtype, msg.device)
+    if prog.combine == "add":
+        return offload.dma_scatter_add(acc, local_own, ev)
+    return _scatter_combine(acc, local_own, ev, prog.combine, prog.ident)
+
+
+def _async_split(src, dst, val, att, mesh, prog: VertexProgram, lanes: str):
+    """Plan the async placement's split push pass.  Every resident edge is
+    **local** (destination owned by this rank: its contribution goes to the
+    local accumulator at once) or **remote** (folded into the dense
+    (S * per, ...) outbox at ``ATT.flat_slot``, delivered by the next
+    ``offload.buffered_flush``).  A pass makes no collective.
+
+    Returns ``(pass_, orient, merge, outbox_of)``: pass_(msg, outbox) ->
+    (acc, outbox) in scatter layout (the outbox updated in place); orient
+    — scatter layout to the update's lane layout; merge — the combine,
+    elementwise; outbox_of(msg) — an identity-filled outbox for messages
+    shaped like ``msg``."""
+    per, me = att.per_shard, offload.my_shard(mesh)
+    in_range = src >= 0
+    lsrc = torch.where(in_range, att.local(src.clamp(min=0)), -1)
+    d_safe = dst.clamp(min=0)
+    is_local = in_range & (att.owner(d_safe) == me)
+    lidx = torch.where(is_local, att.local(d_safe), -1)
+    ridx = torch.where(in_range & ~is_local, att.flat_slot(d_safe), -1)
+
+    if lanes == "packed":
+        def pass_(msg, outbox):
+            em = offload.dma_gather(msg, lsrc, fill=0)
+            acc = offload.segment_or(lidx, em, per)
+            outbox |= offload.segment_or(ridx, em, outbox.shape[0])
+            return acc, outbox
+
+        orient = lambda a: a
+        merge = torch.bitwise_or
+    else:
+        def pass_(msg, outbox):
+            flat = msg.T if lanes == "valued" else msg       # gather by row
+            em = offload.dma_gather(flat, lsrc, fill=prog.ident)
+            ev = _apply_edge(em, val if lanes == "scalar" else val[:, None],
+                             prog.edge_op)
+            mask = in_range if lanes == "scalar" else in_range[:, None]
+            ev = torch.where(mask, ev, em.new_full((), prog.ident))
+            acc = em.new_full((per,) + tuple(ev.shape[1:]), prog.ident)
+            acc = _scatter_combine(acc, lidx, ev, prog.combine, prog.ident)
+            outbox = _scatter_combine(outbox, ridx, ev, prog.combine, prog.ident)
+            return acc, outbox
+
+        orient = (lambda a: a.T) if lanes == "valued" else (lambda a: a)
+        merge = {"add": torch.add, "min": torch.minimum,
+                 "max": torch.maximum}[prog.combine]
+
+    def outbox_of(msg):
+        if lanes == "packed":
+            return msg.new_zeros((att.n_shards * per,) + tuple(msg.shape[1:]))
+        trail = (msg.shape[0],) if lanes == "valued" else ()
+        return msg.new_full((att.n_shards * per,) + trail, prog.ident)
+
+    return pass_, orient, merge, outbox_of
+
+
+def reverse_graph(csr: CSR, att):
+    """Shard the *transposed* edge list by destination owner (``att``, the
+    vertex rule) for the distributed pull direction."""
+    from .algorithms.distgraph import shard_graph
+    return shard_graph(csr.transpose(), att.n_shards, row_att=att)[0]
+
+
+def _level_counts(snapshots: list, taken: list) -> list:
+    """Per level: whether it pushed (async: flushed) and fell back, and
+    what it handed to the backend — the differences between the mesh's
+    counts after consecutive level counts."""
+    return [{"push": push, "fallback": fb,
+             "collectives": b["collectives"] - a["collectives"],
+             "bytes": {k: b["bytes"][k] - a["bytes"][k] for k in b["bytes"]}}
+            for a, b, (push, fb) in zip(snapshots, snapshots[1:], taken)]
+
+
+def _run_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
+                     frontier0: torch.Tensor, *, lanes: str, max_iters: int,
+                     mode: str, switch_frac, push_edge_capacity, g_rev,
+                     return_stats: bool, placement: str = "sync",
+                     sync_interval: int = 1, trace_len: int = 0):
+    """Shared distributed runner: plan this rank's ExecutionCore and run
+    the single stepping loop.  Every rank calls it with its own rows of
+    the state; every branch is taken on numbers all ranks share (the
+    level's all-reduced counts), so the ranks meet in the same collectives.
+
+    placement 'sync' is the per-level bulk-synchronous engine; 'async' the
+    bounded-staleness variant: sync_interval-1 collective-free local
+    micro-steps between global checks, each check one
+    ``offload.buffered_flush`` and the level's count."""
+    if placement not in ("sync", "async"):
+        raise ValueError(
+            f"placement must be 'sync' or 'async', got {placement!r}")
+    if placement == "async":
+        if prog.structured:
+            raise NotImplementedError(
+                "the async placement defers messages in a dense combine "
+                "outbox: structured combines (argmax_weighted/sample) have "
+                "no identity-mergeable buffer entry")
+        if mode != "push":
+            raise ValueError("the async placement paces the split "
+                             "local/remote push pass: mode must be 'push'")
+        if sync_interval < 1:
+            raise ValueError(f"sync_interval must be >= 1, got {sync_interval}")
+    if att.n_shards != mesh.size:
+        raise ValueError(f"the ATT has {att.n_shards} shards, the mesh "
+                         f"{mesh.size} ranks")
+    from .algorithms.distgraph import local_shard
+    dev = mesh.device
+    shard = local_shard(g, mesh)
+    src, dst, val = shard.src, shard.dst, shard.val
+    switch_frac = _tune.resolve("engine.switch_frac", switch_frac,
+                                n=att.n_global, device=dev)
+    switch_count = max(1, int(att.n_global * switch_frac))
+    m_fwd = shard.edges_per_shard
+    if push_edge_capacity is None:
+        edge_cap = frontier_edge_capacity(m_fwd, switch_frac, n=att.n_global,
+                                          device=dev)
+    else:
+        edge_cap = int(push_edge_capacity)
+    compact = mode != "pull" and 0 < edge_cap < m_fwd
+    per = att.per_shard
+    msg_of, update, union = _lane_ops(prog, lanes)
+    deg = torch.zeros(per, dtype=torch.int64, device=dev).index_add_(
+        0, _owned_local(src, att), (src >= 0).long())
+    snapshots = []
+
+    def count(f):
+        act = union(f)
+        edges = (deg * act).sum()
+        over = (edges > edge_cap).long() if compact else torch.zeros_like(edges)
+        c = offload.hierarchical_psum(torch.stack([act.sum(), edges, over]),
+                                      mesh)
+        snapshots.append(mesh.counts())
+        return c
+
+    state, frontier = state0, frontier0
+    if placement == "async":
+        # the carried state is (state, outbox): each level runs
+        # sync_interval-1 collective-free split passes (pace), then one
+        # checked step — a split pass, one buffered_flush delivering every
+        # deferred remote contribution, and the count.  The outbox is
+        # drained before every count, so alive == 0 means quiescence.
+        pass_, orient, merge, outbox_of = _async_split(src, dst, val, att,
+                                                       mesh, prog, lanes)
+
+        def amsg(wrapped, f):
+            st, box = wrapped
+            return msg_of(st, f), box
+
+        def astep(msg_box, f, counts, it_key):
+            m, box = msg_box
+            acc, box = pass_(m, box)
+            arrived = offload.buffered_flush(box, mesh, combine=prog.combine)
+            # 'pushes' counts flushes under the async placement
+            return orient(merge(acc, arrived)), 1, 0
+
+        def aupdate(wrapped, acc, f, it):
+            st, _ = wrapped
+            st, f = update(st, acc, f, it)
+            return (st, box_id.clone()), f   # flushed: a fresh outbox
+
+        def apace(wrapped, f, it):
+            def micro(carry, step_it):
+                st_, box_, f_ = carry
+                acc_, box_ = pass_(msg_of(st_, f_), box_)
+                st_, f_ = update(st_, orient(acc_), f_, step_it)
+                return st_, box_, f_
+
+            st, box = wrapped
+            st, box, f = _scan_steps(micro, (st, box, f), sync_interval - 1,
+                                     it)
+            return (st, box), f, it + sync_interval - 1
+
+        core = ExecutionCore(msg=amsg, step=astep, update=aupdate,
+                             count=count,
+                             pace=apace if sync_interval > 1 else None)
+        box_id = outbox_of(msg_of(state, frontier))
+        state = (state, box_id.clone())
+    else:
+        if lanes == "scalar":
+            def push_step(s, d, v, msg, cap):
+                return _push_step_shard(s, d, v, msg, att, mesh, prog, cap)
+        else:
+            push_step = _batched_push_step(att, mesh, prog,
+                                           packed=lanes == "packed")
+        push = _push_dispatch(push_step, src, dst, val, att, union, edge_cap,
+                              m_fwd, compact)
+        rev = None if g_rev is None else local_shard(g_rev, mesh)
+
+        def step(msg, f, counts, it_key):
+            if mode == "pull" or (mode == "auto" and counts[0] > switch_count):
+                # g_rev rows: src = output vertex (owned here), dst = input
+                return _pull_step_shard(rev.src, rev.dst, rev.val, msg, att,
+                                        att, mesh, prog,
+                                        capacity=rev.edges_per_shard,
+                                        gather_mode="dgas"), 0, 0
+            acc, fb = push(msg, f, counts[2])
+            return acc, 1, fb
+
+        core = ExecutionCore(msg=msg_of, step=step, update=update,
+                             count=count)
+    taken = []
+
+    def step_taken(*a):
+        acc, was_push, fb = core.step(*a)
+        taken.append((was_push, fb))
+        return acc, was_push, fb
+
+    state, stats = _core_loop(dataclasses.replace(core, step=step_taken),
+                              state, frontier, max_iters=max_iters,
+                              trace_len=trace_len,
+                              trace_flush=placement == "async")
+    if placement == "async":
+        state = state[0]   # drop the (drained) outbox
+    if not return_stats:
+        return state
+    stats["levels"] = _level_counts(snapshots, taken)
+    return state, stats
+
+
+def run_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
+                    frontier0: torch.Tensor, *, max_iters: int, g_rev=None,
+                    mode: str = "push", switch_frac: Optional[float] = None,
+                    push_edge_capacity: Optional[int] = None,
+                    return_stats: bool = False, placement: str = "sync",
+                    sync_interval: Optional[int] = None, trace: bool = False,
+                    trace_len: Optional[int] = None):
+    """Distributed loop on one rank of ``mesh``: the (scalar lanes,
+    distributed placement) point of the grid.  Every rank calls it with
+    the same arguments except ``state0`` / ``frontier0``, which are its own
+    (per_shard,) rows under ``att``; ``g`` (and ``g_rev``) is the stacked
+    ``ShardedGraph`` or this rank's ``GraphShard``, sharded by ``att``.
+
+    mode: 'push' (every level scatters via remote atomics), 'pull'
+      (requires `g_rev`; every level gathers via dgas), or 'auto' (push
+      while the all-reduced frontier is at most `switch_frac * n`, pull
+      above it).
+    switch_frac: the 'auto' switch threshold (and the capacity
+      derivation's frontier bound); None resolves the tuned value for the
+      mesh device's type and the graph's scale (``repro_torch.tune``).
+    placement: 'sync' (one global reduction per level) or 'async'
+      (bounded-staleness pacing: `sync_interval` local micro-steps per
+      global check, cross-shard messages deferred into a dense combine
+      outbox flushed once per check; requires mode='push' and a
+      non-structured combine).
+    sync_interval: micro-steps per global check under 'async' (default 8).
+    push_edge_capacity: per-peer routing capacity of the *compacted* push
+      step (None derives `frontier_edge_capacity(m, switch_frac)`; 0
+      disables compaction).  A level whose active edges overflow it on any
+      shard routes at full capacity and counts as a fallback.
+    return_stats: also return {'iters', 'pushes', 'pulls', 'fallbacks'}
+      (ints, the same on every rank) and, the port's own, 'levels': per
+      level whether it pushed ('push'; under 'async': flushed) and fell
+      back ('fallback'), and the collectives and bytes per kind this rank
+      handed to the backend (the step's routes, the program's reductions,
+      the count).
+    trace: with return_stats, the per-level trace (``stats['trace']``,
+      (trace_len, 4) int32, the same on every rank); under 'async' each
+      row is one global check and the flush column fires.
+    Returns this rank's final state (per_shard rows).
+    """
+    if mode not in ("auto", "push", "pull"):
+        raise ValueError(f"mode must be 'auto', 'push' or 'pull', got {mode!r}")
+    if prog.combine == "or":
+        raise ValueError("combine='or' is the batched bitwise combine: run it "
+                         "through run_batched_distributed")
+    if mode in ("pull", "auto") and g_rev is None:
+        raise ValueError(f"mode={mode!r} needs g_rev (see reverse_graph)")
+    if sync_interval is None:
+        sync_interval = 8 if placement == "async" else 1
+    return _run_distributed(g, att, mesh, prog, state0, frontier0,
+                            lanes="scalar", max_iters=max_iters, mode=mode,
+                            switch_frac=switch_frac,
+                            push_edge_capacity=push_edge_capacity,
+                            g_rev=g_rev, return_stats=return_stats,
+                            placement=placement,
+                            sync_interval=int(sync_interval),
+                            trace_len=_trace_len_of(trace, trace_len,
+                                                    max_iters, return_stats))
+
+
+def run_batched_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
+                            frontier0: torch.Tensor, *, max_iters: int,
+                            switch_frac: Optional[float] = None,
+                            push_edge_capacity: Optional[int] = None,
+                            return_stats: bool = False,
+                            placement: str = "sync",
+                            sync_interval: Optional[int] = None,
+                            trace: bool = False,
+                            trace_len: Optional[int] = None):
+    """Distributed batched loop: B concurrent traversals, one push
+    pipeline, on one rank of ``mesh``.
+
+    * packed (``combine='or'``): frontier0 is this rank's (per, W) int32
+      words; the remote combine is :func:`offload.remote_scatter_or` at
+      the dst owner (the ``segment_or`` kernel on the card).
+    * valued: frontier0 is (B, per) int32, state leaves (B, ...), and the
+      single-source msg_fn / update_fn are vmapped over the lanes (a
+      reduction inside the program, such as SSSP's global bucket minimum,
+      is one all-reduce of every lane).
+
+    Every level pushes with the active-edge compaction driven by the
+    union frontier, so one compacted exchange carries all B lanes.  Stats,
+    trace and placement as :func:`run_distributed` ('pulls' is always 0).
+    Returns this rank's final state.
+    """
+    if prog.structured:
+        raise NotImplementedError(
+            "structured combines are not lane-batched: sampling is already "
+            "batch-shaped (sample_neighbors)")
+    packed = prog.combine == "or"
+    if sync_interval is None:
+        sync_interval = 8 if placement == "async" else 1
+    return _run_distributed(g, att, mesh, prog, state0, frontier0,
+                            lanes="packed" if packed else "valued",
+                            max_iters=max_iters, mode="push",
+                            switch_frac=switch_frac,
+                            push_edge_capacity=push_edge_capacity,
+                            g_rev=None, return_stats=return_stats,
+                            placement=placement,
+                            sync_interval=int(sync_interval),
+                            trace_len=_trace_len_of(trace, trace_len,
+                                                    max_iters, return_stats))
+
+
+def spmv_pass(g, x_local: torch.Tensor, x_att, row_att, mesh, *,
+              mode: str = "dgas") -> torch.Tensor:
+    """One distributed pull step == y = A @ x on this rank (rows per
+    ``row_att``, x per ``x_att``): this rank's (per_shard,) rows of y."""
+    from .algorithms.distgraph import local_shard
+    prog = VertexProgram(edge_op="mul", combine="add",
+                         msg_fn=lambda s, f: s, update_fn=None)
+    shard = local_shard(g, mesh)
+    return _pull_step_shard(shard.src, shard.dst, shard.val, x_local, x_att,
+                            row_att, mesh, prog,
+                            capacity=shard.edges_per_shard, gather_mode=mode)
+
+
+def run_queue(*args, **kwargs):
+    """The queue-program runner: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("run_queue (queue-driven programs) is not "
+                              "ported yet (ROADMAP §A.8)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,16 @@
-"""Offload engines, local part: DMA gather, scatter-add, the lane-word OR
-combine and the structured segment combines (counterpart of the in-node
-ops of ``repro.core.offload``).  The remote, queue and collective engines
-belong to the distributed placement.
+"""Offload engines (counterpart of ``repro.core.offload``): the in-node
+DMA gather, scatter-add, the lane-word OR combine and the structured
+segment combines; and, for the distributed placement, the owner-routed
+remote engines and the collective engine over a ``launch.mesh.Mesh``.
+
+Remote access is owner-routed: requests travel to the owner shard (by the
+ATT of ``core.dgas``), the owner performs the gather or the commutative
+update locally, and only the requested or accepted words cross between
+ranks, in one fixed-capacity ``all_to_all`` per plane (:func:`_route`).
+Every collective of the port is a ``Mesh`` method called from this module
+(or from ``launch/mesh.py`` itself), so the address-translation layer
+stays the one place where data crosses shards.  The work queue engine
+(``queue_balance``) is not ported yet (ROADMAP §A.8).
 
 Sums that decide a label (the weighted label mode's per-(destination,
 label) runs, ``graph.contract``'s parallel coarse edges, the Louvain gain
@@ -18,7 +27,12 @@ import torch
 
 __all__ = ["LABEL_PAD", "dma_gather", "dma_scatter_add", "segment_or",
            "segment_argmax", "run_starts", "segment_weighted_mode",
-           "compact_labels", "run_sum", "segment_sum_ordered", "tree_sum"]
+           "compact_labels", "run_sum", "segment_sum_ordered", "tree_sum",
+           "axis_size", "my_shard", "dgas_gather", "remote_scatter_add",
+           "remote_scatter_combine", "remote_scatter_or",
+           "remote_scatter_weighted_mode", "buffered_flush",
+           "all_gather_gather", "queue_balance", "hierarchical_psum",
+           "barrier", "prefix_scan", "global_min"]
 
 # payload sentinel that sorts after every real label / vertex id
 LABEL_PAD = 2 ** 30
@@ -187,3 +201,282 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
         h = x.numel() // 2
         x = x[:h] + x[h:]
     return x[0]
+
+
+# ---------------------------------------------------------------------------
+# Axis helpers: a rank's view of its 1-D mesh
+# ---------------------------------------------------------------------------
+
+def _one_axis(mesh):
+    if isinstance(mesh, (tuple, list)):
+        raise NotImplementedError(
+            "a tuple axis / multi-axis mesh is not ported yet (ROADMAP §A.8)")
+    return mesh
+
+
+def axis_size(mesh) -> int:
+    return _one_axis(mesh).size
+
+
+def my_shard(mesh) -> int:
+    """This rank's linear shard index."""
+    return _one_axis(mesh).rank
+
+
+def _all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """all_to_all over the leading axis (size * k rows: chunk p to rank p)."""
+    return _one_axis(mesh).all_to_all(x)
+
+
+# ---------------------------------------------------------------------------
+# Owner routing (shared by dgas_gather and the remote_scatter_* engines)
+# ---------------------------------------------------------------------------
+
+def _owner_slots(dest: torch.Tensor, n_shards: int, capacity: int):
+    """Assign each item a slot in its destination bucket: the stable sort
+    by owner, the item's position within its bucket.
+
+    Returns (flat, valid): flat = dest * capacity + slot for valid items
+    (0 otherwise), valid = slot < capacity and 0 <= dest < n_shards.  The
+    reference's order, so overflowing items drop alike."""
+    n = dest.shape[0]
+    sorted_dest, order = torch.sort(dest, stable=True)
+    starts = torch.searchsorted(sorted_dest, torch.arange(
+        n_shards, dtype=dest.dtype, device=dest.device))
+    pos_sorted = torch.arange(n, device=dest.device) - \
+        starts[sorted_dest.clamp(0, n_shards - 1).long()]
+    slot = torch.empty(n, dtype=torch.int64, device=dest.device)
+    slot[order] = pos_sorted
+    valid = (slot < capacity) & (dest >= 0) & (dest < n_shards)
+    flat = torch.where(valid, dest.long() * capacity + slot, 0)
+    return flat.to(torch.int32), valid
+
+
+def _route(payload: tuple, dest: torch.Tensor, mesh, capacity: int):
+    """Send each payload row to shard ``dest[i]`` (fixed per-peer
+    capacity): one ``all_to_all`` per payload plane and one for the int8
+    validity plane.
+
+    Returns (recv, recv_valid, flat, valid): recv — the planes with leading
+    dim S * capacity, grouped by source rank; recv_valid (S * capacity,)
+    bool; flat, valid — the sender's slot bookkeeping for :func:`_reply`.
+    Each slot holds at most one item, so the items are stored, not added
+    into a zeroed buffer as the reference adds them; a float -0.0 is routed
+    as +0.0, the value the reference's add gives."""
+    S = axis_size(mesh)
+    flat, valid = _owner_slots(dest, S, capacity)
+    # invalid items land in a spare slot past the end, dropped
+    to = torch.where(valid, flat.long(), S * capacity)
+
+    def store(x):
+        if x.is_floating_point():
+            x = x + 0.0
+        buf = x.new_zeros((S * capacity + 1,) + tuple(x.shape[1:]))
+        buf[to] = x
+        return buf[:-1]
+
+    sendv = store(valid.to(torch.int8))
+    recv = tuple(_all_to_all(store(x), mesh) for x in payload)
+    recvv = _all_to_all(sendv, mesh).bool()
+    return recv, recvv, flat, valid
+
+
+def _reply(reply: torch.Tensor, flat: torch.Tensor, valid: torch.Tensor,
+           mesh, fill=0) -> torch.Tensor:
+    """Return per-request answers computed at the owner to the
+    requesters (one ``all_to_all``)."""
+    back = _all_to_all(reply, mesh)
+    # invalid requests read a fill row past the end (there is always one,
+    # even at capacity 0)
+    back = torch.cat([back, back.new_full((1,) + tuple(back.shape[1:]),
+                                          fill)])
+    return back[torch.where(valid, flat.long(), back.shape[0] - 1)]
+
+
+def _routed_ids(gidx: torch.Tensor, att, *, mask_owner: bool):
+    """(owner, local index) of each global id; the local index of an id
+    outside [0, n_global) is -1, so its owner answers nothing.  Its owner
+    is -1 (never routed) with ``mask_owner``, else the rule's owner of the
+    id as it is, as the reference computes each (such a request still
+    takes a slot of that owner's bucket)."""
+    in_range = (gidx >= 0) & (gidx < att.n_global)
+    local = torch.where(in_range, att.local(gidx), -1).to(torch.int32)
+    owner = att.owner(gidx)
+    if mask_owner:
+        owner = torch.where(in_range, owner, -1)
+    return owner.to(torch.int32), local
+
+
+def _capacity(capacity, n: int, S: int) -> int:
+    return capacity if capacity is not None else min(n, 2 * (-(-n // S)))
+
+
+# ---------------------------------------------------------------------------
+# DGAS remote access primitives
+# ---------------------------------------------------------------------------
+
+def dgas_gather(local: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
+                capacity=None, fill: float = 0.0) -> torch.Tensor:
+    """PIUMA fine-grained remote gather across the DGAS.
+
+    Each rank holds ``local`` (its rows of the global array, per ``att``);
+    ``gidx`` are *global* ids to fetch.  Only the index requests and the
+    fetched elements cross between ranks.  capacity: the most requests any
+    one peer pair exchanges (default 2 * ceil(n / S)); overflowing requests
+    return ``fill``."""
+    C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
+    owner, local_idx = _routed_ids(gidx, att, mask_owner=False)
+    (recv,), recvv, flat, valid = _route((local_idx,), owner, mesh, C)
+    answers = dma_gather(local, torch.where(recvv, recv, -1), fill=fill)
+    return _reply(answers, flat, valid, mesh, fill=fill)
+
+
+def remote_scatter_add(local: torch.Tensor, gidx: torch.Tensor,
+                       vals: torch.Tensor, att, mesh, *,
+                       capacity=None) -> torch.Tensor:
+    """PIUMA remote atomic add, executed at the owner: (local index, value)
+    pairs are routed to the owning rank, which applies one fused scatter
+    add into ``local`` (updated in place and returned)."""
+    C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
+    owner, local_idx = _routed_ids(gidx, att, mask_owner=False)
+    (ridx, rvals), recvv, _, _ = _route((local_idx, vals), owner, mesh, C)
+    return dma_scatter_add(local, torch.where(recvv, ridx, -1), rvals)
+
+
+def remote_scatter_combine(local: torch.Tensor, gidx: torch.Tensor,
+                           vals: torch.Tensor, att, mesh, *, combine: str,
+                           identity, capacity=None) -> torch.Tensor:
+    """Remote atomic min / max at the owner (same routing as
+    :func:`remote_scatter_add`); ``vals`` may carry trailing lane dims.
+    ``local`` is updated in place and returned."""
+    if combine not in ("min", "max"):
+        raise ValueError(f"combine must be 'min' or 'max', got {combine!r}")
+    C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
+    owner, local_idx = _routed_ids(gidx, att, mask_owner=False)
+    (ridx, rvals), recvv, _, _ = _route((local_idx, vals), owner, mesh, C)
+    ok = recvv & (ridx >= 0) & (ridx < local.shape[0])
+    mask = ok.reshape((-1,) + (1,) * (rvals.dim() - 1))
+    masked = torch.where(mask, rvals.to(local.dtype),
+                         local.new_full((), identity))
+    safe = torch.where(ok, ridx, 0).long()
+    safe = safe.reshape((-1,) + (1,) * (rvals.dim() - 1)).expand_as(masked)
+    return local.scatter_reduce_(0, safe, masked,
+                                 "amin" if combine == "min" else "amax",
+                                 include_self=True)
+
+
+def remote_scatter_or(per_shard_n: int, gidx: torch.Tensor,
+                      words: torch.Tensor, att, mesh, *,
+                      capacity=None) -> torch.Tensor:
+    """Remote atomic OR of bit-packed int32 lane words at the owner: each
+    rank contributes (global vertex, (W,) words) pairs; the owner reduces
+    its arrivals with :func:`segment_or` (the ``segment_or`` kernel on the
+    card).  One routed item carries all B lanes.  Returns the
+    (per_shard_n, W) int32 OR-accumulator."""
+    C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
+    owner, local_idx = _routed_ids(gidx, att, mask_owner=True)
+    (ridx, rwords), recvv, _, _ = _route(
+        (local_idx, words.to(torch.int32)), owner, mesh, C)
+    return segment_or(torch.where(recvv, ridx, -1), rwords, per_shard_n)
+
+
+def remote_scatter_weighted_mode(per_shard_n: int, gidx: torch.Tensor,
+                                 labels: torch.Tensor, weights: torch.Tensor,
+                                 att, mesh, *, capacity=None):
+    """Remote structured combine: the weighted label mode at the owner.
+    (global vertex, label, weight) votes are routed raw, and the owner's
+    :func:`segment_weighted_mode` (the ``segment_mode`` kernel on the card)
+    sums each (vertex, label) pair over every contributing rank before
+    taking the argmax.  Arrivals are grouped by source rank in each
+    sender's order, so under a contiguous rule a run adds in ascending
+    source order, as the local dense step does.  Returns per local vertex
+    (best_w, best_label); vertices with no votes get (-inf, -1)."""
+    C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
+    owner, local_idx = _routed_ids(gidx, att, mask_owner=True)
+    (ridx, rlab, rw), recvv, _, _ = _route(
+        (local_idx, labels.to(torch.int32), weights), owner, mesh, C)
+    return segment_weighted_mode(torch.where(recvv, ridx, -1),
+                                 torch.where(recvv, rlab, -1), rw,
+                                 per_shard_n)
+
+
+def buffered_flush(outbox: torch.Tensor, mesh, *,
+                   combine: str) -> torch.Tensor:
+    """Deliver a dense deferred-message buffer to its owner ranks: the
+    async placement's exchange.  ``outbox`` is (S * per, ...) addressed by
+    ``ATT.flat_slot`` with identity-filled empty slots (0 for 'add' / 'or',
+    +inf for 'min', -inf for 'max'); one ``all_to_all`` transposes it and
+    the S inbound slices are folded with ``combine``.  Returns the
+    (per, ...) merged arrivals for this rank's residents."""
+    S = axis_size(mesh)
+    lead = outbox.shape[0]
+    if lead % S != 0:
+        raise ValueError(
+            f"outbox leading dim {lead} is not divisible by {S} shards")
+    arrived = _all_to_all(outbox, mesh).reshape(
+        (S, lead // S) + tuple(outbox.shape[1:]))
+    if combine == "add":
+        return arrived.sum(dim=0)
+    if combine == "min":
+        return arrived.amin(dim=0)
+    if combine == "max":
+        return arrived.amax(dim=0)
+    if combine == "or":
+        out = arrived[0]
+        for i in range(1, S):
+            out = out | arrived[i]
+        return out
+    raise ValueError(f"unsupported combine {combine!r} for buffered_flush")
+
+
+def all_gather_gather(local: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
+                      fill: float = 0.0) -> torch.Tensor:
+    """Conventional-architecture baseline: replicate the whole array
+    (``all_gather``), then index it locally."""
+    g = _one_axis(mesh).all_gather(local)            # (S, per, ...)
+    if att.kind == "interleave":
+        full = g.transpose(0, 1).reshape((-1,) + tuple(g.shape[2:]))
+    else:
+        full = g.reshape((-1,) + tuple(g.shape[2:]))
+    return dma_gather(full[:att.n_global], gidx, fill=fill)
+
+
+def queue_balance(q, mesh, payload=None):
+    """Rebalance queued work across ranks: not ported yet (ROADMAP §A.8)."""
+    raise NotImplementedError("queue_balance (the queue engine) is not "
+                              "ported yet (ROADMAP §A.8)")
+
+
+# ---------------------------------------------------------------------------
+# Collective engine
+# ---------------------------------------------------------------------------
+
+def hierarchical_psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """Reduce one mesh level at a time.  ``axes`` is a Mesh or a sequence
+    of them, one per level; the port's meshes are 1-D, so a sequence of
+    more than one level is not ported yet (ROADMAP §A.8)."""
+    if isinstance(axes, (tuple, list)):
+        if len(axes) != 1:
+            raise NotImplementedError("a multi-axis hierarchical_psum is not "
+                                      "ported yet (ROADMAP §A.8)")
+        axes = axes[0]
+    return axes.all_reduce(x, "sum")
+
+
+def global_min(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Elementwise minimum over the ranks (the reference's ``lax.pmin``);
+    under ``torch.func.vmap`` one collective serves every lane."""
+    return _one_axis(mesh).all_reduce(x, "min")
+
+
+def barrier(mesh) -> torch.Tensor:
+    """System-wide barrier (a one-word reduction); returns the rank
+    count."""
+    return _one_axis(mesh).all_reduce(
+        torch.ones((), dtype=torch.int32, device=mesh.device), "sum")
+
+
+def prefix_scan(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Exclusive prefix sum across ranks (the collective engine's scan)."""
+    g = _one_axis(mesh).all_gather(x)               # (S, ...)
+    return (torch.cumsum(g, 0) - g)[my_shard(mesh)]

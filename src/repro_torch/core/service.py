@@ -333,9 +333,9 @@ class GraphService:
                  cost_seed=None, obs: Optional[Observability] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "GraphService(mesh=...): the distributed placement is not "
-                "ported yet (ROADMAP §A.8); build the service without a mesh "
-                "to serve from the local engine")
+                "GraphService(mesh=...): serving from the distributed "
+                "placement is not ported yet (ROADMAP §A.8); build the "
+                "service without a mesh to serve from the local engine")
         g0 = csr.csr if isinstance(csr, GraphHandle) else csr
         batch_budget = int(_tune.resolve("service.batch_budget",
                                          batch_budget, n=g0.n_rows,

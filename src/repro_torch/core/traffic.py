@@ -156,20 +156,23 @@ def flush_route_bytes(n_shards: int, per_shard: int, elem_bytes: int) -> int:
     return n_shards * per_shard * elem_bytes
 
 
-def level_collectives(*, placement: str, compact: bool = True,
-                      program_collectives: int = 0) -> int:
-    """Global reductions/exchanges one engine body (level or sync step) costs.
+def level_collectives(*, placement: str, program_collectives: int = 0) -> int:
+    """Collectives one engine body (level or sync step) costs the port.
 
-    sync push level: overflow psum (compacted only) + 3 routed all_to_alls
-    (index, value, validity planes of `offload._route`) + the termination
-    psum, plus any program-issued collectives (e.g. delta-stepping's two
-    global-min pmins per level).  async sync step: one buffered flush + the
-    termination psum — the program runs shard-local between checks, so
-    program collectives don't multiply.
+    sync level, push or pull: 3 routed all_to_alls (the index, value and
+    validity planes of `offload._route`; a pull level's dgas gather sends
+    indices and validity and gets the values back) + the level's count
+    all-reduce, plus any program-issued collectives (e.g. delta-stepping's
+    two global-min reductions per level).  The count is one small int64
+    vector that also carries the compacted push's overflow flag, so a
+    compacted level costs no more; the reference pays a separate overflow
+    psum there (its ``compact=True``).  async sync step: one buffered flush
+    + the termination count — the program runs shard-local between checks,
+    so program collectives don't multiply.
     """
     if placement == "async":
         return 2
-    return (1 if compact else 0) + 3 + 1 + program_collectives
+    return 3 + 1 + program_collectives
 
 
 @dataclasses.dataclass

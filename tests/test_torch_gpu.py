@@ -1038,3 +1038,21 @@ def test_sample_push_equals_pull_on_card(cuda, edge_op):
         got = engine.run(c, prog(), {"v": v0.cpu()}, f0.cpu(), max_iters=1,
                          mode="pull", key=123)["p"]
         assert torch.equal(got, p.cpu())
+
+
+def test_distributed_bfs_on_the_card_matches_cpu(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (CUDA tensors): direction-
+    optimizing ``bfs_distributed`` and ``msbfs_distributed`` at RMAT-16
+    equal the CPU path bit for bit."""
+    import numpy as np
+    from repro_torch.core.algorithms import msbfs
+    from repro_torch.launch import mesh as TM
+    import _torch_dist_cases as C
+
+    got = TM.spawn(C.run_card_case, 2, init_file=str(tmp_path / "init"),
+                   timeout=600)[0]
+    assert got["backend"] == "gloo" and got["device"].startswith("cuda")
+    g = rmat(C.CARD_SCALE, 16, seed=7, device="cpu")
+    np.testing.assert_array_equal(got["bfs"], bfs(g, 0).numpy())
+    np.testing.assert_array_equal(got["msbfs"],
+                                  msbfs(g, C.CARD_SOURCES).numpy())
