@@ -94,7 +94,26 @@ Phases, each of which exits non-zero on failure:
    close; ``segment_or`` and ``segment_mode`` must be launched; each
    level's collectives and routed bytes must equal ``core.traffic``'s
    model; then a 1-rank NCCL mesh runs the direction-optimizing BFS once
-   more (bit-equal);
+   more (bit-equal); each path logs the host seconds inside its
+   collectives and the card seconds between CUDA events around them;
+   then the second distributed phase (``[dist2]`` lines) on the same
+   shards, 4 ranks sharing the card as a (2, 2) grid ('data', 'model'):
+   ``queue_balance`` of a skewed queue (counts within 1, items kept),
+   ``random_walks_distributed`` (one walker per vertex, 80 steps, on the
+   queue engine; bit-equal to the structured phase's walks),
+   ``multilevel_distributed`` (Q within 1e-5 of the structured phase's
+   ``multilevel``; the share of labels that differ logged),
+   ``update_shards`` after the structured phase's inserts (a padding
+   overflow falls back on every rank) and ``bfs_repair_distributed`` /
+   ``cc_repair_distributed`` (bit-equal to its repairs),
+   ``GraphService(mesh=...)`` sync and async over phase 4's first 8
+   sources, 4 targets each (Reachability and Distance equal to phase
+   4's batched results) and a BFS over the grid's tuple axis (bit-equal)
+   with ``hierarchical_psum`` over both axes; each path with its wall,
+   collectives, bytes, host and card seconds and peak memory per rank;
+   ``segment_mode`` and ``segment_or`` must be launched; the structured
+   phase also prices ``run_sum``'s order floor (``[time] run_sum's
+   order floor``: a chain of dependent f32 adds timed on the card);
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
    function (timed here only; the port never calls it), and B1 / B3 on the
@@ -187,6 +206,8 @@ DIST_RANKS = 4                     # ranks sharing the card (gloo)
 DIST_BATCHED = 8                   # sssp_batched_distributed's lanes
 DIST_K = 4                         # the async BFS's sync_interval
 DIST_DIR = os.path.join(ROOT, "build", "dist")
+DIST2_SVC_BUDGET = 8               # the mesh service's lanes (a cut: 32)
+DIST2_SVC_TARGETS = 4              # Reachability + Distance per source
 # distributed PageRank vs phase 3's: values average 1e-6 at RMAT-20, so
 # the absolute floor sits well under them
 DIST_PR_RTOL, DIST_PR_ATOL = 1e-4, 1e-9
@@ -1056,6 +1077,76 @@ def pooled_chisquare(counts, expected):
     return scipy.stats.chisquare(counts, expected)
 
 
+FADD_SRC = r"""
+#include <cuda_runtime.h>
+extern "C" __global__ void chain(const float* in, float* out,
+                                 long long* cycles, int n) {
+    float x = in[0], y = in[1];
+    long long t0 = clock64();
+    for (int i = 0; i < n; i += 8) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(x) : "f"(y));
+    }
+    long long t1 = clock64();
+    out[0] = x;
+    cycles[0] = t1 - t0;
+}
+extern "C" int run_chain(int n, float* ms, long long* cycles) {
+    float *in, *out; long long* cyc;
+    float h[2] = {1.0f, 1e-7f};
+    cudaMalloc(&in, 8); cudaMalloc(&out, 4); cudaMalloc(&cyc, 8);
+    cudaMemcpy(in, h, 8, cudaMemcpyHostToDevice);
+    cudaEvent_t a, b;
+    cudaEventCreate(&a); cudaEventCreate(&b);
+    chain<<<1, 1>>>(in, out, cyc, 8);
+    cudaEventRecord(a);
+    chain<<<1, 1>>>(in, out, cyc, n);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    cudaEventElapsedTime(ms, a, b);
+    cudaMemcpy(cycles, cyc, 8, cudaMemcpyDeviceToHost);
+    cudaFree(in); cudaFree(out); cudaFree(cyc);
+    cudaEventDestroy(a); cudaEventDestroy(b);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def fadd_chain_floor(chain: int, n: int = 1 << 26) -> dict:
+    """The floor an in-order run sum's longest run sets: ``run_sum`` adds
+    each run's weights in stream order, so a run of ``chain`` items is that
+    many dependent f32 adds.  One thread adds a value to an accumulator
+    ``n`` times through ``add.rn.f32`` (no FMA contraction, no
+    reordering), timed by ``clock64`` and by CUDA events (best of 5): the
+    cycles per add are the FADD latency, cycles over seconds the SM clock,
+    and ``chain`` times the seconds per add the floor."""
+    import ctypes
+    out = os.path.join(ROOT, "build", "fadd_chain")
+    os.makedirs(out, exist_ok=True)
+    src, lib = os.path.join(out, "chain.cu"), os.path.join(out, "chain.so")
+    with open(src, "w") as fh:
+        fh.write(FADD_SRC)
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", lib, src],
+                   check=True)
+    so = ctypes.CDLL(lib)
+    ms, cyc = ctypes.c_float(), ctypes.c_longlong()
+    best = None
+    for _ in range(5):
+        if so.run_chain(n, ctypes.byref(ms), ctypes.byref(cyc)):
+            fail("the FADD chain kernel failed")
+        if best is None or ms.value < best[0]:
+            best = (ms.value, cyc.value)
+    t_ms, cycles = best
+    ns = t_ms * 1e6 / n
+    return dict(cycles_per_add=cycles / n, ns_per_add=ns,
+                sm_ghz=cycles / (t_ms * 1e-3) / 1e9, chain=chain,
+                floor_ms=chain * ns / 1e6)
+
+
 def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
                      args) -> dict:
     """The structured phase on phase 4's graph: LPA and multi-level Louvain
@@ -1065,7 +1156,10 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
     distributions, and repair after REPAIR_INSERTS inserts held to fresh
     runs.  Every path runs with the launch counts zeroed just before it and
     read just after.  Returns segment_mode's row of the kernels line (its
-    launches those of the phase's paths) and the phase's numbers."""
+    launches those of the phase's paths), the phase's numbers, LPA's
+    labels and, for the second distributed phase, the walks, multilevel's
+    labels and scores, the graph after the inserts with the changed
+    vertices, and the repaired BFS levels and CC labels (host arrays)."""
     import numpy as np
     import torch
     from repro_torch.core import GraphHandle, csr_from_numpy, engine, \
@@ -1080,7 +1174,7 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
     from repro_torch.obs import get_registry
 
     n, m, dev = g.n_rows, g.nnz, g.device
-    out, launched = {}, {}
+    out, launched, kept = {}, {}, {}
 
     def run(label, fn):
         """fn() with every count zeroed just before and read just after;
@@ -1270,6 +1364,12 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
     log(f"[time] run_sum: kernel {sum_case['ms']!r} ms, plain "
         f"{sum_case['plain_ms']!r} ms, bound {sum_case['bound_ms']!r} ms, "
         f"library none")
+    floor = fadd_chain_floor(longest)
+    sum_case["chain_floor"] = floor
+    log(f"[time] run_sum's order floor: {floor['cycles_per_add']!r} cycles "
+        f"per dependent f32 add at {floor['sm_ghz']!r} GHz "
+        f"({floor['ns_per_add']!r} ns), so its longest run of {longest} "
+        f"adds takes at least {floor['floor_ms']!r} ms")
     del run_id, sv, got, want
 
     # -- walks and sampling ------------------------------------------------
@@ -1282,6 +1382,7 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
         f"an out-edge nor a sink staying put: {int(bad)}")
     if int(bad) or walks.shape != (n, WALK_STEPS + 1):
         fail("random_walks: a step leaves the graph's edges")
+    kept["walks"] = walks.cpu().numpy()
     del walks
     hub = int(torch.argmax(deg))
     lo, hi = int(g.indptr[hub]), int(g.indptr[hub + 1])
@@ -1352,6 +1453,11 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
     if not rep.monotone_safe:
         fail("the insert batch is not monotone-safe")
     csr = handle.csr
+    kept.update(new_indptr=csr.indptr.cpu().numpy(),
+                new_indices=csr.indices.cpu().numpy(),
+                new_values=csr.values.cpu().numpy(),
+                changed_sources=np.asarray(rep.changed_sources),
+                changed_vertices=np.asarray(rep.changed_vertices))
     prev = {"bfs": lv_p, "cc": cc_labels, "sssp": d_p}
     fresh = {"bfs": lambda: bfs(csr, 0),
              "cc": lambda: connected_components(csr),
@@ -1369,6 +1475,8 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
         if not torch.equal(got, want):
             fail(f"repair {kind} differs from a fresh run")
         prev[kind] = got
+    kept.update(repair_bfs=prev["bfs"].cpu().numpy(),
+                repair_cc=prev["cc"].cpu().numpy())
     ctr = get_registry().counter("streaming.full_recompute_fallback")
     c0 = ctr.value
     pick = torch.arange(0, m, m // 16, device=dev)[:16]
@@ -1398,7 +1506,8 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
                multilevel_cpu_rmat16_s=cpu_ml_s, q_single_sweep=q_single,
                walks_s=walk_s, sample=chi, neighbor_sample_s=sage_s,
                ties_s=ties_s, repair=repair)
-    return row, out, lpa
+    kept.update(ml=ml.cpu().numpy(), ml_scores=np.array(scores))
+    return row, out, lpa, kept
 
 
 def _dist_check(checks, name, ok, detail=""):
@@ -1494,6 +1603,7 @@ def dist_rank(mesh, spec):
         res, stats = out if isinstance(out, tuple) else (out, None)
         row = {"wall_s": wall, "collectives": counts["collectives"],
                "bytes": counts["bytes"], "seconds": counts["seconds"],
+               "card_seconds": counts["card_seconds"],
                "launches": {"segment_or": SO.LAUNCHES["segment_or"],
                             "segment_mode": SM.LAUNCHES["segment_mode"]}}
         if stats is not None:
@@ -1716,11 +1826,16 @@ def dist_phase(g, x, ref: dict, smi: str) -> dict:
         for k in launched:
             launched[k] += launches[k]
         inside = [sum(r["paths"][label]["seconds"].values()) for r in ranks]
+        card = [sum(r["paths"][label]["card_seconds"].values())
+                for r in ranks]
         log(f"[dist] {label}: wall {max(walls)!r} s (per rank {walls}); "
             f"{stats}; collectives {row['collectives']}, bytes per rank "
             f"{row['bytes']}; host seconds inside the collectives per rank "
             f"{inside} ({max(i / w for i, w in zip(inside, walls)):.3f} of "
-            f"the wall at most); launches over the ranks {launches}")
+            f"the wall at most); card seconds between the events around "
+            f"them {card} ({min(c / w for c, w in zip(card, walls)):.3f} "
+            f"to {max(c / w for c, w in zip(card, walls)):.3f} of the "
+            f"wall); launches over the ranks {launches}")
     nccl = M.spawn(dist_nccl_rank, 1, device="cuda",
                    init_file=os.path.join(DIST_DIR, "init1"), args=(spec,),
                    timeout=600)[0]
@@ -1745,6 +1860,376 @@ def dist_phase(g, x, ref: dict, smi: str) -> dict:
         fail(f"the distributed phase failed: {failed}")
     return {"phase_s": phase_s, "prep_s": prep_s, "ranks_s": ranks_s,
             "launches": launched, "ranks": ranks, "nccl": nccl}
+
+
+def _shard_of_saved(d, name, r, S, n, dev):
+    import numpy as np
+    import torch
+    from repro_torch.core.algorithms import GraphShard
+    return GraphShard(*(torch.from_numpy(np.array(np.load(
+        os.path.join(d, f"{name}_{f}.npy"), mmap_mode="r")[r])).to(dev)
+        for f in ("src", "dst", "val")), n, S, r)
+
+
+def dist2_rank(mesh, spec):
+    """One rank of the second distributed phase, on a (2, 2) grid whose
+    flattened world is the 1-D mesh of DIST_RANKS: the queue engine and
+    the walks, distributed Louvain, streaming on shards, the service sync
+    and async, and BFS over the grid's tuple axis.  Every path runs with
+    the mesh's counts, the kernels' launch counts and the peak memory
+    reset just before it and read just after; rank 0 holds each result to
+    the local one saved by the earlier phases."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dgas, offload
+    from repro_torch.core.algorithms import (
+        bfs_distributed, bfs_repair_distributed, cc_repair_distributed,
+        multilevel_distributed, random_walks_distributed, shard_of,
+        unshard_vertex_array, update_shards, walk_shards)
+    from repro_torch.core.graph import csr_from_numpy
+    from repro_torch.core.service import Distance, GraphService, Reachability
+    from repro_torch.core.traffic import RouteByteCounter
+    from repro_torch.kernels import segment_mode as SM
+    from repro_torch.kernels import segment_or as SO
+    from repro_torch.obs import get_registry
+
+    AX = ("data", "model")
+    w = mesh.over(AX)
+    S, r, dev, d, n = w.size, w.rank, w.device, spec["dir"], spec["n"]
+
+    def load(name, mmap=True):
+        return np.load(os.path.join(d, name + ".npy"),
+                       mmap_mode="r" if mmap else None)
+
+    t0 = time.perf_counter()
+    fwd, rev = (_shard_of_saved(d, k, r, S, n, dev) for k in ("fwd", "rev"))
+    sym = _shard_of_saved(d, "sym", r, S, n, dev)
+    att = dgas.custom_boundary_rule(load("att"), n)
+    att_s = dgas.custom_boundary_rule(load("att_sym"), n)
+    load_s = time.perf_counter() - t0
+    paths, checks, results = {}, [], {}
+
+    def run(label, fn):
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+        mesh.reset_counts()
+        SO.reset_launches()
+        SM.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        mesh.settle()
+        counts = mesh.counts()
+        wall = time.perf_counter() - t0
+        mesh.barrier()
+        paths[label] = {
+            "wall_s": wall, "collectives": counts["collectives"],
+            "calls": counts["calls"], "bytes": counts["bytes"],
+            "seconds": counts["seconds"],
+            "card_seconds": counts["card_seconds"],
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "launches": {"segment_or": SO.LAUNCHES["segment_or"],
+                         "segment_mode": SM.LAUNCHES["segment_mode"],
+                         "run_sum": SM.LAUNCHES["run_sum"]}}
+        return out
+
+    def check(name, ok, detail=""):
+        if r == 0:
+            checks.append((name, bool(ok), detail))
+
+    # -- the queue engine: a skewed queue, then the walks ------------------
+    cap = spec["queue_cap"]
+    cnt = spec["queue_counts"][r]
+    q = offload.queue_make(cap, dev)
+    q.items[:cnt] = torch.arange(cnt, dtype=torch.int32, device=dev) + \
+        r * cap
+    q.count = torch.tensor(cnt, dtype=torch.int32, device=dev)
+    qb, pb = run("queue_balance", lambda: offload.queue_balance(
+        q, w, q.items.to(torch.float32)))
+    got = w.gather(torch.cat([qb.count.reshape(1).to(torch.float32), pb,
+                              qb.items.to(torch.float32)]))
+    if r == 0:
+        counts = got[:, 0].long()
+        items = got[:, 1 + cap:].reshape(-1)
+        items = torch.sort(items[items >= 0]).values
+        want = torch.cat([torch.arange(c, device=dev) + i * cap for i, c in
+                          enumerate(spec["queue_counts"])]).to(items.dtype)
+        pay_ok = bool((got[:, 1:1 + cap] == got[:, 1 + cap:].clamp(
+            min=0)).all())
+        check("queue_balance: counts within 1, items kept, payload along",
+              int(counts.max() - counts.min()) <= 1
+              and torch.equal(items, torch.sort(want).values) and pay_ok,
+              f"counts {counts.tolist()}")
+    ip, ix, v_att, e_att = walk_shards(load("indptr"), load("indices"), S, r)
+    ip, ix = ip.to(dev), ix.to(dev)
+    walks = run("walks", lambda: random_walks_distributed(
+        ip, ix, v_att, e_att, np.arange(n), spec["steps"],
+        spec["walk_key"], mesh, axis=AX))
+    del ip, ix
+    if r == 0:
+        same = torch.equal(walks.cpu(), torch.from_numpy(load("walks",
+                                                              False)))
+        check(f"walks ({n} walkers x {spec['steps']} steps) vs the "
+              f"structured phase's", same, "bit-equal" if same else
+              "differs")
+    del walks
+
+    # -- distributed Louvain on the degree-balanced shards -----------------
+    ctr = RouteByteCounter(S)
+    ml, scores = run("multilevel", lambda: multilevel_distributed(
+        fwd, att, w, counter=ctr))
+    results["multilevel"] = dict(scores=list(scores),
+                                 contract_bytes=ctr.total_bytes,
+                                 contract_levels=ctr.levels)
+    if r == 0:
+        want_s = load("ml_scores", False).tolist()
+        want = torch.from_numpy(load("ml", False))
+        differ = float((ml.cpu() != want).float().mean())
+        dq = abs(scores[-1] - want_s[-1]) if scores else float("inf")
+        check("multilevel Q vs the structured phase's multilevel",
+              dq <= 1e-5, f"scores {scores} vs {want_s}; |dQ| {dq!r}; "
+              f"share of vertices whose label differs {differ!r}")
+
+    # -- streaming: update_shards, then both repairs -----------------------
+    fb = get_registry().counter("streaming.reshard_fallback")
+
+    def csr_of(prefix, weighted=True):
+        return csr_from_numpy(load(f"{prefix}_indptr", False),
+                              load(f"{prefix}_indices", False),
+                              load(f"{prefix}_values", False) if weighted
+                              else None, n, n, device=dev)
+
+    changed_s = load("changed_sources", False)
+    changed_v = load("changed_vertices", False)
+
+    def reshard(shard, new, a, changed):
+        shards = np.unique(a.owner(torch.from_numpy(
+            changed.astype(np.int64))).numpy())
+        got = update_shards(shard, new, a, shards, w)
+        return got if got is not None else shard_of(new, a, r)
+
+    fb0 = fb.value
+    csr_new, sym_new = csr_of("new"), csr_of("newsym", weighted=False)
+    new_fwd, new_sym = run("update_shards", lambda: (
+        reshard(fwd, csr_new, att, changed_s),
+        reshard(sym, sym_new, att_s, changed_v)))
+    del csr_new, sym_new
+    results["update_shards"] = dict(fallbacks=fb.value - fb0,
+                                    m=[fwd.edges_per_shard,
+                                       new_fwd.edges_per_shard,
+                                       sym.edges_per_shard,
+                                       new_sym.edges_per_shard])
+    gid, real = att.resident(r, "cpu")
+    prev = torch.from_numpy(load("ref_bfs", False))[gid.clamp(max=n - 1)]
+    lv = run("bfs repair", lambda: bfs_repair_distributed(
+        new_fwd, att, prev.to(dev), changed_s, w))
+    gid_s, _ = att_s.resident(r, "cpu")
+    prev_cc = torch.from_numpy(load("ref_cc", False))[gid_s.clamp(max=n - 1)]
+    cc = run("cc repair", lambda: cc_repair_distributed(
+        new_sym, att_s, prev_cc.to(dev), changed_v, w))
+    lv, cc = w.gather(lv), w.gather(cc)
+    if r == 0:
+        for name, got, a, want in (("bfs", lv, att, "repair_bfs"),
+                                   ("cc", cc, att_s, "repair_cc")):
+            same = torch.equal(unshard_vertex_array(got, a),
+                               torch.from_numpy(load(want, False)))
+            check(f"{name} repair after {spec['inserts']} inserts vs the "
+                  f"structured phase's repair", same,
+                  "bit-equal" if same else "differs")
+    del lv, cc, new_fwd, new_sym, sym
+
+    # -- update_shards within the padding: vertex v's out-edges rewired
+    # (as many deleted as inserted), v the first row of shard 1 with edges:
+    # shard 1 is rebuilt on its rank, every other rank keeps its shard
+    ip_h = load("old_indptr", False)
+    lo, c = att.shard_slice(1)
+    v = lo + int(np.flatnonzero(np.diff(ip_h[lo:lo + c + 1]) > 0)[0])
+    ix_h = load("old_indices", False)
+    a, b = int(ip_h[v]), int(ip_h[v + 1])
+    ix_h[a:b] = (ix_h[a:b] + 1) % n
+    rewired = csr_from_numpy(ip_h, ix_h, load("old_values", False), n, n,
+                             device=dev)
+    del ip_h, ix_h
+    fb0 = fb.value
+    kept = run("update_shards in the padding", lambda: update_shards(
+        fwd, rewired, att, [1], w))
+    if r == 1:
+        want = shard_of(rewired, att, 1)
+        ok = all(torch.equal(getattr(kept, f), getattr(want, f))
+                 for f in ("src", "dst", "val")) \
+            and not torch.equal(kept.dst, fwd.dst)
+    else:
+        ok = kept is fwd
+    ok = w.gather(torch.tensor([int(ok), fb.value - fb0], device=dev))
+    if r == 0:
+        check(f"update_shards of vertex {v}'s {b - a} rewired edges: "
+              "shard 1 rebuilt as shard_of, the other ranks keep their "
+              "shard objects, no fallback",
+              bool((ok[:, 0] == 1).all() and (ok[:, 1] == 0).all()),
+              f"per rank (ok, fallbacks) {ok.tolist()}")
+    del kept, rewired
+
+    # -- the service on the mesh, sync then async --------------------------
+    csr = csr_of("old")
+    srcs, tgts = spec["svc_sources"], spec["svc_targets"]
+    for placement in ("sync", "async"):
+        svc = run(f"service {placement} build", lambda: GraphService(
+            csr, batch_budget=len(srcs), mesh=mesh, placement=placement))
+
+        def serve():
+            ts = [(svc.submit(kind(int(s), int(t))), kind, i, int(t))
+                  for i, s in enumerate(srcs) for t in tgts[i]
+                  for kind in (Reachability, Distance)]
+            svc.flush()
+            return [(kind, i, t, svc.result(k)) for k, kind, i, t in ts]
+
+        answers = run(f"service {placement}", serve)
+        adm = dict(svc.admission)
+
+        def resubmit():
+            return [svc.result(svc.submit(kind(int(srcs[i]), t),
+                                          deadline=0.0))
+                    for kind, i, t, _ in answers]
+
+        again = run(f"service {placement} zero-deadline resubmits", resubmit)
+        st = svc.stats
+        results[f"service {placement}"] = dict(
+            queries=st.queries, batches=st.batches,
+            route_bytes=st.route_bytes, push_levels=st.push_levels,
+            admission_serve=adm, admission_resubmits={
+                k: svc.admission[k] - adm[k] for k in adm})
+        if r == 0:
+            n_adm = svc.admission["collectives"] - adm["collectives"]
+            check(f"service {placement}: {len(again)} zero-deadline "
+                  f"resubmits answered from the cache, one admission "
+                  f"collective each", again == [a for *_, a in answers]
+                  and n_adm == len(again), f"{n_adm} admission collectives")
+        if r == 0:
+            lv_b, d_b = load("ref_msbfs"), load("ref_sssp_batched")
+            bad = [(kind.__name__, i, t) for kind, i, t, a in answers
+                   if a != (bool(lv_b[i, t] >= 0) if kind is Reachability
+                            else float(d_b[i, t]))]
+            check(f"service {placement}: {len(answers)} answers vs phase 4's "
+                  f"msbfs / sssp_batched", not bad,
+                  f"differing {bad[:4]}")
+        del svc
+
+    # -- the (2, 2) grid: BFS over the tuple axis, hierarchical psum --------
+    lv = run("grid bfs auto", lambda: bfs_distributed(
+        fwd, att, 0, mesh, g_rev=rev, mode="auto", axis=AX))
+    lv = w.gather(lv)
+    x = torch.tensor([float(mesh.rank + 1)], device=dev)
+    hp = offload.hierarchical_psum(x, AX, mesh)
+    if r == 0:
+        same = torch.equal(unshard_vertex_array(lv, att),
+                           torch.from_numpy(load("ref_bfs", False)))
+        check("(2, 2) grid bfs auto over ('data', 'model') vs the 1-D bfs",
+              same and float(hp[0]) == S * (S + 1) / 2,
+              f"bit-equal {same}; hierarchical psum {float(hp[0])!r}")
+    mine = {"rank": r, "device": str(dev), "backend": mesh.backend,
+            "load_s": load_s, "paths": paths, "results": results}
+    if r == 0:
+        mine["checks"] = checks
+    return mine
+
+
+def dist2_phase(g, kept: dict, ref: dict, smi: str) -> dict:
+    """The second distributed phase: the structured phase's results and
+    the graph after its inserts (and its symmetrization) saved beside the
+    first distributed phase's shards, then DIST_RANKS ranks sharing the
+    card over gloo, laid out as a (2, 2) grid, run every path of
+    :func:`dist2_rank`.  Fails on any check."""
+    import numpy as np
+    from repro_torch.core.algorithms import symmetrize
+    from repro_torch.core.graph import csr_from_numpy
+    from repro_torch.launch import mesh as M
+
+    t_phase = time.perf_counter()
+    n = g.n_rows
+    new = csr_from_numpy(kept["new_indptr"], kept["new_indices"],
+                         kept["new_values"], n, n, device=g.device)
+    sym = symmetrize(new)
+    arrays = {"walks": kept["walks"], "ml": kept["ml"],
+              "ml_scores": kept["ml_scores"],
+              "repair_bfs": kept["repair_bfs"],
+              "repair_cc": kept["repair_cc"],
+              "changed_sources": kept["changed_sources"],
+              "changed_vertices": kept["changed_vertices"],
+              "old_indptr": g.indptr.cpu().numpy(),
+              "old_indices": g.indices.cpu().numpy(),
+              "old_values": g.values.cpu().numpy(),
+              "new_indptr": kept["new_indptr"],
+              "new_indices": kept["new_indices"],
+              "new_values": kept["new_values"],
+              "newsym_indptr": sym.indptr.cpu().numpy(),
+              "newsym_indices": sym.indices.cpu().numpy()}
+    for name, a in arrays.items():
+        np.save(os.path.join(DIST_DIR, name + ".npy"), a)
+    del new, sym, arrays
+    prep_s = time.perf_counter() - t_phase
+    srcs = [int(v) for v in ref["sources"][:DIST2_SVC_BUDGET]]
+    rng = np.random.default_rng(1)
+    tgts = [rng.integers(0, n, DIST2_SVC_TARGETS).tolist() for _ in srcs]
+    # every source's BFS tree holds some of its targets
+    lv_b = ref["msbfs"]
+    for i in range(len(srcs)):
+        tgts[i][0] = int(np.flatnonzero(lv_b[i] >= 0)[-1])
+    cap = n // 2
+    spec = dict(dir=DIST_DIR, n=n, steps=WALK_STEPS, walk_key=41,
+                inserts=REPAIR_INSERTS, svc_sources=srcs, svc_targets=tgts,
+                queue_cap=cap, queue_counts=[cap, 0, cap // 2, cap // 4])
+    init = os.path.join(DIST_DIR, "init2")
+    if os.path.exists(init):
+        os.unlink(init)
+    log(f"[dist2] card: {smi}")
+    log(f"[dist2] host preparation (the structured phase's results, the "
+        f"graph after its {REPAIR_INSERTS} inserts and its symmetrization, "
+        f"saved): {prep_s!r} s")
+    t0 = time.perf_counter()
+    ranks = M.spawn(dist2_rank, DIST_RANKS, device="cuda", init_file=init,
+                    args=(spec,), timeout=900,
+                    grid=((2, 2), ("data", "model")))
+    ranks_s = time.perf_counter() - t0
+    rep = ranks[0]
+    log(f"[dist2] {DIST_RANKS} ranks as a (2, 2) grid ('data', 'model') on "
+        f"{[r['device'] for r in ranks]}, backend {rep['backend']}; spawn "
+        f"to exit {ranks_s!r} s; loading the shards "
+        f"{[round(r['load_s'], 3) for r in ranks]} s")
+    launched = {"segment_or": 0, "segment_mode": 0, "run_sum": 0}
+    for label, row in rep["paths"].items():
+        walls = [r["paths"][label]["wall_s"] for r in ranks]
+        inside = [sum(r["paths"][label]["seconds"].values()) for r in ranks]
+        card = [sum(r["paths"][label]["card_seconds"].values())
+                for r in ranks]
+        launches = {k: sum(r["paths"][label]["launches"][k] for r in ranks)
+                    for k in launched}
+        for k in launched:
+            launched[k] += launches[k]
+        peak = [round(r["paths"][label]["peak_gib"], 3) for r in ranks]
+        log(f"[dist2] {label}: wall {max(walls)!r} s (per rank {walls}); "
+            f"collectives {row['collectives']} {row['calls']}, bytes per "
+            f"rank {row['bytes']}; host seconds inside the collectives "
+            f"{[round(i, 4) for i in inside]}, card seconds between their "
+            f"events {[round(c, 4) for c in card]}; peak allocated per rank "
+            f"{peak} GiB; launches over the ranks {launches}")
+    for label, res in rep["results"].items():
+        log(f"[dist2] {label}: {res}")
+    checks = list(rep["checks"])
+    checks.append(("segment_mode and segment_or launched",
+                   launched["segment_mode"] + launched["run_sum"] > 0
+                   and launched["segment_or"] > 0, f"{launched}"))
+    for name, ok, detail in checks:
+        log(f"[check] dist2 {name}: {'ok' if ok else 'FAILED'}; {detail}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[dist2] phase wall {phase_s!r} s (budget 120 s); cuts: the service "
+        f"at batch_budget={DIST2_SVC_BUDGET} over phase 4's first "
+        f"{DIST2_SVC_BUDGET} sources")
+    failed = [c[0] for c in checks if not c[1]]
+    if failed:
+        fail(f"the second distributed phase failed: {failed}")
+    return {"phase_s": phase_s, "prep_s": prep_s, "ranks_s": ranks_s,
+            "launches": launched, "ranks": ranks}
 
 
 def main() -> int:
@@ -2083,8 +2568,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sm_row, structured, lpa = structured_phase(g, lv_p, d_p, labels, delta,
-                                               counted, err, args)
+    sm_row, structured, lpa, kept = structured_phase(
+        g, lv_p, d_p, labels, delta, counted, err, args)
     structured["phase_s"] = time.perf_counter() - t0
     log(f"[structured] phase wall {structured['phase_s']!r} s")
     log(f"[mem] structured phase peak allocated "
@@ -2102,6 +2587,14 @@ def main() -> int:
     sm_row["launches"] += dist["launches"]["segment_mode"]
     sm_row["entry_launches"]["segment_mode"] += \
         dist["launches"]["segment_mode"]
+    # the second distributed phase, on the same shards, held to phase 4's
+    # and the structured phase's results
+    dist2 = dist2_phase(g, kept, dist_ref, smi)
+    del kept
+    launches["segment_or"] += dist2["launches"]["segment_or"]
+    for k in ("segment_mode", "run_sum"):
+        sm_row["launches"] += dist2["launches"][k]
+        sm_row["entry_launches"][k] += dist2["launches"][k]
     launches["segment_mode"] = sm_row.pop("launches")
     timed["segment_mode"] = sm_row
     for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select",
@@ -2140,7 +2633,7 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "scale": args.scale,
                    "kernels": kernels, "walls_s": walls,
                    "service": service, "structured": structured,
-                   "dist": dist,
+                   "dist": dist, "dist2": dist2,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)

@@ -8,7 +8,8 @@ from .sssp import (sssp, sssp_program, auto_delta, sssp_batched,
                    sssp_distributed, sssp_batched_distributed)
 from .cc import (connected_components, cc_program, symmetrize,
                  connected_components_distributed)
-from .random_walks import random_walks, random_walks_distributed
+from .random_walks import (random_walks, random_walks_distributed,
+                           walk_queue_program, walk_shards)
 from .louvain import (label_propagation, lpa_program,
                       louvain_candidate_program, louvain_local_moves,
                       modularity, multilevel, partition_equal,
@@ -18,7 +19,7 @@ from .sampling import ties_sample, neighbor_sample, neighbor_sample_np
 from .incremental import (bfs_repair, cc_repair, sssp_repair,
                           repair_or_recompute, bfs_repair_distributed,
                           cc_repair_distributed)
-from .distgraph import (ShardedGraph, GraphShard, shard_graph,
+from .distgraph import (ShardedGraph, GraphShard, shard_graph, shard_of,
                         shard_vertex_array, unshard_vertex_array,
                         update_shards)
 
@@ -37,9 +38,11 @@ __all__ = [
     "spmv_distributed", "pagerank_distributed", "bfs_distributed",
     "msbfs_distributed", "sssp_distributed", "sssp_batched_distributed",
     "connected_components_distributed", "label_propagation_distributed",
-    "random_walks_distributed", "modularity_distributed",
+    "random_walks_distributed", "walk_queue_program", "walk_shards",
+    "modularity_distributed",
     "contract_distributed", "multilevel_distributed",
     "bfs_repair_distributed", "cc_repair_distributed",
-    "ShardedGraph", "GraphShard", "shard_graph", "shard_vertex_array",
+    "ShardedGraph", "GraphShard", "shard_graph", "shard_of",
+    "shard_vertex_array",
     "unshard_vertex_array", "update_shards",
 ]

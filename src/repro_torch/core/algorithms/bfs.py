@@ -156,7 +156,7 @@ def source_rows(att, sources, mesh):
 def bfs_distributed(g, att, source: int, mesh, *, max_levels: int = 64,
                     g_rev=None, mode: str = "push", placement: str = "sync",
                     sync_interval: Optional[int] = None,
-                    return_stats: bool = False):
+                    return_stats: bool = False, axis=None):
     """This rank's (per_shard,) int32 levels under ``att``; unreachable =
     -1.  ``g`` is sharded by ``att`` (``shard_graph(csr, S, row_att=att)``
     or its rank's shard).
@@ -168,6 +168,7 @@ def bfs_distributed(g, att, source: int, mesh, *, max_levels: int = 64,
     levels, ``sync_interval`` x fewer global checks.  ``return_stats``
     adds the engine's stats (``engine.run_distributed``).
     """
+    mesh = mesh.over(axis)
     per, dev = att.per_shard, mesh.device
     _, local = source_rows(att, [source], mesh)
     frontier0 = torch.zeros(per, dtype=torch.int32, device=dev)
@@ -198,7 +199,8 @@ def msbfs_distributed(g, att, sources, mesh, *, max_levels: int = 64,
                       push_edge_capacity: Optional[int] = None,
                       return_stats: bool = False, placement: str = "sync",
                       sync_interval: Optional[int] = None,
-                      trace: bool = False, trace_len: Optional[int] = None):
+                      trace: bool = False, trace_len: Optional[int] = None,
+                      axis=None):
     """Batched-lane BFS on the distributed push pipeline: this rank's
     (B, per_shard) int32 levels under ``att``; row b equals
     ``bfs_distributed(g, att, sources[b], mesh)`` bit for bit.  One
@@ -211,6 +213,7 @@ def msbfs_distributed(g, att, sources, mesh, *, max_levels: int = 64,
     stamp depends on delivery order; the min-level fixpoint does not),
     with ``sync_interval`` local micro-steps per global check.
     """
+    mesh = mesh.over(axis)
     per, dev = att.per_shard, mesh.device
     B = int(np.asarray(sources).reshape(-1).shape[0])
     lanes, local = source_rows(att, sources, mesh)

@@ -70,13 +70,14 @@ def connected_components(csr: CSR, *, max_iters: Optional[int] = None,
 def connected_components_distributed(g, att, mesh, *, max_iters: int = 256,
                                      placement: str = "sync",
                                      sync_interval: Optional[int] = None,
-                                     return_stats: bool = False):
+                                     return_stats: bool = False, axis=None):
     """This rank's (per_shard,) int32 labels under ``att``.  ``g`` must
     hold the symmetric edge set (shard ``symmetrize(csr)``).  The
     min-label program is monotone, so placement='async' reaches the same
     labels.  Every slot starts labelled with its global id
     (``att.to_global``), padding slots too, as the reference starts them;
     they have no edges.  ``return_stats`` adds the engine's stats."""
+    mesh = mesh.over(axis)
     rank = torch.full((att.per_shard,), mesh.rank, device=mesh.device)
     label0 = att.to_global(rank, torch.arange(att.per_shard,
                                               device=mesh.device))

@@ -162,13 +162,55 @@ def repair_or_recompute(kind: str, handle: GraphHandle, prev,
     return sssp(csr, source, delta=auto_delta(csr), mode=mode)
 
 
-def bfs_repair_distributed(*args, **kwargs):
-    """Distributed BFS repair: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("bfs_repair_distributed is not ported yet: it "
-                              "comes with update_shards (ROADMAP §A.8)")
+def _changed_rows(att, changed, mesh) -> torch.Tensor:
+    """(per_shard,) int32 indicator of this rank's rows among the global
+    ids ``changed`` (a host array)."""
+    f0 = torch.zeros(att.per_shard, dtype=torch.int32, device=mesh.device)
+    ch = torch.as_tensor(np.asarray(changed, np.int64).reshape(-1))
+    if ch.numel():
+        mine = att.owner(ch) == mesh.rank
+        f0[att.local(ch[mine]).to(mesh.device)] = 1
+    return f0
 
 
-def cc_repair_distributed(*args, **kwargs):
-    """Distributed CC repair: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("cc_repair_distributed is not ported yet: it "
-                              "comes with update_shards (ROADMAP §A.8)")
+def bfs_repair_distributed(g, att, prev_levels, changed, mesh, *, axis=None,
+                           max_levels: int = 64, placement: str = "sync",
+                           sync_interval: Optional[int] = None
+                           ) -> torch.Tensor:
+    """Distributed :func:`bfs_repair` on one rank of ``mesh``: ``g`` the
+    UPDATED sharded graph (``update_shards``), ``prev_levels`` this rank's
+    (per_shard,) rows of ``bfs_distributed``'s levels, ``changed`` the
+    global source endpoints of the inserted edges (the same host array on
+    every rank).  Returns this rank's repaired levels: the min-level
+    fixpoint, bit-equal to a fresh distributed BFS and to the local
+    repair."""
+    mesh = mesh.over(axis)
+    prev = torch.as_tensor(prev_levels, device=mesh.device)
+    dist0 = torch.where(prev >= 0, prev.to(torch.float32), _INF)
+    f0 = _changed_rows(att, changed, mesh) * \
+        torch.isfinite(dist0).to(torch.int32)
+    k = int(sync_interval or 8) if placement == "async" else 1
+    state = engine.run_distributed(
+        g, att, mesh, bfs_level_program(), {"dist": dist0}, f0,
+        max_iters=max_levels * k, mode="push", placement=placement,
+        sync_interval=sync_interval)
+    return _levels_from_dist(state["dist"])
+
+
+def cc_repair_distributed(g, att, prev_labels, changed, mesh, *, axis=None,
+                          max_iters: int = 256, placement: str = "sync",
+                          sync_interval: Optional[int] = None
+                          ) -> torch.Tensor:
+    """Distributed :func:`cc_repair` on one rank of ``mesh``: ``g`` must
+    hold the UPDATED *symmetric* edge set (sharded from ``symmetrize(
+    csr)``), ``prev_labels`` this rank's (per_shard,) rows, ``changed``
+    both endpoints of the inserted edges (global ids).  Returns this rank's
+    repaired labels, bit-equal to a fresh distributed run."""
+    mesh = mesh.over(axis)
+    state0 = {"label": torch.as_tensor(prev_labels, device=mesh.device).to(
+        torch.int32)}
+    state = engine.run_distributed(
+        g, att, mesh, cc_program(), state0, _changed_rows(att, changed, mesh),
+        max_iters=max_iters, mode="push", placement=placement,
+        sync_interval=sync_interval)
+    return state["label"]

@@ -32,18 +32,38 @@ engine:
 remote weighted mode at the voter's owner (``segment_mode`` on the card).
 Under a contiguous rule the votes of a run arrive in ascending source
 order, as the local dense step adds them, so the labels equal the local
-LPA's.  The distributed modularity, contraction and multilevel entry points
-are not ported yet (ROADMAP §A.8).
+LPA's.
+
+Distributed Louvain (:func:`multilevel_distributed`) runs the local
+level pipeline with every stage on the ranks.  Each rank holds its level
+graph's edges by source owner; the level's labels are replicated (one
+``all_gather`` of S x per_shard x 4 bytes a sweep), so label reads are
+local gathers and the community aggregates are local in-order sums over
+the replicated vertex degrees.  The candidate vote is the voter's local
+``segment_weighted_mode``; the in-side sums of the gain gate reach each
+vertex's owner through one ordered routed sum
+(``offload.remote_scatter_add(ordered=True)``), in ascending source order
+under a contiguous rule, as the local gate adds them.  So on integer
+weights (exact in f32 whatever the order) the partitions equal the local
+``multilevel``'s; on float weights the only order left free is the
+totals' (the edge weight total and modularity's intra weight are summed
+per rank, then across ranks).  :func:`contract_distributed` pre-reduces
+each rank's coarse edges, routes each to its new owner under the coarse
+block rule and merges them there, summing as the reference's contraction
+does (float64 per sender, then float64 over the senders in rank order).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from .. import engine, offload
+from ..dgas import block_rule
 from ..graph import CSR, contract
+from .distgraph import GraphShard, local_shard
 
 __all__ = ["label_propagation", "lpa_program", "louvain_candidate_program",
            "modularity", "louvain_local_moves", "multilevel",
@@ -105,7 +125,7 @@ def label_propagation(csr: CSR, *, iters: int = 10,
 
 
 def label_propagation_distributed(g_t, att, mesh, *, iters: int = 10,
-                                  return_stats: bool = False):
+                                  return_stats: bool = False, axis=None):
     """Distributed LPA: this rank's (per_shard,) int32 labels under ``att``.
     ``g_t`` holds the *transposed* edge set sharded by vote-source owner
     (``shard_graph(csr.transpose(), S, row_att=att)``, or its rank's
@@ -114,6 +134,7 @@ def label_propagation_distributed(g_t, att, mesh, *, iters: int = 10,
     Each sweep pushes at full capacity (the frontier is all-ones, so a
     compacted push would always fall back).  ``return_stats`` adds the
     engine's stats."""
+    mesh = mesh.over(axis)
     dev = mesh.device
     gid, real = att.resident(mesh.rank, dev)
     state0 = {"label": torch.where(real, gid, 0).to(torch.int32)}
@@ -128,22 +149,277 @@ def label_propagation_distributed(g_t, att, mesh, *, iters: int = 10,
     return out["label"]
 
 
-def modularity_distributed(*args, **kwargs):
-    """Distributed modularity: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("modularity_distributed is not ported yet "
-                              "(ROADMAP §A.8)")
+@dataclasses.dataclass
+class _Level:
+    """One rank's view of a distributed level graph: its live edges (the
+    shard's src, dst, val without padding, in CSR order), their local
+    source slots, the replicated vertex degrees (f32 for the gain gate,
+    f64 for modularity) and the totals.  ``n_rows`` / ``device`` let
+    ``engine.run_multilevel`` drive it like a CSR."""
+
+    shard: GraphShard
+    att: object
+    mesh: object
+    src: torch.Tensor
+    dst: torch.Tensor
+    val: torch.Tensor
+    lsrc: torch.Tensor
+    cap: int
+    kout: torch.Tensor
+    kin: torch.Tensor
+    kout64: torch.Tensor
+    kin64: torch.Tensor
+    m64: torch.Tensor
+    w_tot: torch.Tensor
+
+    @property
+    def n_rows(self) -> int:
+        return self.att.n_global
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
 
 
-def contract_distributed(*args, **kwargs):
-    """Distributed contraction: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("contract_distributed is not ported yet "
-                              "(ROADMAP §A.8)")
+def _replicate(own: torch.Tensor, att, mesh) -> torch.Tensor:
+    """The (n,) global array from every rank's (per_shard,) rows: one
+    ``all_gather`` (each rank receives S x per_shard elements)."""
+    g = mesh.all_gather(own).reshape(-1)
+    gid = torch.arange(att.n_global, device=own.device)
+    return g[att.flat_slot(gid).long()]
 
 
-def multilevel_distributed(*args, **kwargs):
-    """Distributed multi-level Louvain: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("multilevel_distributed is not ported yet "
-                              "(ROADMAP §A.8)")
+def _in_sums(lv: _Level, *planes) -> list:
+    """Per owned vertex, each plane's values over the in-edges, added in
+    arrival order (ascending source under a contiguous rule): one ordered
+    routed sum per plane."""
+    return [offload.remote_scatter_add(
+        torch.zeros(lv.att.per_shard, dtype=w.dtype, device=lv.device),
+        lv.dst, w, lv.att, lv.mesh, capacity=lv.cap, ordered=True)
+        for w in planes]
+
+
+def _level(g, att, mesh) -> _Level:
+    """The level's invariants on this rank: its live edges, a routing
+    capacity that no (rank, owner) pair exceeds (one all-reduce), the
+    vertex degrees summed in CSR order and replicated, and the totals."""
+    shard = local_shard(g, mesh)
+    live = shard.src >= 0
+    src, dst = shard.src[live].long(), shard.dst[live].long()
+    val = shard.val[live]
+    S, per = mesh.size, att.per_shard
+    lsrc = att.local(src).long()
+    peer = torch.bincount(att.owner(dst).long(), minlength=S).max() \
+        if src.numel() else torch.zeros((), dtype=torch.int64,
+                                        device=mesh.device)
+    cap = max(1, int(mesh.all_reduce(peer.reshape(1), "max")[0]))
+    lv = _Level(shard, att, mesh, src, dst, val, lsrc, cap, *([None] * 6))
+    v64 = val.to(torch.float64)
+    kin, kin64 = _in_sums(lv, val, v64)
+    lv.kout = _replicate(offload.run_sum(lsrc, val, per), att, mesh)
+    lv.kout64 = _replicate(offload.run_sum(lsrc, v64, per), att, mesh)
+    lv.kin, lv.kin64 = (_replicate(k, att, mesh) for k in (kin, kin64))
+    lv.m64 = mesh.all_reduce(offload.tree_sum(v64).reshape(1), "sum")[0]
+    lv.w_tot = lv.m64.to(torch.float32)
+    return lv
+
+
+def _modularity_of(lv: _Level, lab: torch.Tensor) -> torch.Tensor:
+    """Q of the replicated (n,) labels ``lab`` on level ``lv`` (0-d f32,
+    the same on every rank): the community degrees are local in-order
+    float64 sums of the replicated degrees, as the local
+    :func:`modularity` takes them; the intra weight is one all-reduce of
+    the ranks' float64 partial sums."""
+    n = lv.n_rows
+    lab = lab.to(torch.int32)
+    same = lab[lv.src] == lab[lv.dst]
+    e_part = offload.tree_sum(torch.where(same, lv.val.to(torch.float64),
+                                          0.0))
+    e_in = lv.mesh.all_reduce(e_part.reshape(1), "sum")[0] / lv.m64
+    c_out = offload.segment_sum_ordered(lv.kout64, lab, n)
+    c_in = offload.segment_sum_ordered(lv.kin64, lab, n)
+    q = e_in - offload.tree_sum(c_out * c_in) / (lv.m64 * lv.m64)
+    return q.to(torch.float32)
+
+
+def modularity_distributed(g, att, mesh, labels, *, axis=None
+                           ) -> torch.Tensor:
+    """Distributed Newman modularity (directed form) on one rank of
+    ``mesh``: ``g`` is edge-sharded by source owner under ``att`` (the
+    stacked graph or this rank's shard) and ``labels`` this rank's
+    (per_shard,) rows of the labeling.  Returns Q (0-d f32), the same on
+    every rank.  The labels and the vertex degrees are replicated (one
+    ``all_gather`` each; the in-degrees take one ordered routed sum), the
+    intra-community weight is one all-reduce."""
+    mesh = mesh.over(axis)
+    lv = _level(g, att, mesh)
+    lab = _replicate(torch.as_tensor(labels, device=mesh.device).to(
+        torch.int32), att, mesh)
+    return _modularity_of(lv, lab)
+
+
+def _sweep_distributed(lv: _Level, lab: torch.Tensor,
+                       down_only: bool) -> torch.Tensor:
+    """One gain-gated local-move sweep on the ranks: the replicated (n,)
+    labels in, the replicated (n,) labels out.  The candidate is the
+    voter's local weighted mode over its out-edges; the candidates are
+    replicated (one ``all_gather``); the in-side sums of the gate (intra
+    weight, weight from the candidate's community) reach each vertex's
+    owner in one ordered routed sum each; the gate runs on the owned rows,
+    and the new rows are replicated again."""
+    att, mesh, per = lv.att, lv.mesh, lv.att.per_shard
+    ns = lv.src != lv.dst
+    lab_src, lab_dst = lab[lv.src], lab[lv.dst]
+    cand_w, cand_l = offload.segment_weighted_mode(
+        torch.where(ns, lv.lsrc, -1), lab_dst, lv.val, per)
+    same = ns & (lab_src == lab_dst)
+    w_same = torch.where(same, lv.val, 0.0)
+    w_out_same = offload.run_sum(lv.lsrc, w_same, per)
+    cand = _replicate(cand_l, att, mesh)
+    bl = torch.where(cand >= 0, cand, -2)
+    to_b = ns & (lab_src == bl[lv.dst])
+    w_in_same, w_in_b = _in_sums(lv, w_same,
+                                 torch.where(to_b, lv.val, 0.0))
+    s_lab, order = torch.sort(lab, stable=True)
+    out_c = offload.run_sum(s_lab, lv.kout[order], lv.n_rows)
+    in_c = offload.run_sum(s_lab, lv.kin[order], lv.n_rows)
+    gid, real = att.resident(mesh.rank, lv.device)
+    safe = torch.where(real, gid, 0).long()
+    own = _gate_moves(lab[safe], cand_w, cand_l, w_in_b, w_out_same,
+                      w_in_same, lv.kout[safe], lv.kin[safe], out_c, in_c,
+                      lv.w_tot, down_only)
+    return _replicate(torch.where(real, own, 0), att, mesh)
+
+
+def _contract(lv: _Level, lab: torch.Tensor, counter=None):
+    """:func:`contract_distributed` on the replicated (n,) labels."""
+    mesh, S, dev = lv.mesh, lv.mesh.size, lv.device
+    dense, n_c_dev = offload.compact_labels(lab.to(torch.int32))
+    n_c = int(n_c_dev)
+    catt = block_rule(n_c, S)
+    # sender-side pre-reduction: one float64 sum per coarse pair, in edge
+    # order (the reference's bincount), rounded once to f32
+    key = dense[lv.src].long() * n_c + dense[lv.dst].long()
+    skey, order = torch.sort(key, stable=True)
+    if skey.numel():
+        start, run_id = offload.run_starts(skey)
+        w = offload.run_sum(run_id, lv.val[order].to(torch.float64),
+                            int(run_id[-1]) + 1).to(torch.float32)
+        ukey = skey[start]
+    else:
+        w, ukey = lv.val[:0], skey
+    usrc, udst = ukey // n_c, ukey % n_c
+    owner = catt.owner(usrc)
+    peer = torch.bincount(owner, minlength=S)
+    cnt = torch.stack([(owner != mesh.rank).sum(), peer.max() if
+                       ukey.numel() else peer.new_zeros(())])
+    n_routed = int(mesh.all_reduce(cnt[:1], "sum")[0])
+    cap = max(1, int(mesh.all_reduce(cnt[1:], "max")[0]))
+    if counter is not None:
+        counter.contract_level(n_routed)
+    (rs, rd, rw), ok, _, _ = offload._route(
+        (usrc.to(torch.int32), udst.to(torch.int32), w),
+        owner.to(torch.int32), mesh, cap)
+    # the owner merges the senders' pairs: arrivals by source rank, so a
+    # pair's sum adds the senders in rank order (the reference's
+    # sum_duplicates over the concatenated parts)
+    rkey = torch.where(ok, rs.long() * n_c + rd.long(), -1)
+    rkey, order = torch.sort(rkey, stable=True)
+    rw = rw[order]
+    keep = rkey >= 0
+    rkey, rw = rkey[keep], rw[keep]
+    if rkey.numel():
+        start, run_id = offload.run_starts(rkey)
+        cw = offload.run_sum(run_id, rw.to(torch.float64),
+                             int(run_id[-1]) + 1).to(torch.float32)
+        ckey = rkey[start]
+    else:
+        cw, ckey = rw, rkey
+    m = max(1, int(mesh.all_reduce(torch.tensor(
+        [ckey.numel()], device=dev), "max")[0]))
+    pad = [torch.full((m,), -1, dtype=torch.int32, device=dev),
+           torch.full((m,), -1, dtype=torch.int32, device=dev),
+           torch.zeros(m, dtype=torch.float32, device=dev)]
+    k = ckey.numel()
+    pad[0][:k], pad[1][:k], pad[2][:k] = ckey // n_c, ckey % n_c, cw
+    coarse = GraphShard(*pad, n_c, S, mesh.rank)
+    return coarse, catt, dense, n_routed
+
+
+def contract_distributed(g, att, labels, mesh, *, counter=None, axis=None):
+    """Contract an edge-sharded graph along a labeling, on one rank of
+    ``mesh``, routing each surviving coarse edge to its new owner.
+
+    ``g`` is sharded by source owner under ``att``; ``labels`` this rank's
+    (per_shard,) rows.  The dense renumbering (``offload.compact_labels``)
+    needs the global labels: they reach every rank through one
+    ``all_gather`` (each rank receives S x per_shard x 4 bytes), and every
+    rank renumbers alike.  Each rank relabels its edges ((u, v, w) ->
+    (label[u], label[v], w)), pre-reduces duplicate coarse pairs (float64,
+    in edge order), and routes every pre-reduced edge to the owner of its
+    coarse source under ``block_rule(n_c, S)`` (one ``_route``: 4 + 4 + 4
+    + 1 bytes a slot at the largest (rank, owner) count); the edges whose
+    owner changes are the reference's ``n_routed``, charged to
+    ``counter.contract_level``.  The owner merges its arrivals into its
+    coarse shard, in CSR order.
+
+    Returns ``(coarse_shard, coarse_att, renumber, n_routed)``: this
+    rank's :class:`GraphShard` of the coarse graph, the coarse block rule,
+    the (n,) int32 map from vertex to coarse vertex (the same on every
+    rank) and the global count of routed edges."""
+    mesh = mesh.over(axis)
+    shard = local_shard(g, mesh)
+    live = shard.src >= 0
+    src, dst = shard.src[live].long(), shard.dst[live].long()
+    lv = _Level(shard, att, mesh, src, dst, shard.val[live], None, 0,
+                *([None] * 6))
+    lab = _replicate(torch.as_tensor(labels, device=mesh.device).to(
+        torch.int32), att, mesh)
+    return _contract(lv, lab, counter)
+
+
+def multilevel_distributed(g, att, mesh, *, axis=None, max_levels: int = 10,
+                           max_sweeps: int = 30, tol: float = 1e-4,
+                           sweep_tol: float = 1e-6, counter=None):
+    """Distributed multi-level Louvain on one rank of ``mesh``: the local
+    :func:`multilevel`'s level pipeline (``engine.run_multilevel``, the
+    same hill climb, gate and stall rules) with every stage on the ranks.
+
+    ``g`` is the level-0 graph edge-sharded by source owner under ``att``
+    (the stacked graph or this rank's shard; a contiguous rule gives the
+    local gate's summation order).  Each level's sweeps run on the rank's
+    shard, the level is scored as the local run scores it (modularity of
+    the projected labels on the level-0 graph), and an accepted level is
+    contracted with :func:`contract_distributed` (charging ``counter``);
+    the coarse levels are block-ruled.
+
+    Returns ``(labels, scores)``: the (n,) int32 community labels of the
+    input graph, the same on every rank, and the accepted levels' scores.
+    On integer weights the partition equals the local ``multilevel``'s."""
+    mesh = mesh.over(axis)
+    top = _level(g, att, mesh)
+    maps = []
+
+    def level_fn(lv, level):
+        lab0 = torch.arange(lv.n_rows, dtype=torch.int32, device=lv.device)
+        return _hill_climb(
+            lambda lab, s: _sweep_distributed(lv, lab, s % 2 == 0),
+            lambda lab: _modularity_of(lv, lab), lab0,
+            float(_modularity_of(lv, lab0)), max_sweeps, sweep_tol)[0]
+
+    def score_fn(lv, assign):
+        return _modularity_of(top, engine.Hierarchy(tuple(maps)).project(
+            assign))
+
+    def contract_fn(lv, assign):
+        coarse, catt, renumber, _ = _contract(lv, assign, counter)
+        maps.append(renumber)
+        return _level(coarse, catt, mesh), renumber
+
+    labels, _, scores = engine.run_multilevel(
+        top, level_fn, contract_fn, score_fn, max_levels=max_levels,
+        tol=tol)
+    return labels, scores
 
 
 def _values(csr: CSR) -> torch.Tensor:

@@ -118,7 +118,8 @@ def ppr_topk(csr: CSR, sources, k: int, *, damping: float = 0.85,
 
 
 def pagerank_distributed(g, att, mesh, *, damping: float = 0.85,
-                         iters: int = 20, return_stats: bool = False):
+                         iters: int = 20, return_stats: bool = False,
+                         axis=None):
     """This rank's (per_shard,) f32 PageRank rows; ``att`` owns both the
     vertex data and ``g``'s source rows.  Degrees come from a remote
     scatter-add of the rank's own edges; the dangling mass is one
@@ -128,6 +129,7 @@ def pagerank_distributed(g, att, mesh, *, damping: float = 0.85,
     them like vertices, so under a rule with padding they collect mass as
     dangling sinks and the vector leaves the local ``pagerank`` (ROADMAP
     §C.5); the port holds the local result."""
+    mesh = mesh.over(axis)
     n, per, dev = att.n_global, att.per_shard, mesh.device
     shard = local_shard(g, mesh)
     ones = torch.where(shard.src >= 0, 1.0, 0.0)

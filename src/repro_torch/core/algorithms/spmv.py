@@ -41,12 +41,13 @@ def spmv_bbcsr(bb: BBCSR, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv_distributed(g, x_local: torch.Tensor, x_att, row_att, mesh, *,
-                     mode: str = "dgas") -> torch.Tensor:
+                     mode: str = "dgas", axis=None) -> torch.Tensor:
     """y = A @ x with rows owned per ``row_att`` and x distributed per
     ``x_att``: one pull step of the engine.  The row owner dgas-gathers
     exactly the x elements its nonzeros name ("dgas"), or takes the
     replicate-x baseline ("allgather").  Returns this rank's
     (per_shard,) rows of y under ``row_att``."""
+    mesh = mesh.over(axis)
     if mode not in ("dgas", "allgather"):
         raise KeyError(mode)
     from .. import engine

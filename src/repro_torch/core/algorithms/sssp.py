@@ -165,11 +165,12 @@ def _dist_program(delta: float, placement: str, mesh):
 def sssp_distributed(g, att, source: int, mesh, *, delta: float = 1.0,
                      max_iters: int = 256, placement: str = "sync",
                      sync_interval: Optional[int] = None,
-                     return_stats: bool = False):
+                     return_stats: bool = False, axis=None):
     """This rank's (per_shard,) f32 distances under ``att`` (unreachable =
     +inf): remote atomic-min pushes.  placement='async': bounded-staleness
     pacing with per-rank bucket bounds; the distances equal 'sync'
     exactly.  ``return_stats`` adds the engine's stats."""
+    mesh = mesh.over(axis)
     per, dev = att.per_shard, mesh.device
     _, local = source_rows(att, [source], mesh)
     dist0 = torch.full((per,), _INF, dtype=torch.float32, device=dev)
@@ -198,12 +199,13 @@ def sssp_batched_distributed(g, att, sources, mesh, *, delta: float = 1.0,
                              placement: str = "sync",
                              sync_interval: Optional[int] = None,
                              trace: bool = False,
-                             trace_len: Optional[int] = None):
+                             trace_len: Optional[int] = None, axis=None):
     """This rank's (B, per_shard) f32 distances under ``att``; row b equals
     ``sssp_distributed(g, att, sources[b], mesh, delta=delta)``: all B
     lanes' remote atomic-min relaxations share each level's compacted
     exchange, and the per-lane bucket bounds are agreed by one collective
     minimum of every lane."""
+    mesh = mesh.over(axis)
     per, dev = att.per_shard, mesh.device
     B = int(np.asarray(sources).reshape(-1).shape[0])
     lanes, local = source_rows(att, sources, mesh)

@@ -62,10 +62,11 @@ buffer, the overflow flag the compaction.
 # its runner seam.  This engine has no lax loop to count: its one stepping
 # loop is the Python loop in _core_loop, which every runner of both
 # placements goes through (run / run_batched via _run_local,
-# run_distributed / run_batched_distributed via _run_distributed), and the
-# async placement's micro-steps are the fixed-length _scan_steps inside
-# the loop's pace hook.  run_queue is not ported yet.  So the rule does not
-# apply to this file.
+# run_distributed / run_batched_distributed via _run_distributed), and its
+# one fixed-length step sequence is _scan_steps, which drives both the
+# async placement's micro-steps (inside the loop's pace hook) and
+# run_queue's per-iteration body, as in the reference.  So the rule does
+# not apply to this file.
 # repro-lint: disable-file=single-core
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ from .graph import BBCSR, CSR, to_bbcsr
 
 __all__ = ["VertexProgram", "ExecutionCore", "run", "run_batched",
            "run_distributed", "run_batched_distributed", "spmv_pass",
-           "reverse_graph", "run_queue",
+           "reverse_graph", "QueueProgram", "run_queue",
            "build_pull_operand", "tile_active", "lane_words", "pack_lanes",
            "unpack_lanes", "fold_in", "sample_neighbors",
            "frontier_edge_capacity", "Hierarchy", "run_multilevel"]
@@ -618,7 +619,8 @@ def _core_loop(core: ExecutionCore, state0: Any, frontier0: torch.Tensor, *,
 def _scan_steps(body, carry, n: int, it0: int):
     """The engine's one fixed-length step sequence: ``n`` calls of
     ``body(carry, it0 + j)`` (the async placement's collective-free
-    micro-steps), as the reference's ``_scan_steps`` scans them."""
+    micro-steps, :func:`run_queue`'s iterations), as the reference's
+    ``_scan_steps`` scans them."""
     for j in range(n):
         carry = body(carry, it0 + j)
     return carry
@@ -1271,7 +1273,7 @@ def run_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
                     push_edge_capacity: Optional[int] = None,
                     return_stats: bool = False, placement: str = "sync",
                     sync_interval: Optional[int] = None, trace: bool = False,
-                    trace_len: Optional[int] = None):
+                    trace_len: Optional[int] = None, axis=None):
     """Distributed loop on one rank of ``mesh``: the (scalar lanes,
     distributed placement) point of the grid.  Every rank calls it with
     the same arguments except ``state0`` / ``frontier0``, which are its own
@@ -1304,8 +1306,11 @@ def run_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
     trace: with return_stats, the per-level trace (``stats['trace']``,
       (trace_len, 4) int32, the same on every rank); under 'async' each
       row is one global check and the flush column fires.
+    axis: the mesh axis the shards lie along (``Mesh.over``: None is the
+      first axis, a tuple of axes their flattened world).
     Returns this rank's final state (per_shard rows).
     """
+    mesh = mesh.over(axis)
     if mode not in ("auto", "push", "pull"):
         raise ValueError(f"mode must be 'auto', 'push' or 'pull', got {mode!r}")
     if prog.combine == "or":
@@ -1334,7 +1339,7 @@ def run_batched_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
                             placement: str = "sync",
                             sync_interval: Optional[int] = None,
                             trace: bool = False,
-                            trace_len: Optional[int] = None):
+                            trace_len: Optional[int] = None, axis=None):
     """Distributed batched loop: B concurrent traversals, one push
     pipeline, on one rank of ``mesh``.
 
@@ -1348,9 +1353,10 @@ def run_batched_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
 
     Every level pushes with the active-edge compaction driven by the
     union frontier, so one compacted exchange carries all B lanes.  Stats,
-    trace and placement as :func:`run_distributed` ('pulls' is always 0).
-    Returns this rank's final state.
+    trace, placement and axis as :func:`run_distributed` ('pulls' is
+    always 0).  Returns this rank's final state.
     """
+    mesh = mesh.over(axis)
     if prog.structured:
         raise NotImplementedError(
             "structured combines are not lane-batched: sampling is already "
@@ -1371,9 +1377,10 @@ def run_batched_distributed(g, att, mesh, prog: VertexProgram, state0: Any,
 
 
 def spmv_pass(g, x_local: torch.Tensor, x_att, row_att, mesh, *,
-              mode: str = "dgas") -> torch.Tensor:
+              mode: str = "dgas", axis=None) -> torch.Tensor:
     """One distributed pull step == y = A @ x on this rank (rows per
     ``row_att``, x per ``x_att``): this rank's (per_shard,) rows of y."""
+    mesh = mesh.over(axis)
     from .algorithms.distgraph import local_shard
     prog = VertexProgram(edge_op="mul", combine="add",
                          msg_fn=lambda s, f: s, update_fn=None)
@@ -1383,10 +1390,85 @@ def spmv_pass(g, x_local: torch.Tensor, x_att, row_att, mesh, *,
                             capacity=shard.edges_per_shard, gather_mode=mode)
 
 
-def run_queue(*args, **kwargs):
-    """The queue-program runner: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("run_queue (queue-driven programs) is not "
-                              "ported yet (ROADMAP §A.8)")
+# ---------------------------------------------------------------------------
+# Queue-driven programs (the second program family: work entries, not bits)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QueueProgram:
+    """An algorithm whose unit of work is a queue entry, not a frontier bit.
+
+    step_fn: (operands, items, payload, state, it, key)
+             -> (items, payload, state, out)
+      items:   (cap,) int32 entries, -1 = empty slot; setting an entry to
+               -1 retires it (the runner re-compacts before balancing).
+      payload: tensor (or tuple / list / dict of tensors) of (cap, ...)
+               companion data aligned with the items; it migrates with
+               them through the balancer.
+      key:     the iteration's draw key, ``fold_in(run key, it)``, the same
+               on every rank: a program keys each draw on its own entry
+               (a walker on its id), so a draw does not depend on the rank
+               the entry sits on or on the balancing cadence.
+      out:     a tensor or tuple of tensors to stack per iteration.
+    """
+
+    step_fn: Callable
+
+
+def run_queue(mesh, prog: QueueProgram, items0: torch.Tensor, payload0: Any,
+              operands: Any, *, n_iters: int, axis=None, key=None,
+              state0: Any = (), sync_interval: int = 1):
+    """Queue-driven distributed runner, on one rank of ``mesh``.
+
+    Every rank calls it with its own queue: ``items0`` (cap,) int32 (-1 =
+    empty slot, the same cap on every rank), ``payload0`` riding with the
+    items, ``operands`` (this rank's blocks of the sharded arrays every
+    step reads) and ``state0``.  Each iteration, driven by the engine's
+    fixed-length :func:`_scan_steps`, compacts the live entries to a
+    stable prefix (:func:`_compact_slots`, the push step's compaction),
+    balances them across the ranks every ``sync_interval``-th iteration
+    (:func:`offload.queue_balance`, the body's only collective: the ranks
+    run at their own pace in between) and calls ``step_fn`` with the key
+    ``fold_in(key, it)``.  ``key`` None is key 0.
+
+    Returns (state, outs): this rank's final state and each ``out`` leaf
+    stacked (n_iters, ...).
+    """
+    mesh = mesh.over(axis)
+    if sync_interval < 1:
+        raise ValueError(f"sync_interval must be >= 1, got {sync_interval}")
+    dev = items0.device
+    k = as_key(0 if key is None else key, dev)
+    cap = int(items0.shape[0])
+    leaves, rebuild = offload._leaves(payload0)
+    outs = []
+
+    def body(carry, it):
+        items, leaves_, state = carry
+        # retired entries may sit anywhere in the buffer: compact the live
+        # ones to a stable prefix before balancing
+        slots = _compact_slots(items >= 0, cap)
+        safe = slots.clamp(min=0)
+        items = torch.where(slots >= 0, items[safe], -1).to(torch.int32)
+        leaves_ = [x[safe] for x in leaves_]
+        q = offload.QueueState(items, (items >= 0).sum().to(torch.int32))
+        if it % sync_interval == 0:
+            if leaves_:
+                q, leaves_ = offload.queue_balance(q, mesh, list(leaves_))
+            else:
+                q = offload.queue_balance(q, mesh)
+        items, payload, state, out = prog.step_fn(
+            operands, q.items, rebuild(leaves_), state, it, fold_in(k, it))
+        outs.append(out)
+        return items, offload._leaves(payload)[0], state
+
+    _, _, state = _scan_steps(body, (items0.to(torch.int32), list(leaves),
+                                     state0), n_iters, 0)
+    if not outs:
+        return state, ()
+    if isinstance(outs[0], torch.Tensor):
+        return state, torch.stack(outs)
+    return state, type(outs[0])(torch.stack(o) for o in zip(*outs))
 
 
 # ---------------------------------------------------------------------------

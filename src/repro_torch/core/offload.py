@@ -10,7 +10,10 @@ ranks, in one fixed-capacity ``all_to_all`` per plane (:func:`_route`).
 Every collective of the port is a ``Mesh`` method called from this module
 (or from ``launch/mesh.py`` itself), so the address-translation layer
 stays the one place where data crosses shards.  The work queue engine
-(``queue_balance``) is not ported yet (ROADMAP §A.8).
+(:func:`queue_balance`) routes queued items through the same
+:func:`_route`.  Routed helpers take the 1-D mesh a call runs on; a
+caller that holds a multi-axis mesh picks it with ``Mesh.over(axis)`` (a
+tuple of axes is their flattened world).
 
 Sums that decide a label (the weighted label mode's per-(destination,
 label) runs, ``graph.contract``'s parallel coarse edges, the Louvain gain
@@ -23,6 +26,8 @@ order on every device.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 __all__ = ["LABEL_PAD", "dma_gather", "dma_scatter_add", "segment_or",
@@ -31,8 +36,9 @@ __all__ = ["LABEL_PAD", "dma_gather", "dma_scatter_add", "segment_or",
            "axis_size", "my_shard", "dgas_gather", "remote_scatter_add",
            "remote_scatter_combine", "remote_scatter_or",
            "remote_scatter_weighted_mode", "buffered_flush",
-           "all_gather_gather", "queue_balance", "hierarchical_psum",
-           "barrier", "prefix_scan", "global_min"]
+           "all_gather_gather", "QueueState", "queue_make",
+           "queue_balance", "hierarchical_psum", "barrier", "prefix_scan",
+           "global_min"]
 
 # payload sentinel that sorts after every real label / vertex id
 LABEL_PAD = 2 ** 30
@@ -204,28 +210,21 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Axis helpers: a rank's view of its 1-D mesh
+# Axis helpers: a rank's view of the 1-D mesh a call runs on
 # ---------------------------------------------------------------------------
 
-def _one_axis(mesh):
-    if isinstance(mesh, (tuple, list)):
-        raise NotImplementedError(
-            "a tuple axis / multi-axis mesh is not ported yet (ROADMAP §A.8)")
-    return mesh
-
-
 def axis_size(mesh) -> int:
-    return _one_axis(mesh).size
+    return mesh.size
 
 
 def my_shard(mesh) -> int:
     """This rank's linear shard index."""
-    return _one_axis(mesh).rank
+    return mesh.rank
 
 
 def _all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
     """all_to_all over the leading axis (size * k rows: chunk p to rank p)."""
-    return _one_axis(mesh).all_to_all(x)
+    return mesh.all_to_all(x)
 
 
 # ---------------------------------------------------------------------------
@@ -332,15 +331,29 @@ def dgas_gather(local: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
 
 
 def remote_scatter_add(local: torch.Tensor, gidx: torch.Tensor,
-                       vals: torch.Tensor, att, mesh, *,
-                       capacity=None) -> torch.Tensor:
+                       vals: torch.Tensor, att, mesh, *, capacity=None,
+                       ordered: bool = False) -> torch.Tensor:
     """PIUMA remote atomic add, executed at the owner: (local index, value)
     pairs are routed to the owning rank, which applies one fused scatter
-    add into ``local`` (updated in place and returned)."""
+    add into ``local`` (updated in place and returned).
+
+    ``ordered`` (1-D ``vals``): the owner adds each index's arrivals one
+    after the other in arrival order — by source rank, then in each
+    sender's order — from 0 (:func:`segment_sum_ordered`, the ``run_sum``
+    kernel on the card) and adds that sum into ``local`` (pass zeros to
+    get the sum itself).  Under a contiguous rule and source-sorted
+    senders that is the ascending-source order a local in-order sum
+    takes; a scatter-add's atomics follow no order on the card."""
     C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
     owner, local_idx = _routed_ids(gidx, att, mask_owner=False)
     (ridx, rvals), recvv, _, _ = _route((local_idx, vals), owner, mesh, C)
-    return dma_scatter_add(local, torch.where(recvv, ridx, -1), rvals)
+    idx = torch.where(recvv, ridx, -1)
+    if not ordered:
+        return dma_scatter_add(local, idx, rvals)
+    ok = (idx >= 0) & (idx < local.shape[0])
+    sums = segment_sum_ordered(rvals, torch.where(ok, idx, local.shape[0]),
+                               local.shape[0])
+    return local.add_(sums.to(local.dtype))
 
 
 def remote_scatter_combine(local: torch.Tensor, gidx: torch.Tensor,
@@ -433,7 +446,7 @@ def all_gather_gather(local: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
                       fill: float = 0.0) -> torch.Tensor:
     """Conventional-architecture baseline: replicate the whole array
     (``all_gather``), then index it locally."""
-    g = _one_axis(mesh).all_gather(local)            # (S, per, ...)
+    g = mesh.all_gather(local)                      # (S, per, ...)
     if att.kind == "interleave":
         full = g.transpose(0, 1).reshape((-1,) + tuple(g.shape[2:]))
     else:
@@ -441,42 +454,123 @@ def all_gather_gather(local: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
     return dma_gather(full[:att.n_global], gidx, fill=fill)
 
 
-def queue_balance(q, mesh, payload=None):
-    """Rebalance queued work across ranks: not ported yet (ROADMAP §A.8)."""
-    raise NotImplementedError("queue_balance (the queue engine) is not "
-                              "ported yet (ROADMAP §A.8)")
+# ---------------------------------------------------------------------------
+# Queue engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QueueState:
+    """One rank's fixed-capacity work queue."""
+
+    items: torch.Tensor   # (capacity,) int32, padding = -1
+    count: torch.Tensor   # () int32, the valid prefix's length
+
+
+def queue_make(capacity: int, device=None) -> QueueState:
+    return QueueState(torch.full((capacity,), -1, dtype=torch.int32,
+                                 device=device),
+                      torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _leaves(tree):
+    """(tensors, rebuild) of a payload: None, a tensor, or a tuple / list /
+    dict of payloads."""
+    if tree is None:
+        return [], lambda xs: None
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda xs: xs[0]
+    if isinstance(tree, dict):
+        keys = list(tree)
+        parts = [_leaves(tree[k]) for k in keys]
+    elif isinstance(tree, (tuple, list)):
+        keys = None
+        parts = [_leaves(x) for x in tree]
+    else:
+        raise TypeError(f"payload leaves must be tensors, got "
+                        f"{type(tree).__name__}")
+    sizes = [len(p[0]) for p in parts]
+
+    def rebuild(xs):
+        out, i = [], 0
+        for (_, rb), k in zip(parts, sizes):
+            out.append(rb(xs[i:i + k]))
+            i += k
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return [x for p in parts for x in p[0]], rebuild
+
+
+def queue_balance(q: QueueState, mesh, payload=None):
+    """Rebalance queued items evenly across ranks (hardware work
+    stealing), as the reference does: every item gets a global rank from a
+    prefix scan of the counts, the item of rank r moves to rank r % S
+    through :func:`_route` (one ``all_to_all`` per plane), and what arrives
+    is compacted, stably, into the same capacity — valid items first, by
+    source rank and then in each sender's order.  Post-balance counts
+    differ by at most 1, and the queue keeps its buffer size (the global
+    count never exceeds S * capacity).
+
+    payload: optional tensor, or tuple / list / dict of tensors, with
+    leading dim == capacity, routed alongside the items (a walker's current
+    vertex); rows without an item are zeroed.  Returns (QueueState,
+    payload) when given, else the QueueState."""
+    S = mesh.size
+    cap = q.items.shape[0]
+    dev = q.items.device
+    offset = prefix_scan(q.count.reshape(()).to(torch.int32), mesh)
+    pos = torch.arange(cap, dtype=torch.int32, device=dev)
+    dest = torch.where(pos < q.count, (offset + pos) % S, -1)
+    leaves, rebuild = _leaves(payload) if payload is not None else ([], None)
+    recv, recvv, _, _ = _route((q.items,) + tuple(leaves),
+                               dest.to(torch.int32), mesh, cap)
+    order = torch.sort((~recvv).to(torch.int8), stable=True).indices[:cap]
+    kept = recvv[order]
+    out_q = QueueState(torch.where(kept, recv[0][order], -1),
+                       recvv.sum().to(torch.int32))
+    if payload is None:
+        return out_q
+    out = []
+    for x in recv[1:]:
+        xs = x[order]
+        mask = kept.reshape((-1,) + (1,) * (xs.dim() - 1))
+        out.append(torch.where(mask, xs, xs.new_zeros(())))
+    return out_q, rebuild(out)
 
 
 # ---------------------------------------------------------------------------
 # Collective engine
 # ---------------------------------------------------------------------------
 
-def hierarchical_psum(x: torch.Tensor, axes) -> torch.Tensor:
-    """Reduce one mesh level at a time.  ``axes`` is a Mesh or a sequence
-    of them, one per level; the port's meshes are 1-D, so a sequence of
-    more than one level is not ported yet (ROADMAP §A.8)."""
-    if isinstance(axes, (tuple, list)):
-        if len(axes) != 1:
-            raise NotImplementedError("a multi-axis hierarchical_psum is not "
-                                      "ported yet (ROADMAP §A.8)")
-        axes = axes[0]
-    return axes.all_reduce(x, "sum")
+def hierarchical_psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """Reduce one mesh level at a time (intra-block, then intra-pod, ...),
+    as the reference's psum per axis name.  ``axes`` is a Mesh (one level)
+    or a sequence of levels, each a Mesh or an axis name of ``mesh``
+    (reduced over ``mesh.over(name)``'s group); over a rank grid the
+    result is the sum over every rank of the named axes."""
+    if hasattr(axes, "all_reduce"):
+        return axes.all_reduce(x, "sum")
+    for a in axes:
+        level = a if hasattr(a, "all_reduce") else mesh.over(a)
+        x = level.all_reduce(x, "sum")
+    return x
 
 
 def global_min(x: torch.Tensor, mesh) -> torch.Tensor:
     """Elementwise minimum over the ranks (the reference's ``lax.pmin``);
     under ``torch.func.vmap`` one collective serves every lane."""
-    return _one_axis(mesh).all_reduce(x, "min")
+    return mesh.all_reduce(x, "min")
 
 
 def barrier(mesh) -> torch.Tensor:
     """System-wide barrier (a one-word reduction); returns the rank
     count."""
-    return _one_axis(mesh).all_reduce(
+    return mesh.all_reduce(
         torch.ones((), dtype=torch.int32, device=mesh.device), "sum")
 
 
 def prefix_scan(x: torch.Tensor, mesh) -> torch.Tensor:
     """Exclusive prefix sum across ranks (the collective engine's scan)."""
-    g = _one_axis(mesh).all_gather(x)               # (S, ...)
+    g = mesh.all_gather(x)                          # (S, ...)
     return (torch.cumsum(g, 0) - g)[my_shard(mesh)]

@@ -1,5 +1,6 @@
 """Graph query service: micro-batched multi-source traversal serving
-(counterpart of ``repro.core.service`` on the local placement).
+(counterpart of ``repro.core.service``), on the local placement or
+sharded over a process mesh.
 
 A typed query API, an admission queue that micro-batches compatible queries
 into one batched engine pass on the CSR's device, an LRU result cache, and
@@ -54,8 +55,28 @@ same draw until it is evicted.  The draw is keyed by (service seed, epoch,
 query, slot) through ``engine.fold_in``, not by batch composition, so a
 cached and a recomputed answer agree.
 
-The distributed placement (``mesh=``) is not ported: the service refuses a
-mesh rather than serve it from the local engine (ROADMAP §A.8).
+The distributed placement (``mesh=``) is multi-controller: every rank of
+the mesh builds the service over the same graph and makes the same calls
+(submit, poll, flush, result, apply_updates), so every rank holds the same
+queue, cache and results and runs the same micro-batches in the same
+order.  The one input that differs between ranks is the clock, so each
+flush opportunity (an armed submit or poll, an explicit flush) is one
+``all_gather``: every rank takes rank 0's decision and compares the
+ranks' digests of their calls, so ranks whose calls diverged fail
+together instead of deadlocking in the next collective.  The batches a
+flush cuts are a function of the checked state, so a batch runs no
+check of its own.  Each rank holds its block-ruled shard of the graph, built
+from its own rows (``distgraph.shard_of``).  Reachability and Distance
+run through ``msbfs_distributed`` / ``sssp_batched_distributed`` (sync, or
+the async placement with ``sync_interval``); each target's owner reads
+its slot on the card, and one ``all_gather`` of the (queries + lanes)
+picks and per-lane reached flags brings the answers to every rank.  PPR
+and NeighborSample stay local on every rank's copy of the graph, as in the
+reference.  ``apply_updates`` reshards only the shards that own a changed
+source (``update_shards``; on a padding overflow every rank rebuilds its
+shard), and the route-byte ledger prices each traversal from its measured
+levels (``stats['levels']``: a fallback level at full capacity, an async
+flush by ``flush_level``).
 """
 from __future__ import annotations
 
@@ -67,6 +88,7 @@ import os
 import re
 import time
 import warnings
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,8 +99,12 @@ from .. import tune as _tune
 from .graph import CSR, GraphHandle, UpdateReport
 from ..obs import Histogram, Observability, get_registry
 from .algorithms.bfs import msbfs
+from .algorithms.bfs import msbfs_distributed
+from .algorithms.distgraph import shard_of, update_shards
 from .algorithms.pagerank import ppr_topk
-from .algorithms.sssp import auto_delta, sssp_batched
+from .algorithms.sssp import auto_delta, sssp_batched, \
+    sssp_batched_distributed
+from .dgas import block_rule
 
 __all__ = [
     "Reachability", "Distance", "PPRTopK", "NeighborSample",
@@ -292,22 +318,26 @@ class GraphService:
       query (everything but the source/k/fanout is service-level, so
       same-kind queries always batch — every PPR batch computes
       ``ppr_k_max`` candidates and slices each query's k).
-    mesh: the distributed placement is not ported; anything but None raises
-      NotImplementedError (ROADMAP §A.8).
+    mesh: optional ``launch.mesh.Mesh`` — serve Reachability and Distance
+      from the sharded engine over its ranks (a multi-axis mesh: over its
+      flattened world).  Every rank builds the service with the same
+      arguments and makes the same calls (see the module docstring).
     n_model_shards: width of the route-byte model and of the handle's block
-      partitions.
+      partitions (with a mesh: the mesh's rank count).
     seed: keys the NeighborSample draws (with the epoch, the query and the
       slot).
     clock: injectable monotonic time source (seconds) — deadlines, latency
       percentiles and the EWMA batch-cost estimate all read it.
     deadline_safety: slack margin in seconds — a deadline is considered
       "about to expire" once slack <= this margin.
-    placement: 'sync' (default) or 'async'.  The bounded-staleness placement
-      relaxes the distributed engine's barriers; without a mesh there is no
-      barrier to relax, so it is validated and ignored, as in the
-      reference.
+    placement: 'sync' (default) or 'async'.  With a mesh, the traversal
+      kinds run under the engine's bounded-staleness placement
+      (``sync_interval`` collective-free micro-steps between global
+      checks), which returns the same answers (the programs are monotone).
+      Without a mesh there is no barrier to relax, so it is validated and
+      ignored, as in the reference.
     sync_interval: micro-steps per global check under placement='async'
-      (taken for the reference's interface; unused without a mesh).
+      (default 8).
     cost_seed: optional per-kind batch-cost priors in seconds ({kind: s}),
       or 'auto' to read the newest committed bench doc
       (:func:`load_cost_priors`).
@@ -331,11 +361,6 @@ class GraphService:
                  placement: str = "sync",
                  sync_interval: Optional[int] = None,
                  cost_seed=None, obs: Optional[Observability] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GraphService(mesh=...): serving from the distributed "
-                "placement is not ported yet (ROADMAP §A.8); build the "
-                "service without a mesh to serve from the local engine")
         g0 = csr.csr if isinstance(csr, GraphHandle) else csr
         batch_budget = int(_tune.resolve("service.batch_budget",
                                          batch_budget, n=g0.n_rows,
@@ -354,6 +379,12 @@ class GraphService:
         self.mode = mode
         self.seed = seed
         self.placement = placement
+        self.sync_interval = int(sync_interval) if sync_interval is not None \
+            else (8 if placement == "async" else 1)
+        if mesh is not None:
+            mesh = mesh.over(tuple(mesh.axis_names))
+            n_model_shards = mesh.size
+        self.mesh = mesh
         self._clock = clock
         self.obs = obs
         self._metrics = obs.metrics if obs is not None else get_registry()
@@ -371,13 +402,20 @@ class GraphService:
         self._next_ticket = 0
         self._rr = 0                      # round-robin rotation cursor
         self._n_deadlines = 0             # queued entries carrying a deadline
+        # under a mesh: a running CRC of the submitted queries (part of the
+        # digest the ranks compare), and the admission collectives' count
+        # and host seconds
+        self._calls_crc = 0
+        self.admission = {"collectives": 0, "seconds": 0.0}
         self._cost_ewma: Dict[str, float] = {}
         if cost_seed == "auto":
-            cost_seed = load_cost_priors(budget=self.budget)
+            cost_seed = load_cost_priors(distributed=mesh is not None,
+                                         budget=self.budget)
         self._cost_ewma.update({k: float(v)
                                 for k, v in (cost_seed or {}).items()})
         handle = csr if isinstance(csr, GraphHandle) else \
             GraphHandle.wrap(csr, n_partitions=n_model_shards)
+        self._att = self._shard = None
         self._set_graph(handle)
 
     # -- graph epoch (GraphHandle is the currency; see graph.py) -----------
@@ -396,12 +434,31 @@ class GraphService:
     def device(self) -> torch.device:
         return self.handle.csr.device
 
-    def _set_graph(self, handle: GraphHandle) -> None:
+    def _set_graph(self, handle: GraphHandle,
+                   report: Optional[UpdateReport] = None) -> None:
         self.handle = handle
         csr = handle.csr
         self.delta = auto_delta(csr)
         self._ppr_k = min(self.ppr_k_max, csr.n_rows)
-        m_per = -(-csr.nnz // self.stats.n_model_shards)
+        if self.mesh is not None:
+            mesh, S = self.mesh, self.mesh.size
+            shard = None
+            if report is not None and self._shard is not None \
+                    and not report.compacted:
+                # only the shards owning a changed SOURCE row moved edges
+                # (the shards are source-partitioned)
+                srcs = torch.as_tensor(report.changed_sources, dtype=torch.int64)
+                shards = np.unique(self._att.owner(srcs).numpy())
+                shard = update_shards(self._shard, csr, self._att, shards,
+                                      mesh)
+            if shard is None:         # cold start / compaction / overflow
+                self._att = block_rule(csr.n_rows, S)
+                shard = shard_of(csr, self._att, mesh.rank,
+                                 device=mesh.device)
+            self._shard = shard
+            m_per = shard.edges_per_shard
+        else:
+            m_per = -(-csr.nnz // self.stats.n_model_shards)
         self._edge_cap = engine.frontier_edge_capacity(
             m_per, _tune.resolve("engine.switch_frac", n=csr.n_rows,
                                  device=csr.device),
@@ -423,7 +480,7 @@ class GraphService:
         if self._queue:
             self.flush()
         handle, report = self.handle.apply(inserts, deletes)
-        self._set_graph(handle)
+        self._set_graph(handle, report)
         evicted = self._invalidate_partitions(report.touched_partitions)
         # route-byte model: a deployment reships the touched partitions'
         # edge lists (every partition on compaction), one contract-payload
@@ -551,18 +608,44 @@ class GraphService:
                                   deadline_s=deadline)
         if deadline is not None:
             self._n_deadlines += 1
-        if self._deadline_armed() and (self._deadline_due()
-                                       or self._some_kind_full()):
-            self.flush()
+        if self.mesh is not None:
+            self._calls_crc = zlib.crc32(f"{t}:{q!r}".encode(),
+                                         self._calls_crc)
+        if self._deadline_armed() and self._agree(self._deadline_due()
+                                                  or self._some_kind_full()):
+            self._flush_queue()
         return t
 
     def poll(self) -> List[int]:
         """The client-driven admission tick: flush iff some admitted query's
         deadline slack is exhausted (a no-op otherwise).  Returns the
         tickets served, like :meth:`flush`."""
-        if self._deadline_armed() and self._deadline_due():
-            return self.flush()
+        if self._deadline_armed() and self._agree(self._deadline_due()):
+            return self._flush_queue()
         return []
+
+    def _agree(self, flag: bool) -> bool:
+        """One flush opportunity, ``flag`` this rank's decision.  Under a
+        mesh, one ``all_gather`` carries rank 0's decision (the decisions
+        read the clock, which differs between ranks) beside each rank's
+        digest of its calls: the tickets issued, the CRC of the submitted
+        queries, the epoch and the queue's length.  Every rank takes rank
+        0's decision, and all fail at once if the digests differ."""
+        if self.mesh is None:
+            return flag
+        t0 = time.perf_counter()
+        mine = torch.tensor([int(flag), self._next_ticket, self._calls_crc,
+                             self.epoch, len(self._queue)],
+                            dtype=torch.int64, device=self.mesh.device)
+        got = self.mesh.all_gather(mine).cpu()
+        self.admission["collectives"] += 1
+        self.admission["seconds"] += time.perf_counter() - t0
+        if not bool((got[:, 1:] == got[0, 1:]).all()):
+            raise RuntimeError(
+                "GraphService(mesh=...): the ranks' calls diverged (tickets, "
+                f"query CRC, epoch, queue length: {got[:, 1:].tolist()}): "
+                "every rank must make the same calls")
+        return bool(got[0, 0])
 
     def _deadline_armed(self) -> bool:
         # O(1): deadline-free streams pay nothing for the admission checks
@@ -629,6 +712,10 @@ class GraphService:
         submission order.  Each round micro-batches one kind — chosen
         round-robin over the kinds with pending queries, FIFO within the
         kind — up to the lane budget."""
+        self._agree(True)
+        return self._flush_queue()
+
+    def _flush_queue(self) -> List[int]:
         done: List[int] = []
         t0 = self._clock()
         while self._queue:
@@ -777,7 +864,10 @@ class GraphService:
 
         # each runner's result is read back to the host once (`.cpu()`, the
         # device sync point); the stats it returns are host ints already
-        if kind == "reach":
+        if self.mesh is not None and kind in ("reach", "dist"):
+            stats = self._run_distributed(kind, batch, lanes, trace)
+            t_eng1 = stats.pop("t_eng1")
+        elif kind == "reach":
             levels, stats = msbfs(self.csr, srcs, mode=self.mode,
                                   return_stats=True, trace=trace)
             levels = levels.cpu().numpy()
@@ -818,6 +908,91 @@ class GraphService:
         if self.obs is not None:
             self._record_batch_spans(kind, batch, lanes, stats,
                                      t_eng0, t_eng1, rb0)
+
+    def _run_distributed(self, kind: str, batch, lanes: List[int],
+                         trace: bool) -> dict:
+        """One Reachability / Distance batch on the mesh: the sharded
+        traversal, each target's slot read by its owner on the card, and
+        one ``all_gather`` of the picks and of each lane's reached-anything
+        flag, which every rank reads back (a (S, queries + lanes) f32
+        array).  Finishes the batch's queries and charges the ledger;
+        returns the run's stats with the engine span's end time."""
+        mesh, att, n = self.mesh, self._att, self.csr.n_rows
+        srcs = np.zeros(self.budget, np.int64)
+        srcs[:len(lanes)] = lanes
+        srcs[len(lanes):] = lanes[0]
+        kw = dict(return_stats=True, placement=self.placement,
+                  sync_interval=self.sync_interval, trace=trace)
+        if kind == "reach":
+            lv, stats = msbfs_distributed(self._shard, att, srcs, mesh,
+                                          max_levels=n, **kw)
+            vals, reached = (lv >= 0).to(torch.float32), lv >= 0
+        else:
+            vals, stats = sssp_batched_distributed(
+                self._shard, att, srcs, mesh, delta=self.delta,
+                max_iters=4 * n, **kw)
+            reached = torch.isfinite(vals)
+        lane_of = {v: i for i, v in enumerate(lanes)}
+        tgt = torch.as_tensor([q.target for _, q, *_ in batch],
+                              dtype=torch.int64)
+        ln = torch.as_tensor([lane_of[q.source] for _, q, *_ in batch],
+                             dtype=torch.int64)
+        own = att.owner(tgt)
+        loc = torch.where(own == mesh.rank, att.local(tgt), 0).to(mesh.device)
+        pick = vals[ln.to(mesh.device), loc]
+        pick = torch.where((own == mesh.rank).to(mesh.device), pick, 0.0)
+        got = mesh.all_gather(torch.cat([
+            pick, reached.any(1).to(torch.float32)])).cpu().numpy()
+        t_eng1 = self._clock()
+        Q = len(batch)
+        ans = got[own.numpy(), np.arange(Q)]
+        hit = got[:, Q:] > 0                      # (S, budget)
+        parts = {}
+        for i, (t, q, *_) in enumerate(batch):
+            lane = int(ln[i])
+            if lane not in parts:
+                parts[lane] = self._parts_of_shard_mask(hit[:, lane])
+            value = bool(ans[i] > 0) if kind == "reach" else float(ans[i])
+            self._finish(t, q, value, parts=parts[lane])
+        self._charge_levels(stats, packed=kind == "reach")
+        stats["t_eng1"] = t_eng1
+        return stats
+
+    def _parts_of_shard_mask(self, shard_mask: np.ndarray) -> frozenset:
+        """Touched partitions from a per-shard reached indicator (S,):
+        shards are contiguous global ranges under the block rule, so each
+        reached shard maps to the partitions covering it."""
+        per, n = self._att.per_shard, self.csr.n_rows
+        parts = set()
+        for s_ in np.flatnonzero(shard_mask):
+            lo, hi = int(s_) * per, min(n, (int(s_) + 1) * per) - 1
+            if hi >= lo:
+                parts.update(range(int(self.handle.partition_of(lo)),
+                                   int(self.handle.partition_of(hi)) + 1))
+        return frozenset(parts)
+
+    def _charge_levels(self, stats, *, packed: bool) -> None:
+        """Route-byte ledger of a distributed traversal, priced from its
+        measured levels: a sync push level at the compacted capacity, or
+        at the full edge partition when it fell back; an async check is
+        one buffered flush of the (S, per_shard) outbox of budget lanes."""
+        st = self.stats
+        ctr = traffic.RouteByteCounter(st.n_model_shards)
+        item = traffic.batched_payload_bytes(self.budget, packed=packed)
+        levels = stats["levels"]
+        fallbacks = sum(lv["fallback"] for lv in levels)
+        if fallbacks:
+            self._metrics.counter("service.push_capacity_fallback").inc(
+                fallbacks)
+        for lv in levels:
+            if self.placement == "async":
+                ctr.flush_level(self._att.per_shard,
+                                elem_bytes=4 * self.budget)
+            else:
+                ctr.push_level(self._m_per_shard if lv["fallback"]
+                               else self._edge_cap, payload_bytes=item)
+        st.route_bytes += ctr.total_bytes
+        st.push_levels += len(levels)
 
     def _record_batch_spans(self, kind: str, batch, lanes, stats,
                             t_eng0: float, t_eng1: float, rb0: int) -> None:

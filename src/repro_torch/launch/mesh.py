@@ -1,12 +1,15 @@
 """The process mesh of the distributed placement (counterpart of
 ``repro.launch.mesh.make_cores_mesh``).
 
-The reference is single-controller: one program maps a 1-D device mesh
-with ``shard_map``.  The port is multi-controller: one process per shard
-(a *rank*), every rank running the same call over ``torch.distributed``.
-A :class:`Mesh` is that rank's view of the 1-D mesh: the process group,
-its rank and size, the device its shard lives on, the backend and the
-one axis name.
+The reference is single-controller: one program maps a device mesh with
+``shard_map``.  The port is multi-controller: one process per shard (a
+*rank*), every rank running the same call over ``torch.distributed``.  A
+:class:`Mesh` is that rank's view of the mesh: the process group, its rank
+and size, the device its shard lives on, the backend and the axis names.
+A mesh may name several axes over a rank grid (``make_mesh``): each axis,
+and each tuple of axes in grid order (flattened row-major, as the
+reference's tuple axes are), is a sub-mesh over its own process group
+(:meth:`Mesh.over`); the sub-meshes share the mesh's counters.
 
 Transport, by where the ranks' devices are:
 
@@ -19,10 +22,14 @@ Transport, by where the ranks' devices are:
 The shards' data and compute stay on their device in every case; only
 the transport differs.  Every collective of the port goes through a
 Mesh method (``offload`` routes, reduces and gathers with them), and the
-Mesh counts per kind the calls, the bytes it hands to the backend and the
-host seconds spent inside the backend's call (for gloo that includes the
-staging through host memory): the distributed engine reads the counts
-per level.
+Mesh counts per kind the calls, the bytes it hands to the backend, the
+host seconds spent inside the backend's call and, for CUDA tensors, the
+card seconds between CUDA events recorded on the stream around it.  A
+gloo call on CUDA tensors first waits for the card work queued before it,
+so its host seconds include that work; the card seconds start when the
+stream reaches the call, and so hold the transport alone.  The events
+are read without a synchronize: each collective and :meth:`Mesh.counts`
+add those the card has passed, :meth:`Mesh.settle` waits for the rest.
 """
 from __future__ import annotations
 
@@ -32,11 +39,12 @@ import time
 import traceback
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "backend_for", "rank_device", "make_cores_mesh", "spawn",
-           "KINDS"]
+__all__ = ["Mesh", "backend_for", "rank_device", "make_cores_mesh",
+           "make_mesh", "spawn", "KINDS"]
 
 # the collective kinds a Mesh counts
 KINDS = ("all_to_all", "all_reduce", "all_gather")
@@ -90,14 +98,23 @@ class _AllReduce(torch.autograd.Function):
         return mesh._all_reduce(x, op), in_dims[0]
 
 
+def _zeros(v):
+    return dataclasses.field(default_factory=lambda: dict.fromkeys(KINDS, v))
+
+
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """One rank's view of a 1-D process mesh.
+    """One rank's view of a process mesh.
 
     group: the process group (None: the default world group).
-    calls / bytes / seconds: per collective kind (:data:`KINDS`), the calls
-      made, the bytes handed to the backend (each input buffer once) and
-      the host seconds inside the backend's calls.
+    axis_name: the name of a 1-D mesh's axis, or a tuple of the names a
+      sub-mesh flattens.
+    shape / axis_names: the rank grid of a multi-axis mesh (``(size,)`` and
+      ``(axis_name,)`` for a 1-D one).
+    calls / bytes / seconds / card_seconds: per collective kind
+      (:data:`KINDS`), the calls made, the bytes handed to the backend
+      (each input buffer once), the host seconds inside the backend's calls
+      and the card seconds between events around them (CUDA tensors only).
     """
 
     group: Any
@@ -105,21 +122,57 @@ class Mesh:
     size: int
     device: torch.device
     backend: str
-    axis_name: str = "cores"
-    calls: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(KINDS, 0))
-    bytes: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(KINDS, 0))
-    seconds: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(KINDS, 0.0))
+    axis_name: Any = "cores"
+    calls: dict = _zeros(0)
+    bytes: dict = _zeros(0)
+    seconds: dict = _zeros(0.0)
+    card_seconds: dict = _zeros(0.0)
+    shape: tuple = ()
+    axis_names: tuple = ()
+    # sub-meshes by axis (a name or a tuple of names); each shares the
+    # counters and the pending events of the mesh it came from
+    subs: dict = dataclasses.field(default_factory=dict, repr=False)
+    pending: list = dataclasses.field(default_factory=list, repr=False)
+
+    def __post_init__(self):
+        if not self.shape:
+            self.shape, self.axis_names = (self.size,), (self.axis_name,)
 
     def _call(self, kind: str, x: torch.Tensor, fn, *args) -> None:
         """Hand ``x`` to the backend through ``fn(*args)``, counted."""
         self.calls[kind] += 1
         self.bytes[kind] += x.numel() * x.element_size()
+        ev = None
+        if x.is_cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
         t0 = time.perf_counter()
         fn(*args, group=self.group)
         self.seconds[kind] += time.perf_counter() - t0
+        if ev is not None:
+            ev[1].record()
+            self.pending.append((kind, *ev))
+            self._drain()
+
+    def _drain(self) -> None:
+        """Add the card seconds of the oldest events the card has passed,
+        up to the first it has not (the stream passes them in order): the
+        backlog stays bounded with no wait."""
+        done = 0
+        for kind, start, end in self.pending:
+            if not end.query():
+                break
+            self.card_seconds[kind] += start.elapsed_time(end) / 1e3
+            done += 1
+        del self.pending[:done]
+
+    def settle(self) -> None:
+        """Wait for the card to pass every recorded event and add their
+        card seconds (a synchronize: call it after a path, not in it)."""
+        if self.pending:
+            self.pending[-1][2].synchronize()
+        self._drain()
 
     @property
     def collectives(self) -> int:
@@ -127,14 +180,39 @@ class Mesh:
 
     def counts(self) -> dict:
         """A snapshot: {'collectives': total calls, 'calls': {...},
-        'bytes': {...}, 'seconds': {...}}."""
+        'bytes': {...}, 'seconds': {...}, 'card_seconds': {...}}; the card
+        seconds of the events the card has passed (no wait)."""
+        self._drain()
         return {"collectives": self.collectives, "calls": dict(self.calls),
-                "bytes": dict(self.bytes), "seconds": dict(self.seconds)}
+                "bytes": dict(self.bytes), "seconds": dict(self.seconds),
+                "card_seconds": dict(self.card_seconds)}
 
     def reset_counts(self) -> None:
+        self.pending.clear()
         for k in KINDS:
             self.calls[k] = self.bytes[k] = 0
-            self.seconds[k] = 0.0
+            self.seconds[k] = self.card_seconds[k] = 0.0
+
+    def over(self, axis=None) -> "Mesh":
+        """The 1-D mesh a call runs on: ``axis`` None is the first axis
+        (the reference's default, the mesh itself when it has one axis), a
+        name is that axis's sub-mesh, a tuple of names in grid order the
+        flattened sub-mesh over them (all names: the whole world, ranks in
+        row-major order)."""
+        if axis is None:
+            axis = self.axis_names[0]
+        if isinstance(axis, list):
+            axis = tuple(axis)
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
+        if len(self.shape) == 1 and axis in (self.axis_name,
+                                             self.axis_names[0]):
+            return self
+        if axis not in self.subs:
+            raise ValueError(f"mesh axes {self.axis_names} have no sub-mesh "
+                             f"{axis!r} (a tuple must list axes in grid "
+                             f"order)")
+        return self.subs[axis]
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Chunk p of ``x`` (leading dim split into ``size`` equal chunks)
@@ -198,12 +276,65 @@ def make_cores_mesh(device=None, name: str = "cores") -> Mesh:
     return Mesh(None, rank, size, dev, dist.get_backend(), name)
 
 
-def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, conn):
+def make_mesh(shape, axis_names, device=None) -> Mesh:
+    """A mesh over the initialized default process group laid out as the
+    rank grid ``shape`` (row-major: rank = the flattened coordinate) with
+    one name per axis.  Builds one process group per axis line and per
+    tuple of axes in grid order (``torch.distributed.new_group``; every
+    rank builds every group, as the call requires), so :meth:`Mesh.over`
+    gives each axis, or each flattened tuple of axes, its own collectives.
+    The sub-meshes share the mesh's counters."""
+    import itertools
+    world = make_cores_mesh(device)
+    shape = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if len(shape) != len(names) or int(np.prod(shape)) != world.size:
+        raise ValueError(f"grid {shape} over axes {names} does not hold "
+                         f"{world.size} ranks")
+    world.shape, world.axis_names = shape, names
+    world.axis_name = names if len(names) > 1 else names[0]
+    coords = np.array(np.unravel_index(np.arange(world.size), shape)).T
+    me = coords[world.rank]
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), k):
+            key = tuple(names[a] for a in axes)
+            key = key[0] if k == 1 else key
+            if k == len(names):
+                if k > 1:
+                    world.subs[key] = dataclasses.replace(
+                        world, axis_name=key, subs={}, shape=(world.size,),
+                        axis_names=("+".join(names),))
+                continue
+            rest = [a for a in range(len(names)) if a not in axes]
+            mine = None
+            for fixed in itertools.product(*(range(shape[a]) for a in rest)):
+                ranks = [int(r) for r in range(world.size)
+                         if all(coords[r][a] == f
+                                for a, f in zip(rest, fixed))]
+                grp = dist.new_group(ranks)
+                if all(me[a] == f for a, f in zip(rest, fixed)):
+                    mine = (grp, ranks)
+            grp, ranks = mine
+            world.subs[key] = dataclasses.replace(
+                world, group=grp, rank=ranks.index(world.rank),
+                size=len(ranks), axis_name=key, subs={},
+                shape=(len(ranks),),
+                axis_names=(key if k == 1 else "+".join(key),))
+    return world
+
+
+def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, grid,
+               conn):
     try:
+        if torch.device(device).type == "cpu":
+            # the ranks share the host's cores: a rank's intra-op threads
+            # beyond its share only contend with its peers'
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
         dist.init_process_group(backend, init_method=f"file://{init_file}",
                                 world_size=n_ranks, rank=rank)
         try:
-            mesh = make_cores_mesh(device)
+            mesh = make_cores_mesh(device) if grid is None else \
+                make_mesh(grid[0], grid[1], device)
             conn.send((True, fn(mesh, *args)))
         finally:
             dist.destroy_process_group()
@@ -244,7 +375,7 @@ def _take(ready, pending: dict, procs, out: dict, failed: dict) -> None:
 
 
 def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
-          args: tuple = (), timeout: float = 600.0) -> list:
+          args: tuple = (), timeout: float = 600.0, grid=None) -> list:
     """Run ``fn(mesh, *args)`` on ``n_ranks`` fresh processes (the
     ``spawn`` start method), joined through the file ``init_file`` (which
     must not exist yet: parallel callers each take their own file, so they
@@ -257,7 +388,9 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
     RuntimeError carries every failed rank's traceback.  The call leaves no process
     behind: every rank is joined (or killed), and the start method's
     resource tracker, when this call started it, is stopped.  The backend
-    is :func:`backend_for` the device and rank count."""
+    is :func:`backend_for` the device and rank count.  ``grid`` = (shape,
+    axis names) lays the ranks out as :func:`make_mesh` does; None gives
+    the 1-D mesh."""
     import multiprocessing as mp
     from multiprocessing import connection, resource_tracker
     dev = torch.device("cuda" if device is None else device)
@@ -276,7 +409,7 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
     pipes = [ctx.Pipe(duplex=False) for _ in range(n_ranks)]
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, n_ranks, str(dev), backend, init_file,
-                               args, pipes[r][1]))
+                               args, grid, pipes[r][1]))
              for r in range(n_ranks)]
     out, deadline = {}, time.monotonic() + timeout
     try:

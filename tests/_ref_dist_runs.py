@@ -1,11 +1,18 @@
 """The reference's distributed runs that ``tests/test_torch_distributed.py``
-holds the torch port's stats and trace rows to: run as its own process
-(``python tests/_ref_dist_runs.py OUT.npz {runs|pagerank}``), since it
-forces 4 host devices before JAX is imported.  'runs' writes per run the
-engine's iters / pushes / pulls / fallbacks and the level trace, rank 0's
-copy (every shard holds the same); 'pagerank' the reference's distributed
-PageRank under the degree-balanced rule (the test starts the two parts
-as two processes, side by side)."""
+and ``tests/test_torch_dist_more.py`` hold the torch port to: run as its
+own process (``python tests/_ref_dist_runs.py OUT.npz
+{runs|pagerank|queue_louvain|service}``), since it forces 4 host devices
+before JAX is imported.  'runs' writes per run the engine's iters /
+pushes / pulls / fallbacks and the level trace, rank 0's copy (every shard
+holds the same); 'pagerank' the reference's distributed PageRank under the
+degree-balanced rule; 'queue_louvain' ``queue_balance`` and
+``modularity_distributed`` on the inputs of ``tests/_torch_dist_cases.py``;
+'service' the distributed ``GraphService``, sync and async, on its stream
+(the tests start the parts as processes, side by side)."""
+# The script drives the reference from the host and reads every result
+# back to save it; its one traced function is queue_louvain's `bal`, which
+# makes the lint treat the whole module as traced.
+# repro-lint: disable-file=host-sync
 import os
 import sys
 
@@ -81,5 +88,62 @@ def main(path: str) -> None:
                       for name, st in runs.items() for k in KEYS})
 
 
+def queue_louvain(path: str) -> None:
+    """queue_balance on the cases' queues; modularity_distributed of the
+    cases' labeling on both Louvain graphs."""
+    from repro.compat import shard_map
+    from jax.sharding import PartitionSpec as P
+    from repro.core import offload
+    from repro.core.algorithms.louvain import modularity_distributed
+    from repro.core.algorithms.distgraph import shard_vertex_array
+    from repro.core.graph import CSR
+    import _torch_dist_cases as C
+    mesh = make_cores_mesh(S)
+    spec = P("cores")
+    items, counts, pay = C.queue_input(S)
+
+    def bal(it, ct, pl):
+        q, p = offload.queue_balance(offload.QueueState(it[0], ct[0, 0]),
+                                     "cores", pl[0])
+        return q.items[None], q.count[None, None], p[None]
+
+    fn = shard_map(bal, mesh=mesh, in_specs=(spec,) * 3,
+                   out_specs=(spec,) * 3)
+    qi, qc, qp = fn(jnp.asarray(items), jnp.asarray(counts)[:, None],
+                    jnp.asarray(pay))
+    out = {"queue/items": np.asarray(qi), "queue/count": np.asarray(qc),
+           "queue/payload": np.asarray(qp)}
+    for integer in (True, False):
+        tag = "int" if integer else "f32"
+        indptr, indices, vals, n = C.louvain_graph(integer)
+        rows = np.repeat(np.arange(n), np.diff(indptr))
+        g = CSR.from_coo(rows, indices, vals, n, n)
+        att = dgas.block_rule(n, S)
+        gsh, _ = shard_graph(g, S, row_att=att)
+        lab = shard_vertex_array(C.louvain_labels(n), att)
+        out[f"louvain/{tag}/q"] = np.asarray(modularity_distributed(
+            gsh, att, mesh, lab, axis="cores"))
+    np.savez(path, **out)
+
+
+def service(path: str) -> None:
+    """The distributed service, sync and async, on the cases' stream."""
+    from repro.core import service as RS
+    import _torch_dist_cases as C
+    mesh = make_cores_mesh(S)
+    g = rmat(7, 8, seed=3)
+    out = {}
+    for placement in ("sync", "async"):
+        svc = RS.GraphService(g, batch_budget=C.SVC_BUDGET, mesh=mesh,
+                              placement=placement, sync_interval=C.SVC_K)
+        res = C.run_service(svc, g.n_rows, RS)
+        out.update({f"service/{placement}/{k}": np.asarray(v)
+                    for k, v in res.items()})
+    np.savez(path, **out)
+
+
 if __name__ == "__main__":
-    {"runs": main, "pagerank": pagerank_balanced}[sys.argv[2]](sys.argv[1])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    {"runs": main, "pagerank": pagerank_balanced,
+     "queue_louvain": queue_louvain, "service": service}[sys.argv[2]](
+        sys.argv[1])

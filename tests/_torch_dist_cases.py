@@ -15,7 +15,7 @@ from repro_torch.core import dgas, engine, offload
 from repro_torch.core import algorithms as A
 from repro_torch.core.algorithms.bfs import source_rows
 from repro_torch.core.algorithms.distgraph import shard_graph
-from repro_torch.core.graph import rmat
+from repro_torch.core.graph import GraphHandle, rmat
 
 CAP_TINY = 16                         # forces compaction fallbacks
 ASYNC_K = (1, 2, 8)
@@ -248,3 +248,273 @@ def rank_or_fail(mesh, bad: int) -> int:
     else:
         mesh.all_reduce(torch.ones(1), "sum")
     return mesh.rank
+
+
+# ---------------------------------------------------------------------------
+# The second half of the distributed placement (tests/test_torch_dist_more.py)
+# ---------------------------------------------------------------------------
+
+GRID = ((2, 2), ("data", "model"))
+QUEUE_CAP, QUEUE_COUNTS = 16, (5, 0, 16, 9)
+WALK_STEPS, WALK_KEY, WALK_K = 12, 41, (1, 3)
+SVC_BUDGET, SVC_K = 4, 2
+DEADLINE_QUERIES = 6
+UPDATE_SMALL = (np.array([40, 70, 97]), np.array([120, 5, 64]))   # shards 1-3
+
+
+def queue_input(S: int):
+    """Per rank a queue holding QUEUE_COUNTS[r] items and a (cap, 2) f32
+    payload (-0.0 in some rows: routed as +0.0, as the reference adds)."""
+    rng = np.random.default_rng(4)
+    items = np.full((S, QUEUE_CAP), -1, np.int32)
+    pay = np.zeros((S, QUEUE_CAP, 2), np.float32)
+    for s, c in enumerate(QUEUE_COUNTS[:S]):
+        items[s, :c] = rng.integers(0, 1000, c)
+        pay[s, :c] = rng.standard_normal((c, 2))
+    pay[0, 1, 0] = -0.0
+    return items, np.array(QUEUE_COUNTS[:S], np.int32), pay
+
+
+def louvain_graph(integer: bool):
+    """rmat(7, 8, seed=3) as numpy CSR arrays, its f32 weights or integer
+    weights 1..8 (exact in f32 whatever the order of the sums)."""
+    g = rmat(7, 8, seed=3, device="cpu")
+    v = g.values.numpy()
+    if integer:
+        v = np.floor(v * 8).astype(np.float32) + 1
+    return g.indptr.numpy(), g.indices.numpy(), v, g.n_rows
+
+
+def louvain_labels(n: int) -> np.ndarray:
+    """A labeling with a few large communities and label ids up to n."""
+    rng = np.random.default_rng(6)
+    return rng.choice(np.arange(0, n, 7), n).astype(np.int32)
+
+
+def update_big(n: int, S: int):
+    """Inserts that overflow the padding of the block rule's shard 1."""
+    per = -(-n // S)
+    rng = np.random.default_rng(8)
+    rows = rng.integers(per, 2 * per, 400)
+    return rows, rng.integers(0, n, 400)
+
+
+def service_stream(n: int):
+    """Reachability and Distance queries over SVC_BUDGET + 2 sources (so
+    the traversal kinds batch more than once), then repeats (cache hits)."""
+    rng = np.random.default_rng(9)
+    out = []
+    for i in range(16):
+        s, t = int(rng.integers(0, SVC_BUDGET + 2)), int(rng.integers(0, n))
+        out.append(("reach" if i % 2 else "dist", s, t))
+    return out + out[:3]
+
+
+def walks_on_run_queue(ip, ix, v_att, e_att, w, n: int, k: int):
+    """The walks of every vertex on ``run_queue`` driven directly, with
+    ``walk_queue_program`` balancing every ``k``-th step: walker i starts
+    on rank i % S.  Rank 0 returns the (n, WALK_STEPS + 1) paths."""
+    from repro_torch.core.algorithms.random_walks import walk_queue_program
+    S = w.size
+    cap = -(-n // S)
+    mine = torch.arange(w.rank, n, S, dtype=torch.int32)
+    items0 = torch.full((cap,), -1, dtype=torch.int32)
+    items0[:mine.numel()] = mine
+    _, (ids, vs) = engine.run_queue(
+        w, walk_queue_program(v_att, e_att, w, cap), items0,
+        items0.clamp(min=0), (ip, ix), n_iters=WALK_STEPS, key=WALK_KEY,
+        sync_interval=k)
+    ids, vs = w.gather(ids), w.gather(vs)
+    if ids is None:
+        return None
+    walks = torch.empty((n, WALK_STEPS + 1), dtype=torch.int32)
+    walks[:, 0] = torch.arange(n)
+    step = torch.arange(1, WALK_STEPS + 1).reshape(1, -1, 1).expand_as(ids)
+    sel = ids >= 0
+    walks[ids[sel].long(), step[sel]] = vs[sel]
+    return walks
+
+
+def run_deadline_service(svc, n: int, mod) -> dict:
+    """The stream's first DEADLINE_QUERIES queries, each submitted with a
+    zero deadline (so each submit is a flush opportunity that flushes),
+    then one explicit flush: answers and the admission collectives."""
+    kinds = {"reach": mod.Reachability, "dist": mod.Distance}
+    ts = [svc.submit(kinds[k](s, t), deadline=0.0)
+          for k, s, t in service_stream(n)[:DEADLINE_QUERIES]]
+    svc.flush()
+    return {"answers": np.array([float(svc.result(t)) for t in ts]),
+            "batches": int(svc.stats.batches),
+            "admissions": int(svc.admission["collectives"])}
+
+
+def _csr(indptr, indices, vals, n):
+    from repro_torch.core.graph import csr_from_numpy
+    return csr_from_numpy(indptr, indices, vals, n, n, device="cpu")
+
+
+def run_service(svc, n: int, mod) -> dict:
+    """The stream, an insert batch, the stream again: answers and the
+    route-byte ledger (``mod`` the service module of either package)."""
+    kinds = {"reach": mod.Reachability, "dist": mod.Distance}
+
+    def one():
+        ts = [svc.submit(kinds[k](s, t)) for k, s, t in service_stream(n)]
+        svc.flush()
+        return [float(svc.result(t)) for t in ts]
+
+    first = one()
+    svc.apply_updates(UPDATE_SMALL)
+    return {"answers": np.array(first + one()),
+            "route_bytes": int(svc.stats.route_bytes),
+            "batches": int(svc.stats.batches),
+            "hits": int(svc.stats.cache_hits)}
+
+
+def run_more_cases(mesh) -> dict:
+    """Every case of the second half on this rank of the (2, 2) grid; the
+    1-D mesh of 4 is its flattened world.  Rank 0 returns the results."""
+    from repro_torch.core import service as TS
+    from repro_torch.core.algorithms import louvain as TL
+    from repro_torch.core.algorithms.random_walks import (
+        random_walks_distributed, walk_shards)
+    from repro_torch.core.traffic import RouteByteCounter
+    from repro_torch.obs import get_registry
+    w = mesh.over(("data", "model"))
+    S, dev, rank = w.size, w.device, w.rank
+    out = {}
+
+    def keep(name, x):
+        y = w.gather(x)
+        if y is not None:
+            out[name] = y.cpu().numpy()
+
+    # queue engine: queue_balance on the reference's inputs
+    items, counts, pay = queue_input(S)
+    q = offload.QueueState(torch.from_numpy(items[rank]),
+                           torch.tensor(counts[rank]))
+    qb, pb = offload.queue_balance(q, w, torch.from_numpy(pay[rank]))
+    keep("queue/items", qb.items)
+    keep("queue/count", qb.count.reshape(1))
+    keep("queue/payload", pb)
+    # walks on the queue engine, one walker per vertex
+    gq = rmat(7, 8, seed=3, device="cpu")
+    ip, ix, v_att, e_att = walk_shards(gq.indptr, gq.indices, S, rank)
+    for k in WALK_K:
+        # cadence 1 is the entry point's; the others drive run_queue
+        walks = random_walks_distributed(
+            ip, ix, v_att, e_att, np.arange(gq.n_rows), WALK_STEPS,
+            WALK_KEY, mesh, axis=("data", "model")) if k == 1 else \
+            walks_on_run_queue(ip, ix, v_att, e_att, w, gq.n_rows, k)
+        if rank == 0:
+            out[f"walks/k{k}"] = walks.numpy()
+
+    # Louvain: modularity and contraction on a labeling, multilevel
+    for integer in (True, False):
+        tag = "int" if integer else "f32"
+        csr = _csr(*louvain_graph(integer))
+        att = dgas.block_rule(csr.n_rows, S)
+        mine = shard_graph(csr, S, row_att=att)[0].shard(rank, dev)
+        lab = A.shard_vertex_array(louvain_labels(csr.n_rows), att)[rank]
+        keep(f"louvain/{tag}/q", TL.modularity_distributed(
+            mine, att, w, lab).reshape(1))
+        ctr = RouteByteCounter(S)
+        coarse, catt, ren, n_routed = TL.contract_distributed(
+            mine, att, lab, w, counter=ctr)
+        for f in ("src", "dst", "val"):
+            keep(f"louvain/{tag}/coarse_{f}", getattr(coarse, f))
+        out[f"louvain/{tag}/renumber"] = ren.numpy()
+        out[f"louvain/{tag}/routed"] = np.array([n_routed, ctr.total_bytes])
+        labels, scores = TL.multilevel_distributed(mine, att, mesh,
+                                                   axis=("data", "model"))
+        out[f"louvain/{tag}/ml"] = labels.numpy()
+        out[f"louvain/{tag}/ml_scores"] = np.array(scores)
+
+    # streaming on shards: update_shards, then both repairs
+    g = rmat(7, 8, seed=3, device="cpu")
+    n = g.n_rows
+    att = dgas.block_rule(n, S)
+    gsh, _ = shard_graph(g, S, row_att=att)
+    mine = gsh.shard(rank, dev)
+    h0 = GraphHandle.wrap(g, n_partitions=S)
+    ctr = get_registry().counter("streaming.reshard_fallback")
+    c0 = ctr.value
+    h_big, rep_big = h0.apply(update_big(n, S))
+    shards = np.unique(att.owner(torch.as_tensor(
+        rep_big.changed_sources)).numpy())
+    out["update/big_none"] = np.array([A.update_shards(
+        mine, h_big.csr, att, shards, w) is None])
+    h1, rep = h0.apply(UPDATE_SMALL)
+    shards = np.unique(att.owner(torch.as_tensor(
+        rep.changed_sources)).numpy())
+    new = A.update_shards(mine, h1.csr, att, shards, w)
+    out["update/fallbacks"] = np.array([ctr.value - c0])
+    for f in ("src", "dst", "val"):
+        keep(f"update/{f}", getattr(new, f))
+    out["update/same_object"] = np.array([new is mine])
+    lv0 = A.bfs_distributed(mine, att, 0, w)
+    keep("repair/bfs", A.bfs_repair_distributed(
+        new, att, lv0, rep.changed_sources, w))
+    keep("repair/bfs_async", A.bfs_repair_distributed(
+        new, att, lv0, rep.changed_sources, w, placement="async",
+        sync_interval=2))
+    keep("fresh/bfs", A.bfs_distributed(new, att, 0, w))
+    sym0, sym1 = A.symmetrize(g), A.symmetrize(h1.csr)
+    atts = dgas.block_rule(n, S)
+    s0 = shard_graph(sym0, S, row_att=atts)[0].shard(rank, dev)
+    s1 = shard_graph(sym1, S, row_att=atts)[0].shard(rank, dev)
+    cc0 = A.connected_components_distributed(s0, atts, w)
+    keep("repair/cc", A.cc_repair_distributed(
+        s1, atts, cc0, rep.changed_vertices, w))
+    keep("fresh/cc", A.connected_components_distributed(s1, atts, w))
+
+    # the service on the mesh, sync and async
+    for placement in ("sync", "async"):
+        svc = TS.GraphService(g, batch_budget=SVC_BUDGET, mesh=mesh,
+                              placement=placement, sync_interval=SVC_K)
+        res = run_service(svc, n, TS)
+        if rank == 0:
+            out.update({f"service/{placement}/{k}": np.asarray(v)
+                        for k, v in res.items()})
+    res = run_deadline_service(TS.GraphService(
+        g, batch_budget=SVC_BUDGET, mesh=mesh), n, TS)
+    if rank == 0:
+        out.update({f"service/deadline/{k}": np.asarray(v)
+                    for k, v in res.items()})
+    # calls that diverge (one rank submits more) fail on every rank
+    svc = TS.GraphService(g, batch_budget=SVC_BUDGET, mesh=mesh)
+    if rank == 0:
+        svc.submit(TS.Reachability(0, 1))
+    try:
+        svc.flush()
+        raised = False
+    except RuntimeError:
+        raised = True
+    keep("service/diverged_raises", torch.tensor([int(raised)]))
+
+    # the (2, 2) grid: tuple axes, sub-axis groups, hierarchical psum
+    keep("grid/bfs", A.bfs_distributed(mine, att, 0, mesh,
+                                       axis=("data", "model")))
+    keep("grid/sssp", A.sssp_distributed(mine, att, 0, mesh, delta=0.5,
+                                         axis=["data", "model"]))
+    x = torch.tensor([float(rank + 1), 10.0 * (rank + 1)], device=dev)
+    keep("grid/hpsum", offload.hierarchical_psum(x, ("data", "model"), mesh))
+    keep("grid/hpsum_meshes", offload.hierarchical_psum(
+        x, [mesh.over("model"), mesh.over("data")]))
+    keep("grid/psum_1d", w.all_reduce(x))
+    keep("grid/data", mesh.over("data").all_reduce(x))
+    keep("grid/model", mesh.over("model").all_reduce(x))
+    return out if rank == 0 else None
+
+
+def run_card_service(mesh, placement: str) -> dict:
+    """``GraphService(mesh=...)`` on this rank's card at RMAT-12: the
+    service stream, an insert batch, the stream again; rank 0 returns the
+    answers and where the shard lived."""
+    from repro_torch.core import service as TS
+    g = rmat(12, 16, seed=7, device=mesh.device)
+    svc = TS.GraphService(g, batch_budget=SVC_BUDGET, mesh=mesh,
+                          placement=placement, sync_interval=SVC_K)
+    res = run_service(svc, g.n_rows, TS)
+    res["device"] = str(svc._shard.src.device)
+    return res if mesh.rank == 0 else None

@@ -295,19 +295,54 @@ def test_cuda_request_without_a_card_raises():
         TM.spawn(print, 2, init_file=tempfile.mktemp())
 
 
-def test_not_ported_parts_raise():
-    from repro_torch.core import algorithms as TA
-    mesh = TM.Mesh(None, 0, 1, torch.device("cpu"), "gloo")
-    for fn in (TA.random_walks_distributed, TA.modularity_distributed,
-               TA.contract_distributed, TA.multilevel_distributed,
-               TA.bfs_repair_distributed, TA.cc_repair_distributed,
-               TE.run_queue):
-        with pytest.raises(NotImplementedError, match="§A.8"):
-            fn()
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        TA.update_shards(None, None, None, [0])
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        TO.queue_balance(None, mesh)
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        TO.dgas_gather(torch.zeros(2), torch.zeros(2, dtype=torch.int32),
-                       TD.block_rule(2, 1), (mesh, mesh))
+def test_queue_balance_on_one_rank_matches_reference(mesh1):
+    """``queue_balance`` with a payload on the 1-rank world equals the
+    reference's on the 1-device mesh: the items compacted to a prefix,
+    the payload riding along (-0.0 routed as +0.0), rows without an item
+    zeroed.  Four ranks: ``tests/test_torch_dist_more.py``."""
+    rng = np.random.default_rng(5)
+    items = np.full(12, -1, np.int32)
+    items[:7] = rng.integers(0, 99, 7)
+    pay = rng.standard_normal((12, 3)).astype(np.float32)
+    pay[2, 1] = -0.0
+
+    def ref(it, pl):
+        q, p = RO.queue_balance(RO.QueueState(it[0], jnp.int32(7)), "x",
+                                pl[0])
+        return q.items[None], q.count[None], p[None]
+
+    want = _ref(ref, items, pay, n_out=3)
+    q, p = TO.queue_balance(TO.QueueState(torch.from_numpy(items),
+                                          torch.tensor(7, dtype=torch.int32)),
+                            mesh1, {"cur": torch.from_numpy(pay)})
+    np.testing.assert_array_equal(q.items.numpy(), want[0])
+    np.testing.assert_array_equal(q.count.numpy(), want[1])
+    assert p["cur"].numpy().tobytes() == want[2].tobytes()
+
+
+def test_mesh_axes_and_run_queue_on_one_rank(mesh1):
+    """``Mesh.over``: None and the mesh's own axis name are the mesh, an
+    unknown axis raises; ``hierarchical_psum`` by axis names;
+    ``run_queue`` stacks each iteration's outputs and keeps a step's
+    retirements out of the next balance."""
+    assert mesh1.over() is mesh1 and mesh1.over("cores") is mesh1
+    assert mesh1.over(("cores",)) is mesh1
+    with pytest.raises(ValueError, match="no sub-mesh"):
+        mesh1.over("model")
+    x = torch.tensor([1.5, -2.0])
+    assert TO.hierarchical_psum(x, ("cores",), mesh1).tolist() == [1.5, -2.0]
+
+    def step(ops, items, cur, state, it, key):
+        # retire every item of an odd value, move the rest one vertex on
+        items = torch.where(items % 2 == 1, -1, items)
+        return items, cur + 1, state + (items >= 0).sum(), (items, cur)
+
+    items0 = torch.tensor([3, 4, 7, 8, -1, -1], dtype=torch.int32)
+    state, (ids, cur) = TE.run_queue(mesh1, TE.QueueProgram(step), items0,
+                                     torch.arange(6, dtype=torch.int32), (),
+                                     n_iters=3, state0=0)
+    assert state.tolist() == 6 and ids.shape == (3, 6)
+    assert cur.shape == (3, 6)
+    assert ids[0].tolist() == [-1, 4, -1, 8, -1, -1]
+    assert ids[1].tolist() == [4, 8, -1, -1, -1, -1]
+    assert cur[1, :2].tolist() == [2, 4]

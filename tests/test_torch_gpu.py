@@ -1056,3 +1056,23 @@ def test_distributed_bfs_on_the_card_matches_cpu(cuda, tmp_path):
     np.testing.assert_array_equal(got["bfs"], bfs(g, 0).numpy())
     np.testing.assert_array_equal(got["msbfs"],
                                   msbfs(g, C.CARD_SOURCES).numpy())
+
+
+@pytest.mark.parametrize("placement", ["sync", "async"])
+def test_mesh_service_on_the_card_matches_cpu(cuda, tmp_path, placement):
+    """``GraphService(mesh=...)`` on two ranks sharing the card over gloo
+    (CUDA tensors) answers the stream, an insert batch and the stream
+    again as the local service does on the CPU."""
+    import numpy as np
+    from repro_torch.core import service as TS
+    from repro_torch.launch import mesh as TM
+    import _torch_dist_cases as C
+
+    got = TM.spawn(C.run_card_service, 2, init_file=str(tmp_path / "init"),
+                   args=(placement,), timeout=600)[0]
+    assert got["device"].startswith("cuda")
+    g = rmat(12, 16, seed=7, device="cpu")
+    want = C.run_service(TS.GraphService(g, batch_budget=C.SVC_BUDGET,
+                                         n_model_shards=2), g.n_rows, TS)
+    np.testing.assert_array_equal(got["answers"], want["answers"])
+    assert got["batches"] == want["batches"] and got["hits"] == want["hits"]

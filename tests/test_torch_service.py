@@ -322,11 +322,11 @@ def _key(q):
     return (type(q).__name__,) + dataclasses.astuple(q)
 
 
-def _run_service(mod, obs_cls, metrics_cls, g):
+def _run_service(mod, obs_cls, metrics_cls, g, **kw):
     clk = TickClock()
     obs = obs_cls(clock=clk, metrics=metrics_cls())
     svc = mod.GraphService(g, batch_budget=4, cache_capacity=64, clock=clk,
-                           obs=obs)
+                           obs=obs, **kw)
     log = {"tickets": [], "results": {}, "queries": {}, "cache": []}
     pending = []
     for op in _service_ops():
@@ -648,9 +648,34 @@ def test_error_paths_match_reference(case):
     assert errs[0] == errs[1]
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TS.GraphService(port(G), mesh=object())
+def test_mesh_service_on_one_rank_serves_like_local(tmp_path):
+    """``GraphService(mesh=...)`` on a 1-rank gloo world in this process
+    serves the mixed stream (deadlines, polls, updates, the whole-graph
+    swap) with the same tickets and answers as the local service:
+    Reachability and Distance through the sharded engine, PPR and
+    NeighborSample locally.  Four ranks: ``tests/test_torch_dist_more.py``.
+    """
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as TM
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    try:
+        mesh = TM.make_cores_mesh("cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TR, "TUNED_PATH", str(tmp_path / "none.json"))
+            got = _run_service(TS, TObs, TMetrics, port(BLOBS), mesh=mesh)
+            local = _run_service(TS, TObs, TMetrics, port(BLOBS),
+                                 n_model_shards=1)
+    finally:
+        dist.destroy_process_group()
+    assert got["svc"]._shard is not None and local["svc"]._shard is None
+    assert got["tickets"] == local["tickets"] and got["auto"] == local["auto"]
+    assert got["results"].keys() == local["results"].keys()
+    for t, want in local["results"].items():
+        _same(want, got["results"][t])
+    assert mesh.calls["all_gather"] > 0
 
 
 def test_claimed_ticket_errors_match():
