@@ -134,7 +134,20 @@ Phases, each of which exits non-zero on failure:
    call must take the path the wrapper's dispatch rule gives it (the
    wgmma kernel for prefill and window, the folded kernel with its keys
    split for the batch-1 decode, unsplit at batch 128), read from the
-   per-path launch counts, and its case names that path.
+   per-path launch counts, and its case names that path;
+7. model serving (``[model]`` and ``[check] model`` lines): qwen3-14b at
+   its published widths (14.77 B parameters, bf16) through
+   ``repro_torch.launch.serve.serve_lm``, prefill 4 x 512 then 32 greedy
+   decode steps, B6's counts zeroed just before and read just after (40
+   wgmma calls on prefill, 40 a decode step); a warm rerun; decode held to
+   ``forward`` and the kernel route to the plain route (B6's plain version
+   patched in for ``ops.flash_attention``) on the logits, per row 5e-2,
+   and every B6 call of prefill and 4 decode steps to its plain version as
+   phase 6 holds it; B6's share of a decode step from CUDA events; peak
+   memory; mixtral-8x7b's smoke config on the card against the CPU past
+   its window (1e-4); fm at full width (``serve_p99``, ``serve_bulk``,
+   ``retrieval_cand``) against a float64 plain gather (1e-5).  The B6
+   entry's launches add the model path's, in a case of their own.
 
 Prints one JSON line ``{"kernels": [...]}`` (eight kernels) and, last, the
 device line.
@@ -212,6 +225,23 @@ DIST2_SVC_TARGETS = 4              # Reachability + Distance per source
 # the absolute floor sits well under them
 DIST_PR_RTOL, DIST_PR_ATOL = 1e-4, 1e-9
 DIST_SPMV_RTOL, DIST_SPMV_ATOL = 1e-4, 1e-5
+MODEL_ARCH = "qwen3-14b"           # the LM config that fits one card whole
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 4, 512, 32
+# bf16 logits after 40 layers, per row over the vocab: kernel vs plain
+# route, decode vs forward.  Two bf16 runs of the network that differ only
+# in rounding (the plain route's decode against its own forward, exact f32
+# attention in both) already differ by percents a row: an ulp of
+# difference in one layer grows over the depth.  The phase measures that
+# floor and holds the logits to MODEL_FLOOR_FACTOR times it, never above
+# MODEL_LOGIT_TOL; a decode step read against the wrong position must
+# fail.  B6 itself is held per call, on the model path's inputs, to
+# ATTN_ROW_TOL.
+MODEL_FLOOR_FACTOR = 1.5
+MODEL_LOGIT_TOL = 5e-2
+MODEL_PLAIN_STEPS = 4              # decode steps held to the plain route
+MODEL_SHARE_STEPS = 8              # decode steps timed for B6's share
+MODEL_F32_TOL = 1e-4               # mixtral smoke (f32), card vs CPU
+FM_TOL = 1e-5                      # fm, port vs a float64 plain gather
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
@@ -459,6 +489,29 @@ def masked_attention(q, k, v, mask):
     return out
 
 
+def attention_reading(got, want):
+    """(largest per-row ||got - want|| / ||want||, largest element's
+    |got - want| over its limit): got passes the B6 check iff the first is
+    at most ATTN_ROW_TOL and the second at most 1."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row = diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = ATTN_TOL * (want.abs() + rms.clamp(max=1.0))
+    return (float(row.max()), float((diff / limit.clamp_min(1e-30)).max()))
+
+
+def own_block_left_out(sq: int, skv: int, causal: bool, window, device):
+    """The B6 check's planted fault: the visible keys with each query
+    row's own FAULT_BLOCK-key block left out."""
+    import torch
+    from repro_torch.kernels import ref
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    return ref.attention_mask(sq, skv, causal, window, device) & \
+        (kpos // FAULT_BLOCK != qpos // FAULT_BLOCK)
+
+
 def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
     """Phase 6: the kernel entry point at the configs' widths.  Returns,
     per kernel, its launches in the checked calls and its timings; writes
@@ -503,18 +556,6 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
             fail(f"{label}: kernel disagrees with the plain version")
         err[entry] = max(err.get(entry, 0.0), d)
         return d
-
-    def attention_reading(got, want):
-        """(largest per-row ||got - want|| / ||want||, largest element's
-        |got - want| over its limit): got passes iff the first is at most
-        ATTN_ROW_TOL and the second at most 1."""
-        got, want = got.float(), want.float()
-        diff = (got - want).abs()
-        row = diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
-        rms = want.pow(2).mean(-1, keepdim=True).sqrt()
-        limit = ATTN_TOL * (want.abs() + rms.clamp(max=1.0))
-        return (float(row.max()),
-                float((diff / limit.clamp_min(1e-30)).max()))
 
     def held_attention(label, got, want, faulty):
         """The B6 check on the kernel, and on a planted fault, which must
@@ -692,17 +733,14 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
             fail(f"B6 {label}: took the {took} path, the dispatch rule "
                  f"gives {want_path}")
         visible = ref.attention_mask(Sq, Skv, True, window, "cuda")
-        # the planted fault: each row's own key block left out
-        qpos = torch.arange(Sq, device="cuda")[:, None] + (Skv - Sq)
-        kpos = torch.arange(Skv, device="cuda")[None, :]
         faulty = masked_attention(
-            q, k, v, visible & (kpos // FAULT_BLOCK != qpos // FAULT_BLOCK))
+            q, k, v, own_block_left_out(Sq, Skv, True, window, "cuda"))
         d, row, row_fault = held_attention(
             f"B6 {label} B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Skv{Skv} window "
             f"{window}", out,
             ref.flash_attention_ref(q, k, v, causal=True, window=window),
             faulty)
-        del out, faulty, qpos, kpos
+        del out, faulty
         # operations on the visible (query, key) pairs only, 4 D each
         by_ops = 4 * D * B * Hq * int(visible.sum()) / BF16_FLOP_PER_S
         by_bytes = 2 * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S
@@ -749,6 +787,390 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
             f"ms, bound {t['bound_ms']!r} ms, library {t['library_ms']!r} "
             f"ms")
     return rows
+
+
+B6_KERNELS = ("flash_mma", "flash_simt", "flash_combine", "flash_wgmma")
+MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profiled(fn, per: int) -> dict:
+    """fn's kernels under ``torch.profiler``, per one of ``per`` units: ms
+    of kernel time in all, in cuBLAS's matrix products and in B6; the
+    kernel count; the top-level aten ops the host dispatched.  B6's share
+    of the kernel time.  Device times are None where the profiler recorded
+    no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0))
+
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU and
+                   e.cpu_parent is None and e.name.startswith("aten::"))
+    total = sum(us(e) for e in kern)
+    b6 = sum(us(e) for e in kern if any(n in e.name for n in B6_KERNELS))
+    mm = sum(us(e) for e in kern
+             if any(n in e.name.lower() for n in MATMUL_KERNELS))
+    if total <= 0:
+        return dict(device_ms=None, matmul_ms=None, b6_ms=None,
+                    b6_share=None, kernels=len(kern) / per,
+                    host_ops=host_ops / per)
+    return dict(device_ms=total / 1e3 / per, matmul_ms=mm / 1e3 / per,
+                b6_ms=b6 / 1e3 / per, b6_share=b6 / total,
+                kernels=len(kern) / per, host_ops=host_ops / per)
+
+
+def model_phase(args, smi: str) -> dict:
+    """The model-serving phase: qwen3-14b at its published widths served
+    through ``repro_torch.launch.serve.serve_lm`` (prefill MODEL_BATCH x
+    MODEL_PROMPT, then MODEL_GEN greedy decode steps), its B6 launches
+    counted per path; the kernel route held to the plain route and decode
+    to forward, within a multiple of the rounding floor measured here (the
+    plain route's decode against its own forward); B6's share of a decode
+    step, by wall time and by device time; mixtral-8x7b's smoke config
+    on the card against the CPU; fm at full width against a float64 plain
+    gather.  Returns the phase's numbers; fails on any check."""
+    import copy
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import recsys as RS
+    from repro_torch.models import transformer as TF
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"arch": MODEL_ARCH, "nvidia_smi": smi}
+    cfg = get_config(MODEL_ARCH).model
+    if TF.attention_route(cfg) != "flash":
+        fail(f"{MODEL_ARCH} does not route attention to B6")
+    Bm, P, G, L = MODEL_BATCH, MODEL_PROMPT, MODEL_GEN, cfg.n_layers
+    t0 = time.perf_counter()
+    model = TF.init_params(cfg, 0).requires_grad_(False)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = TF.count_params(model)
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+    log(f"[model] {MODEL_ARCH}: {out['params']} parameters, "
+        f"{out['param_bytes'] / 1e9:.2f} GB, drawn on the card in "
+        f"{out['init_s']!r} s; {L} layers d {cfg.d_model} {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (Bm, P)).astype(np.int32)
+
+    # -- the main path: B6's counts zeroed just before, read just after ----
+    FA.reset_launches()
+    run = serve_lm(cfg, model, prompts, G, keep_logits=True)
+    counts = dict(FA.LAUNCHES)
+    want = {"flash_attention": L * (1 + G), "flash_attention_wgmma": L}
+    log(f"[model] B6 launches on the main path: {counts} (want "
+        f"flash_attention {want['flash_attention']} = {L} on prefill + "
+        f"{L} x {G} decode steps, wgmma {L} = prefill)")
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"the serving path's B6 launches {counts} are not {want}")
+    out["b6_launches"] = counts
+    steps = run["step_logits"]                      # (G, B, vocab) f32
+    if steps.shape != (G, Bm, cfg.vocab) or \
+            not bool(torch.isfinite(steps).all()) or \
+            not bool(torch.isfinite(run["prefill_logits"]).all()):
+        fail(f"serving logits {tuple(steps.shape)} not finite or not "
+             f"({G}, {Bm}, {cfg.vocab})")
+    out.update(prefill_s=run["prefill_s"], decode_s=run["decode_s"],
+               decode_ms_per_token=1e3 * run["decode_s"] / G,
+               tokens_per_s=run["tok_per_s"])
+    warm = serve_lm(cfg, model, prompts, G)
+    out.update(prefill_warm_s=warm["prefill_s"],
+               decode_warm_ms_per_token=1e3 * warm["decode_s"] / G,
+               tokens_per_s_warm=warm["tok_per_s"],
+               same_tokens_warm=bool(np.array_equal(warm["tokens"],
+                                                    run["tokens"])))
+    del warm
+    log(f"[model] prefill {Bm} x {P}: wall {run['prefill_s']!r} s, warm "
+        f"{out['prefill_warm_s']!r} s ({smi})")
+    log(f"[model] decode {G} steps at batch {Bm}: "
+        f"{out['decode_ms_per_token']!r} ms per step, "
+        f"{run['tok_per_s']!r} tokens/s; warm "
+        f"{out['decode_warm_ms_per_token']!r} ms per step, "
+        f"{out['tokens_per_s_warm']!r} tokens/s ({smi})")
+
+    def row_err(got, want):
+        """Largest per-row ||got - want|| / ||want|| over the vocab."""
+        got, want = got.float(), want.float()
+        return float(((got - want).norm(dim=-1)
+                      / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+    # -- the rounding floor: the plain route's decode against its forward --
+    def plain(q, k, v, *, causal=True, window=None):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    toks = torch.from_numpy(run["tokens"]).cuda()
+    seq = torch.cat([torch.from_numpy(prompts).cuda().long(), toks], dim=1)
+    FA.reset_launches()
+    with mock.patch.object(ops, "flash_attention", plain):
+        p_logits, cache = TF.prefill(cfg, model, prompts)
+        cache = TF.grow_cache(cache, P + G)
+        p_steps = []
+        for t in range(G):                  # fed the kernel route's ids
+            lg, cache = TF.decode_step(cfg, model, cache, toks[:, t:t + 1])
+            p_steps.append(lg)
+        del cache
+        with torch.no_grad():
+            p_fwd, _ = TF.forward(cfg, model, seq)
+    torch.cuda.synchronize()
+    if any(FA.LAUNCHES.values()):
+        fail(f"the plain route launched B6: {FA.LAUNCHES}")
+    floor = max([row_err(p_logits, p_fwd[:, P - 1])]
+                + [row_err(p_steps[t], p_fwd[:, P + t]) for t in range(G)])
+    del p_fwd
+    limit = min(MODEL_LOGIT_TOL, MODEL_FLOOR_FACTOR * floor)
+    out.update(logit_floor=floor, logit_limit=limit)
+    log(f"[check] model rounding floor: plain route's prefill and decode "
+        f"steps 0-{G - 1} vs its own forward, per row max ||a - b|| / ||b|| "
+        f"= {floor!r}; the logits below are held to {MODEL_FLOOR_FACTOR} x "
+        f"that = {limit!r} (at most {MODEL_LOGIT_TOL})")
+    if not 0 < floor <= MODEL_LOGIT_TOL:
+        fail(f"the rounding floor {floor!r} is outside (0, "
+             f"{MODEL_LOGIT_TOL}]")
+
+    def held(label, e, fault=None):
+        log(f"[check] model {label}: per row max ||a - b|| / ||b|| = {e!r} "
+            f"(limit {limit!r})"
+            + ("" if fault is None else f"; planted fault {fault!r}"))
+        if not e <= limit:
+            fail(f"model {label}: {e!r} over {limit!r}")
+        if fault is not None and fault <= limit:
+            fail(f"model {label}: the planted fault passes the check")
+        return e
+
+    # -- the kernel route against the plain route, fed the same ids --------
+    out["err_prefill_vs_plain"] = held(
+        "prefill logits, kernel route vs plain route",
+        row_err(run["prefill_logits"], p_logits))
+    out["err_decode_vs_plain"] = held(
+        f"decode steps 0-{MODEL_PLAIN_STEPS - 1}, kernel route vs plain "
+        f"route", max(row_err(steps[t], p_steps[t])
+                      for t in range(MODEL_PLAIN_STEPS)))
+    del p_steps, p_logits
+
+    # -- decode against forward over the prompt and the generated ids ------
+    with torch.no_grad():
+        fwd, _ = TF.forward(cfg, model, seq)
+    out["err_prefill_vs_forward"] = held(
+        f"prefill vs forward at position {P - 1}",
+        row_err(run["prefill_logits"], fwd[:, P - 1]))
+    # the planted fault: each step read against the next position
+    out["err_decode_vs_forward"] = held(
+        f"decode steps 0-{G - 1} vs forward at positions {P}-{P + G - 1}",
+        max(row_err(steps[t], fwd[:, P + t]) for t in range(G)),
+        fault=min(row_err(steps[t], fwd[:, P + t + 1])
+                  for t in range(G - 1)))
+    del fwd, seq
+
+    # -- B6 on the model path, call by call, against its plain version -----
+    real, readings, in_place = ops.flash_attention, [], []
+
+    def checked(q, k, v, *, causal=True, window=None):
+        if q.shape[2] == 1:
+            in_place.append(FA.kv_rows(k, v))
+        got = real(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        reading = attention_reading(got, want)
+        if not readings or q.shape[2] != readings[-1][0]:
+            # the planted fault on the first call of each kind
+            faulty = masked_attention(q, k, v, own_block_left_out(
+                q.shape[2], k.shape[2], causal, window, q.device))
+            reading += attention_reading(faulty, want)
+        readings.append((q.shape[2],) + reading)
+        return got
+
+    with mock.patch.object(ops, "flash_attention", checked):
+        _, cache = TF.prefill(cfg, model, prompts)
+        cache = TF.grow_cache(cache, P + G)
+        for t in range(MODEL_PLAIN_STEPS):
+            TF.decode_step(cfg, model, cache, toks[:, t:t + 1])
+    del cache
+    kernel_row = max(r[1] for r in readings)
+    kernel_el = max(r[2] for r in readings)
+    faults = [r[3:] for r in readings if len(r) > 3]
+    log(f"[check] model B6 calls on the path ({len(readings)}: {L} prefill, "
+        f"{L} x {MODEL_PLAIN_STEPS} decode) vs the plain version: per row "
+        f"max {kernel_row!r} (limit {ATTN_ROW_TOL}), element max "
+        f"{kernel_el!r} of its limit; planted faults (prefill, decode): "
+        f"{faults!r}")
+    if kernel_row > ATTN_ROW_TOL or kernel_el > 1.0:
+        fail("B6 disagrees with its plain version on the model path")
+    if len(faults) != 2 or any(f[0] <= ATTN_ROW_TOL and f[1] <= 1.0
+                               for f in faults):
+        fail("a planted fault passes the model path's B6 check")
+    out.update(b6_row_err=kernel_row, b6_calls_checked=len(readings))
+    log(f"[check] model B6 decode calls reading the cache in place (row "
+        f"stride {P + G}, the cache's slots): "
+        f"{sum(r == P + G for r in in_place)} of {len(in_place)}")
+    if len(in_place) != L * MODEL_PLAIN_STEPS or \
+            any(r != P + G for r in in_place):
+        fail(f"B6's decode calls copy the cache: row strides {in_place}")
+
+    # -- B6's share of a decode step: wall time between CUDA events around
+    # its calls (the wrapper's host work included), and device time from
+    # the profiler's kernel records
+    real, pairs = ops.flash_attention, []
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        o = real(*a, **kw)
+        e.record()
+        pairs.append((s, e))
+        return o
+
+    _, cache = TF.prefill(cfg, model, prompts)
+    cache = TF.grow_cache(cache, P + G)
+    step_events = []
+    with mock.patch.object(ops, "flash_attention", timed):
+        for t in range(MODEL_SHARE_STEPS):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            TF.decode_step(cfg, model, cache, toks[:, t:t + 1])
+            e.record()
+            step_events.append((s, e))
+    torch.cuda.synchronize()
+    b6_ms = sum(s.elapsed_time(e) for s, e in pairs)
+    step_ms = sum(s.elapsed_time(e) for s, e in step_events)
+    out.update(b6_calls_timed=len(pairs), b6_ms_per_step=b6_ms /
+               MODEL_SHARE_STEPS, step_ms_events=step_ms / MODEL_SHARE_STEPS,
+               b6_wall_share=b6_ms / step_ms)
+    log(f"[model] B6's wall share of a decode step: "
+        f"{out['b6_wall_share']!r} ({out['b6_ms_per_step']!r} of "
+        f"{out['step_ms_events']!r} ms per step between CUDA events, host "
+        f"time included, {len(pairs)} calls over {MODEL_SHARE_STEPS} "
+        f"steps) ({smi})")
+    host_s = []
+
+    def steps():
+        t0 = time.perf_counter()
+        for t in range(MODEL_SHARE_STEPS, 2 * MODEL_SHARE_STEPS):
+            TF.decode_step(cfg, model, cache, toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+
+    dec = profiled(steps, MODEL_SHARE_STEPS)
+    dec["host_ms"] = 1e3 * host_s[0] / MODEL_SHARE_STEPS
+    pre = profiled(lambda: TF.prefill(cfg, model, prompts), 1)
+    out.update(decode_profile=dec, prefill_profile=pre,
+               b6_device_share=dec["b6_share"])
+    for label, d in (("decode step", dec), ("prefill", pre)):
+        if d["device_ms"] is None:
+            log(f"[model] {label} by device time: not measured (the "
+                f"profiler recorded no kernel)")
+            continue
+        log(f"[model] {label} by device time (torch.profiler): "
+            f"{d['device_ms']!r} ms of kernels, matrix products "
+            f"{d['matmul_ms']!r}, B6 {d['b6_ms']!r} (share "
+            f"{d['b6_share']!r}), {d['kernels']!r} kernels, "
+            f"{d['host_ops']!r} top-level aten ops"
+            + (f"; {d['host_ms']!r} ms on the host clock under the "
+               f"profiler" if "host_ms" in d else "") + f" ({smi})")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[model] peak memory {out['peak_gib']!r} GiB ({smi})")
+    del cache, model, run, steps, toks
+    torch.cuda.empty_cache()
+
+    # -- mixtral-8x7b smoke: MoE and the ring past the window, card vs CPU -
+    mcfg = get_config("mixtral-8x7b").smoke
+    cpu_model = TF.Transformer(mcfg, seed=1, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(1)
+    out["mixtral_smoke"] = []
+    for prompt, gen in ((12, 6), (6, 10)):      # prefilled past the window;
+        pr = rng.integers(0, mcfg.vocab, (2, prompt)).astype(np.int32)
+        FA.reset_launches()                     # a window-sized ring
+        got = serve_lm(mcfg, card_model, pr, gen, keep_logits=True)
+        n = FA.LAUNCHES["flash_attention"]
+        want = serve_lm(mcfg, cpu_model, pr, gen, keep_logits=True)
+        d = max(float((got[k].cpu() - want[k]).abs().max())
+                for k in ("prefill_logits", "step_logits"))
+        same = bool(np.array_equal(got["tokens"], want["tokens"]))
+        log(f"[check] model mixtral smoke prompt {prompt} gen {gen} "
+            f"(window {mcfg.window}): card vs CPU max |diff| {d!r} (limit "
+            f"{MODEL_F32_TOL}), tokens equal {same}, B6 launches {n}")
+        if not (d <= MODEL_F32_TOL and same and
+                n == mcfg.n_layers * (1 + gen)):
+            fail(f"mixtral smoke prompt {prompt}: card disagrees with CPU")
+        out["mixtral_smoke"].append(dict(prompt=prompt, gen=gen,
+                                         max_abs_diff=d, b6_launches=n))
+    del cpu_model, card_model
+
+    # -- fm at full width: serve_p99, serve_bulk, retrieval_cand -----------
+    fac = get_config("fm")
+    fcfg = fac.model
+    params = RS.init_params(fcfg, 0)
+    gen_t = torch.Generator(device="cuda").manual_seed(3)
+
+    def fm_plain(ids):
+        rows = params["table"][ids.long()].double()
+        v = rows[..., 1:]
+        s = v.sum(-2)
+        return (params["w0"].double() + rows[..., 0].sum(-1)
+                + 0.5 * ((s * s).sum(-1) - (v * v).sum((-2, -1))))
+
+    out["fm"] = {}
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        spec = input_specs(fac, shape).batch
+        ids = torch.from_numpy(next(synthetic.recsys_batches(
+            spec["ids"].shape[0], fcfg.n_fields, fcfg.rows_per_field,
+            seed=5))["ids"]).cuda()
+        if shape == "retrieval_cand":
+            cand = torch.randn(spec["cand"].shape, device="cuda",
+                               generator=gen_t)
+            bias = torch.randn(spec["cand_bias"].shape, device="cuda",
+                               generator=gen_t)
+
+            def call():
+                return RS.retrieval_scores(fcfg, params, ids, cand, bias)
+            rows = params["table"][ids[0].long()].double()
+            v = rows[:, 1:]
+            u = v.sum(0)
+            want = (params["w0"].double() + rows[:, 0].sum()
+                    + 0.5 * ((u * u).sum() - (v * v).sum())
+                    + bias.double() + cand.double() @ u)
+        else:
+            def call():
+                return RS.fm_scores(fcfg, params, ids)
+            want = fm_plain(ids)
+        got = call()
+        torch.cuda.synchronize()
+        d = float((got.double() - want).abs().max())
+        ok = got.shape == want.shape and bool(torch.allclose(
+            got.double(), want, rtol=FM_TOL, atol=FM_TOL))
+        ms = cuda_ms(call, args.reps)
+        log(f"[model] fm {shape} ({tuple(ids.shape)} ids): {ms!r} ms per "
+            f"call ({smi})")
+        log(f"[check] model fm {shape}: max |port - float64 plain gather| "
+            f"{d!r} (rtol/atol {FM_TOL})")
+        if not ok:
+            fail(f"fm {shape}: the port disagrees with the plain gather")
+        out["fm"][shape] = dict(ms=ms, max_abs_err=d,
+                                shape=list(ids.shape))
+    del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[model] phase wall {out['phase_s']!r} s")
+    return out
 
 
 @contextlib.contextmanager
@@ -2616,6 +3038,18 @@ def main() -> int:
     timed.update(ops_rows)
     for k, t in ops_rows.items():
         launches[k] = t.pop("launches")
+    del seg
+    torch.cuda.empty_cache()
+
+    # -- 7. model serving: qwen3-14b at full width through B6 --------------
+    model = model_phase(args, smi)
+    launches["flash_attention"] += model["b6_launches"]["flash_attention"]
+    timed["flash_attention"]["cases"].append(dict(
+        shape=f"{MODEL_ARCH} serving {MODEL_BATCH} x {MODEL_PROMPT} + "
+              f"{MODEL_GEN} (model path)",
+        launches=model["b6_launches"], b6_wall_share=model["b6_wall_share"],
+        b6_device_share=model["b6_device_share"],
+        b6_ms_per_step=model["b6_ms_per_step"]))
 
     kernels = [dict(name=k, route="cuda", source=SOURCE[k],
                     replaces=REPLACES[k], launches=launches[k],
@@ -2633,7 +3067,7 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "scale": args.scale,
                    "kernels": kernels, "walls_s": walls,
                    "service": service, "structured": structured,
-                   "dist": dist, "dist2": dist2,
+                   "dist": dist, "dist2": dist2, "model": model,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)

@@ -1,0 +1,236 @@
+"""ArchConfig + per-family shape tables + input_specs + step functions
+(counterpart of ``repro.configs.common``) for the serving path.
+
+Every (architecture x input-shape) cell of the lm and recsys families
+resolves here to a model config, a batch of specs with their logical
+sharding axes, and a step function (prefill / decode / serve /
+retrieval).  A spec is a tensor on the ``meta`` device: it has the
+shape and the ``torch.dtype`` of the input and holds no memory.  A decode
+cell's cache spec is :func:`transformer.init_cache` on the meta device:
+per-layer lists, (B, Kv, Smax, hd) for GQA, where the reference stacks
+(G, P, B, Smax, Kv, hd).
+
+Not yet: the ``train`` step, ``state_shapes``, ``state_logical_axes``,
+``param_shardings`` and the GNN family's specs need ``optim.adamw`` and
+``models.gnn``, which come with the training slice (ROADMAP §A.9); they
+raise until then.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..distributed.sharding import MeshRules
+from ..models import recsys as RS
+from ..models import transformer as TF
+
+__all__ = ["ArchConfig", "SpecBundle", "LM_SHAPES", "GNN_SHAPES",
+           "RECSYS_SHAPES", "VARIANTS", "shape_names", "input_specs",
+           "apply_variant", "init_params", "make_step", "state_shapes",
+           "state_logical_axes", "param_shardings"]
+
+_TRAINING = ("comes with the training slice (optim.adamw, models.gnn; "
+             "ROADMAP §A.9)")
+
+
+def S(shape, dtype) -> torch.Tensor:
+    """A spec: a meta tensor of this shape and dtype."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # lm | gnn | recsys
+    model: Any
+    smoke: Any
+    moment_dtype: Any = torch.float32
+    skips: Dict[str, str] = dataclasses.field(default_factory=dict)
+    notes: str = ""
+
+
+@dataclasses.dataclass
+class SpecBundle:
+    kind: str                        # train | prefill | decode | serve | retrieval
+    model: Any                       # possibly shape-adapted model config
+    batch: Dict[str, Any]            # name -> meta tensor
+    batch_axes: Dict[str, tuple]     # name -> logical axes
+    cache: Optional[Dict[str, Any]] = None
+    cache_axes: Optional[Dict[str, tuple]] = None
+
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="train", n=2708, e=10556, d_feat=1433, classes=7),
+    "minibatch_lg": dict(kind="train", n=169984, e=168960, d_feat=602,
+                         classes=41, masked=True),
+    "ogb_products": dict(kind="train", n=2449029, e=61859140, d_feat=100,
+                         classes=47),
+    "molecule": dict(kind="train", n=3840, e=8192, d_feat=11, graphs=128,
+                     task="regression"),
+}
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262144),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_cand=1_000_000),
+}
+
+_FAMILY_SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES}
+
+
+def shape_names(ac: ArchConfig):
+    return list(_FAMILY_SHAPES[ac.family].keys())
+
+
+# ---------------------------------------------------------------------------
+# input specs
+# ---------------------------------------------------------------------------
+
+def _lm_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
+    sh = LM_SHAPES[shape_name]
+    cfg: TF.LMConfig = ac.model
+    B, L = sh["batch"], sh["seq"]
+    if sh["kind"] in ("train", "prefill"):
+        return SpecBundle(sh["kind"], cfg, {"tokens": S((B, L), torch.int32)},
+                          {"tokens": ("batch", None)})
+    # decode: cache of seq_len (ring = window for SWA long-context)
+    max_len = L
+    if shape_name == "long_500k":
+        assert cfg.window is not None, \
+            "long_500k requires sub-quadratic attention"
+        max_len = cfg.window
+    cache = TF.init_cache(cfg, B, max_len, device="meta")
+    if cfg.mla is not None:
+        cache_axes = {"ckv": ("batch", "seq_kv", None),
+                      "krope": ("batch", "seq_kv", None), "len": ()}
+    else:
+        cache_axes = {"k": ("batch", None, "seq_kv", None),
+                      "v": ("batch", None, "seq_kv", None), "len": ()}
+    return SpecBundle("decode", cfg, {"tokens": S((B, 1), torch.int32)},
+                      {"tokens": ("batch", None)}, cache=cache,
+                      cache_axes=cache_axes)
+
+
+def _pad512(x: int) -> int:
+    """Pad dims to a multiple of 512 so both production meshes divide them."""
+    return -(-x // 512) * 512
+
+
+def _recsys_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
+    sh = RECSYS_SHAPES[shape_name]
+    cfg: RS.FMConfig = ac.model
+    B = sh["batch"]
+    if sh["kind"] == "retrieval":
+        ncand = _pad512(sh["n_cand"])
+        batch = {"ids": S((1, cfg.n_fields), torch.int32),
+                 "cand": S((ncand, cfg.embed_dim), torch.float32),
+                 "cand_bias": S((ncand,), torch.float32)}
+        axes = {"ids": (None, None), "cand": ("rows", None),
+                "cand_bias": ("rows",)}
+        return SpecBundle("retrieval", cfg, batch, axes)
+    batch = {"ids": S((B, cfg.n_fields), torch.int32)}
+    axes = {"ids": ("batch", None)}
+    if sh["kind"] == "train":
+        batch["labels"] = S((B,), torch.float32)
+        axes["labels"] = ("batch",)
+        return SpecBundle("train", cfg, batch, axes)
+    return SpecBundle("serve", cfg, batch, axes)
+
+
+def _gnn_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
+    raise NotImplementedError(f"GNN specs {_TRAINING}")
+
+
+def input_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
+    if shape_name in ac.skips:
+        raise ValueError(f"{ac.name} skips {shape_name}: "
+                         f"{ac.skips[shape_name]}")
+    return {"lm": _lm_specs, "gnn": _gnn_specs,
+            "recsys": _recsys_specs}[ac.family](ac, shape_name)
+
+
+# Named model-config transforms (the reference's dryrun --variant X); its
+# edge-chunk variants come with the GNN configs
+VARIANTS = {
+    # PIUMA fine-grained embedding exchange instead of a gather
+    "fm_dgas": lambda m: dataclasses.replace(m, use_dgas=True),
+    # halve DGAS all_to_all buffer capacity
+    "dgas_cap2": lambda m: dataclasses.replace(m, dgas_cap_factor=2),
+    # Megatron-style fused QKV + fused gate matmuls (LM)
+    "fused_qkv": lambda m: dataclasses.replace(m, fused_qkv=True),
+}
+
+
+def apply_variant(bundle: SpecBundle, variant: Optional[str]) -> SpecBundle:
+    if not variant:
+        return bundle
+    bundle.model = VARIANTS[variant](bundle.model)
+    return bundle
+
+
+# ---------------------------------------------------------------------------
+# params / state
+# ---------------------------------------------------------------------------
+
+def init_params(ac: ArchConfig, model_cfg, seed: int = 0, *, device=None):
+    """An LM's :class:`~repro_torch.models.transformer.Transformer` or FM's
+    parameter dict, drawn from ``seed`` on ``device`` (CUDA by default)."""
+    if ac.family == "lm":
+        return TF.init_params(model_cfg, seed, device=device)
+    if ac.family == "recsys":
+        return RS.init_params(model_cfg, seed, device=device)
+    raise NotImplementedError(f"GNN parameters {_TRAINING}")
+
+
+def state_shapes(ac: ArchConfig, model_cfg, seed: int = 0):
+    raise NotImplementedError(f"optimizer state {_TRAINING}")
+
+
+def state_logical_axes(ac: ArchConfig, model_cfg, params_shape):
+    raise NotImplementedError(f"optimizer state axes {_TRAINING}")
+
+
+def param_shardings(rules: MeshRules, params_shape, pax):
+    raise NotImplementedError(f"parameter shardings {_TRAINING}")
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
+              opt=None) -> Callable:
+    """The step for this cell:
+
+    prefill:    step(params, batch) -> (logits, cache)
+    decode:     step(params, cache, batch) -> (logits, cache)
+    serve:      step(params, batch) -> scores
+    retrieval:  step(params, batch) -> scores
+
+    ``params`` is what :func:`init_params` returns.  ``train`` raises: it
+    comes with the training slice."""
+    cfg = bundle.model
+    if bundle.kind == "train":
+        raise NotImplementedError(f"the train step {_TRAINING}")
+    if bundle.kind == "prefill":
+        return lambda params, batch: TF.prefill(cfg, params, batch["tokens"],
+                                                rules)
+    if bundle.kind == "decode":
+        return lambda params, cache, batch: TF.decode_step(
+            cfg, params, cache, batch["tokens"], rules)
+    if bundle.kind == "serve":
+        return lambda params, batch: RS.fm_scores(cfg, params, batch["ids"],
+                                                  rules)
+    if bundle.kind == "retrieval":
+        return lambda params, batch: RS.retrieval_scores(
+            cfg, params, batch["ids"], batch["cand"], batch["cand_bias"],
+            rules)
+    raise ValueError(bundle.kind)

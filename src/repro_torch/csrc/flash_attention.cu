@@ -82,6 +82,8 @@ struct Params {
   float* part_acc;     // splits > 1: (B, Hkv, rows, splits, D) f32 pieces
   float* part_ml;      // splits > 1: (B, Hkv, rows, splits, 2): m, l
   int Hq, Hkv, Sq, Skv, g;
+  int kv_rows;         // folded kernels: k / v rows from one (batch, kv
+                       // head) to the next, >= Skv (a cache's capacity)
   int rows;            // Sq * g, the folded rows of one (batch, kv head)
   int block_q;         // rows per CTA, 16 per warp
   int splits;          // key pieces per row tile (1: write o directly)
@@ -209,9 +211,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
   const __nv_bfloat16* kbase = static_cast<const __nv_bfloat16*>(p.k) +
-                               ((int64_t)b * p.Hkv + kvh) * p.Skv * D;
+                               ((int64_t)b * p.Hkv + kvh) * p.kv_rows * D;
   const __nv_bfloat16* vbase = static_cast<const __nv_bfloat16*>(p.v) +
-                               ((int64_t)b * p.Hkv + kvh) * p.Skv * D;
+                               ((int64_t)b * p.Hkv + kvh) * p.kv_rows * D;
 
   // q fragments (A operand, 16 rows x D) for the warp's rows
   uint32_t qa[D / 16][4];
@@ -447,9 +449,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int off = p.Skv - p.Sq;
   const float* q = static_cast<const float*>(p.q);
   const float* kbase =
-      static_cast<const float*>(p.k) + ((int64_t)b * p.Hkv + kvh) * p.Skv * D;
+      static_cast<const float*>(p.k) + ((int64_t)b * p.Hkv + kvh) * p.kv_rows * D;
   const float* vbase =
-      static_cast<const float*>(p.v) + ((int64_t)b * p.Hkv + kvh) * p.Skv * D;
+      static_cast<const float*>(p.v) + ((int64_t)b * p.Hkv + kvh) * p.kv_rows * D;
   float* wq = sQ + warp * 16 * D;
   float* wp = sP + warp * 16 * BK;
 
@@ -1079,20 +1081,21 @@ int launch_bk(const Params& p, int B, int block_k, int bf16,
 
 extern "C" {
 
-// The folded kernels.  q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D), o like q;
-// all contiguous, of one type: bf16 (bf16 != 0) or f32.  D in {16, 32, 64,
-// 128}; block_q in {16, 32, 64, 128}; block_k in {32, 64}; window 0 for
+// The folded kernels.  q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D), o like q,
+// of one type: bf16 (bf16 != 0) or f32.  q and o contiguous; k and v the
+// first Skv rows of (B, Hkv, kv_rows, D) blocks, kv_rows >= Skv, so a
+// cache is read in place.  D in {16, 32, 64, 128}; block_q in {16, 32, 64, 128}; block_k in {32, 64}; window 0 for
 // none.  splits > 1 cuts each row tile's key blocks into that many pieces
 // and merges them with flash_combine; part_acc (B, Hkv, Sq * Hq / Hkv,
 // splits, D) and part_ml (..., splits, 2) are its f32 scratch (unread when
 // splits is 1).  Returns cudaGetLastError() after the launches.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* part_acc, void* part_ml, int B, int Hq, int Hkv,
-                        int Sq, int Skv, int D, int causal, int window,
-                        float scale, int block_q, int block_k, int splits,
-                        int bf16, void* stream) {
+                        int Sq, int Skv, int kv_rows, int D, int causal,
+                        int window, float scale, int block_q, int block_k,
+                        int splits, int bf16, void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || splits < 1 ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 || kv_rows < Skv || splits < 1 ||
       (block_q != 16 && block_q != 32 && block_q != 64 && block_q != 128) ||
       B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
@@ -1107,6 +1110,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.Hkv = Hkv;
   p.Sq = Sq;
   p.Skv = Skv;
+  p.kv_rows = kv_rows;
   p.g = Hq / Hkv;
   p.rows = Sq * p.g;
   p.block_q = block_q;

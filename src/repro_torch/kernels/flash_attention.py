@@ -47,7 +47,7 @@ from . import ref
 __all__ = ["flash_attention_kernel_call", "LAUNCHES", "reset_launches",
            "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "WGMMA_TILE", "WGMMA_MIN_SQ",
            "MIN_SPLIT_BLOCKS", "path", "key_blocks", "split_range",
-           "split_plan", "tile_order"]
+           "split_plan", "tile_order", "kv_rows"]
 
 # kernel launches since the last reset_launches(): every entry call, and
 # those that took the wgmma kernel or split their keys
@@ -71,9 +71,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_argtypes_set", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q, k, v, o, part_acc, part_ml, B, Hq, Hkv, Sq, Skv, D, causal,
-        # window, scale, block_q, block_k, splits, bf16, stream
-        lib.flash_attention_fwd.argtypes = [P] * 6 + [I] * 8 + [F] + \
+        # q, k, v, o, part_acc, part_ml, B, Hq, Hkv, Sq, Skv, kv_rows, D,
+        # causal, window, scale, block_q, block_k, splits, bf16, stream
+        lib.flash_attention_fwd.argtypes = [P] * 6 + [I] * 9 + [F] + \
             [I] * 4 + [P]
         lib.flash_attention_fwd.restype = ctypes.c_int
         # q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, stream
@@ -145,6 +145,20 @@ def tile_order(n_tiles: int, causal: bool) -> list:
         list(range(n_tiles))
 
 
+def kv_rows(k: torch.Tensor, v: torch.Tensor) -> Optional[int]:
+    """R where k and v (B, Hkv, Skv, D) are the first Skv rows of
+    (B, Hkv, R, D) blocks on 16-byte boundaries, as a slice of a decode
+    cache is, so the folded kernels read them in place; None where they
+    must be made contiguous first."""
+    B, Hkv, Skv, D = k.shape
+    st = k.stride()
+    if v.stride() != st or st[3] != 1 or st[2] != D or st[1] % D or \
+            (B > 1 and st[0] != Hkv * st[1]) or \
+            k.data_ptr() % 16 or v.data_ptr() % 16:
+        return None
+    return st[1] // D if st[1] // D >= Skv else None
+
+
 def _check_rows_see_keys(sq: int, skv: int, causal: bool,
                          window: Optional[int]) -> None:
     """Raise ValueError when some query row would see no key: there the TPU
@@ -165,7 +179,8 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
                                 window: Optional[int] = None,
                                 scale: Optional[float] = None,
                                 block_q: int, block_k: int) -> torch.Tensor:
-    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), Hq a multiple of Hkv.
+    """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), Hq a multiple of Hkv; the
+    folded paths read k and v in place where :func:`kv_rows` allows.
     Returns (B, Hq, Sq, D) in q.dtype.  On the card: bf16 or f32 (one type
     for all three), D in :data:`HEAD_DIMS`, block_q in :data:`BLOCK_Q`,
     block_k in :data:`BLOCK_K` (the folded paths' tile)."""
@@ -196,15 +211,21 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
             B * Hq * -(-Sq // WGMMA_TILE) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} / {tuple(k.shape)} "
                          f"exceeds the kernel's grid")
-    # cp.async and TMA move 16-byte chunks: contiguous and aligned
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+    # cp.async and TMA move 16-byte chunks: contiguous and aligned, but for
+    # the folded kernels' k and v rows, which may lie in a larger cache
+    which = path(q.dtype, D, Sq)
+    rows = None if which == "wgmma" else kv_rows(k, v)
+    if rows is None:
+        k, v = (t.contiguous() for t in (k, v))
+        k, v = (t.clone() if t.data_ptr() % 16 else t for t in (k, v))
+        rows = Skv
+    q = q.contiguous()
+    q = q.clone() if q.data_ptr() % 16 else q
     out = torch.empty_like(q)
     scale = scale if scale is not None else D ** -0.5
     # a window of Skv or more hides nothing (positions are below Skv)
     window = None if window is None else min(int(window), Skv)
     lib = _lib()
-    which = path(q.dtype, D, Sq)
     if which == "wgmma":
         _build.launch(lib.flash_attention_wgmma_fwd, q.device, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
@@ -226,7 +247,7 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       None if part_acc is None else part_acc.data_ptr(),
                       None if part_ml is None else part_ml.data_ptr(),
-                      B, Hq, Hkv, Sq, Skv, D, int(causal), window or 0,
+                      B, Hq, Hkv, Sq, Skv, rows, D, int(causal), window or 0,
                       float(scale), block_q, block_k, splits,
                       int(q.dtype == torch.bfloat16), what="flash_attention")
         if splits > 1:

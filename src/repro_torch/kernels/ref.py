@@ -249,24 +249,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention in float32 with GQA (kv head = h // g), the causal and
     window masks of :func:`attention_mask`, and 0 for rows that see no key.
 
-    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D).  The g query heads of a kv
-    head are folded into q's rows, as (Hkv, g * Sq, D), so k and v are
-    never repeated; one batch entry at a time, so the logits of a long
-    cache stay small.  Returns q's shape in q.dtype."""
+    q (B, Hq, Sq, D); k (B, Hkv, Skv, D); v (B, Hkv, Skv, Dv), Dv D or
+    another (MLA's).  The g query heads of a kv head are folded into q's
+    rows, as (Hkv, g * Sq, D), so k and v are never repeated; one batch
+    entry at a time, so the logits of a long cache stay small.  Returns
+    (B, Hq, Sq, Dv) in q.dtype."""
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     g = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     mask = attention_mask(Sq, Skv, causal, window, q.device).repeat(g, 1)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, Sq, Dv))
     for b in range(B):
         qf = q[b].reshape(Hkv, g * Sq, D).float()
         logits = torch.matmul(qf, k[b].float().transpose(1, 2)) * scale
         logits.masked_fill_(~mask, float("-inf"))
         p = torch.softmax(logits, dim=-1).nan_to_num_(nan=0.0)
-        out[b] = torch.matmul(p, v[b].float()).reshape(Hq, Sq, D).to(q.dtype)
+        out[b] = torch.matmul(p, v[b].float()).reshape(Hq, Sq, Dv).to(q.dtype)
     return out
 
 

@@ -5,7 +5,8 @@ flash_attention``) and mirror: the key-split plan of the folded decode path
 (pieces that cover each row tile's visible key blocks with no gap, no
 overlap and no empty piece), the wgmma kernel's query-tile launch order
 (heaviest first under a causal mask), the dispatch rule at its edges, and
-the split-and-merge arithmetic, whose plain version (``ref.
+which k / v layouts the folded kernels read in place (a decode cache's
+first slots), the split-and-merge arithmetic, whose plain version (``ref.
 flash_attention_split_ref``) is held against the plain attention and the
 reference's Pallas kernel in interpret mode on one decode shape (f32,
 2e-4, the reference tests' tolerance).
@@ -155,3 +156,23 @@ def test_split_merge_weighs_out_empty_pieces():
     torch.testing.assert_close(
         ref.flash_attention_split_ref(q, k, v, ranges, window=50),
         ref.flash_attention_ref(q, k, v, window=50), rtol=2e-4, atol=2e-4)
+
+
+def test_kv_rows_reads_a_cache_in_place_and_nothing_else():
+    """The folded kernels' row stride: a contiguous k / v is its own Skv,
+    the first slots of a (B, Hkv, Smax, D) cache give Smax, and a layout
+    the kernels cannot walk (heads or batches out of order, a row not on a
+    16-byte boundary, k and v laid out unlike) gives None (made contiguous
+    first)."""
+    cache = torch.zeros(3, 2, 40, 16)
+    assert FA.kv_rows(cache, cache.clone()) == 40
+    assert FA.kv_rows(cache[:, :, :9], cache[:, :, :9]) == 40
+    assert FA.kv_rows(cache[:1, :1, :9], cache[:1, :1, :9]) == 40
+    bshd = torch.zeros(3, 40, 2, 16)
+    assert FA.kv_rows(bshd.transpose(1, 2), bshd.transpose(1, 2)) is None
+    assert FA.kv_rows(cache[:, :, 1:9], cache[:, :, 1:9]) == 40
+    assert FA.kv_rows(cache[..., 1:9], cache[..., 1:9]) is None
+    assert FA.kv_rows(cache[:, :1], cache[:, :1]) is None
+    assert FA.kv_rows(cache[:, :, :9], cache[:, :, :9].contiguous()) is None
+    odd = torch.zeros(3 * 2 * 40 * 16 + 1)[1:].view(3, 2, 40, 16)
+    assert FA.kv_rows(odd, odd) is None

@@ -588,7 +588,7 @@ def test_flash_attention_wgmma_matches_folded_kernel(cuda, shape):
     folded = torch.empty_like(q)
     _build.launch(FA._lib().flash_attention_fwd, q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), folded.data_ptr(), None, None,
-                  B, Hq, Hkv, Sq, Skv, 128, int(causal), window or 0,
+                  B, Hq, Hkv, Sq, Skv, Skv, 128, int(causal), window or 0,
                   128 ** -0.5, 64, 64, 1, 1, what="flash_attention")
     torch.cuda.synchronize()
     row = (got.float() - folded.float()).norm(dim=-1) / \
@@ -1076,3 +1076,69 @@ def test_mesh_service_on_the_card_matches_cpu(cuda, tmp_path, placement):
                                          n_model_shards=2), g.n_rows, TS)
     np.testing.assert_array_equal(got["answers"], want["answers"])
     assert got["batches"] == want["batches"] and got["hits"] == want["hits"]
+
+
+# -- the model stack's serving path: B6 at decode shapes, LMs card vs CPU ---
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_shapes_match_plain(cuda, dtype):
+    """One query row per (batch, head) over a cache's visible keys, as
+    ``transformer.decode_step`` calls B6: before the ring wraps (causal,
+    33-544 keys, with and without a window) and after (all slots, no
+    mask), at qwen3-14b's heads, within the B6 tolerances.  The keys are
+    the first slots of a 544-slot cache, read in place."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    gen = _gen(21)
+    cases = [(33, True, None), (128, True, None), (544, True, None),
+             (300, True, 64), (544, True, 256), (256, False, None),
+             (544, False, None)]
+    for skv, causal, window in cases:
+        q = torch.randn(4, 40, 1, 128, device=cuda, generator=gen).to(dtype)
+        k, v = (torch.randn(4, 8, 544, 128, device=cuda, generator=gen).to(
+            dtype)[:, :, :skv] for _ in range(2))
+        assert FA.kv_rows(k, v) == 544
+        FA.reset_launches()
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_attention"] == 1
+        assert FA.LAUNCHES["flash_attention_wgmma"] == 0
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{skv}: {m}")
+        row = (got.float() - want.float()).norm(dim=-1) / \
+            want.float().norm(dim=-1).clamp_min(1e-30)
+        assert float(row.max()) <= 1e-2, (skv, float(row.max()))
+
+
+@pytest.mark.parametrize("arch,prompt,gen", [("qwen3-14b", 12, 6),
+                                             ("mixtral-8x7b", 12, 6),
+                                             ("mixtral-8x7b", 6, 10)])
+def test_lm_smoke_on_the_card_matches_cpu(cuda, arch, prompt, gen):
+    """The smoke config's forward, and prefill then greedy decode through
+    ``serve_lm`` (mixtral: its ring wraps past the window 8 from a longer
+    prompt and from a window-sized cache), on the card with B6 against the
+    same parameters on the CPU (f32, 1e-4)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).smoke
+    cpu = T.Transformer(cfg, seed=1, device="cpu")
+    card = T.Transformer(cfg, seed=1, device="cpu").to(cuda)
+    prompts = np.random.default_rng(prompt).integers(
+        0, cfg.vocab, (2, prompt)).astype(np.int32)
+    FA.reset_launches()
+    with torch.no_grad():
+        got, _ = T.forward(cfg, card, torch.from_numpy(prompts).to(cuda))
+        want, _ = T.forward(cfg, cpu, torch.from_numpy(prompts))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers
+    FA.reset_launches()
+    g, w = serve_lm(cfg, card, prompts, gen), serve_lm(cfg, cpu, prompts, gen)
+    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers * (1 + gen)
+    np.testing.assert_array_equal(g["tokens"], w["tokens"])
+    torch.testing.assert_close(g["logits"].cpu(), w["logits"], rtol=1e-4,
+                               atol=1e-4)
