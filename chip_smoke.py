@@ -147,7 +147,27 @@ Phases, each of which exits non-zero on failure:
    memory; mixtral-8x7b's smoke config on the card against the CPU past
    its window (1e-4); fm at full width (``serve_p99``, ``serve_bulk``,
    ``retrieval_cand``) against a float64 plain gather (1e-5).  The B6
-   entry's launches add the model path's, in a case of their own.
+   entry's launches add the model path's, in a case of their own;
+8. training (``[train]`` and ``[check] train`` lines): one ``make_step``
+   train step of each smoke config (qwen3, minicpm3, mixtral, the four
+   GNNs, fm) on the card and on the CPU from the same parameters at lr
+   1e-3 with no warmup (loss 1e-4 relative, every gradient finite, nonzero
+   where the CPU's is and within 1e-4 of the largest, parameters after the
+   step 1e-4 where the gradient's sign is decided); B6 launched no time
+   in a train step and once a layer on prefill; gin-tu at its published
+   widths on the ``ogb_products`` cell (``uniform_random_graph(2449029,
+   25)``, padded to the cell's shape) for 4 steps on one batch, B4's
+   launches counted per step (14), every B4 call of step 1 held to its
+   plain version (1e-4),
+   each kind of B4 call timed beside ``index_add_``, a step profiled; the
+   four GNNs at their published widths on the ``molecule`` cell; minicpm3-4b
+   (4.26 B parameters) at ``train_4k``'s sequence, batch 2, 4 steps in
+   bf16 and 4 with f32 weights (every parameter gets a finite nonzero
+   gradient, step 1 changes at least half the weights, the loss of the f32
+   run falls); an async checkpoint restored into a fresh state bit for bit
+   and ``run_training`` through two injected failures, step for step equal
+   to an uninterrupted run; the train CLI as a subprocess.  The B4
+   entry's launches add the training path's, in a case of their own.
 
 Prints one JSON line ``{"kernels": [...]}`` (eight kernels) and, last, the
 device line.
@@ -170,6 +190,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -593,9 +614,7 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
                    args.reps),
         plain_ms=cuda_ms(lambda: ref.segment_sum_ref(data, seg, n_vertices),
                          3, 1),
-        # data and seg read once, out written once
-        bound_ms=1e3 * (4 * n_e * d_hidden + 4 * n_e
-                        + 4 * n_vertices * d_hidden) / HBM_BYTES_PER_S,
+        bound_ms=b4_bound_ms(n_e, d_hidden, n_vertices),
         bound_by="bytes",
         library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg, data),
                            args.reps))
@@ -2654,6 +2673,678 @@ def dist2_phase(g, kept: dict, ref: dict, smi: str) -> dict:
             "launches": launched, "ranks": ranks}
 
 
+# -- the training phase ------------------------------------------------------
+
+TRAIN_SMOKE = ("qwen3-14b", "minicpm3-4b", "mixtral-8x7b", "gin-tu",
+               "gatedgcn", "dimenet", "equiformer-v2", "fm")
+TRAIN_LOSS_RTOL = 1e-4             # smoke step, card vs CPU
+# gradients card vs CPU, relative to the model's largest gradient: f32 on
+# both sides, summed in other orders (B4's atomics, cuBLAS); a lost path
+# reads O(1)
+TRAIN_GRAD_TOL = 1e-4
+# parameters after the smoke step, card vs CPU, where both gradients pass
+# TRAIN_GRAD_TOL of the scale or both are 0: Adam's first step moves a
+# weight by lr * g / (|g| + eps), so a gradient within the card's rounding
+# of 0 takes either sign, and there the card may differ by up to 2 lr
+TRAIN_PARAM_TOL = 1e-4
+# the smoke step's optimizer: no warmup, so step 1 moves each weight by
+# about lr, ten times TRAIN_PARAM_TOL; a missing or wrong update fails
+SMOKE_OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+GIN_SHAPE, GIN_DEGREE, GIN_STEPS = "ogb_products", 25, 4
+GNN_ARCHS = ("gin-tu", "gatedgcn", "dimenet", "equiformer-v2")
+MOL_GRAPHS, MOL_NODES, MOL_EDGES = 128, 30, 64     # molecule: per graph
+LM_TRAIN_ARCH = "minicpm3-4b"      # the one LM whose training fits a card
+LM_TRAIN_BATCH = 2                 # train_4k's batch 256, cut for memory
+LM_TRAIN_STEPS = 4
+# Adam's first step moves each weight by about its lr (lr g / (|g| + eps)).
+# A bf16 weight |w| ~ 0.02 (std 1 / sqrt(2560)) has a spacing of 1.2e-4,
+# so a smaller step rounds back to the old value: in bf16, step 1 at
+# LM_TRAIN_LR must change at least LM_MOVED_MIN of the weights.  At that
+# lr the first steps overshoot (the loss rises, then falls unevenly), so
+# the falling loss is held on f32 weights at LM_FALL_LR, where every
+# weight with a gradient moves; the moments are then bf16, which keeps the
+# state at the bf16 run's 51 GB
+LM_TRAIN_LR = 1e-4
+LM_FALL_LR = 1e-5
+LM_MOVED_MIN = 0.5
+FT_STEPS, FT_EVERY, FT_FAILS = 12, 3, (4, 8)
+TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
+B4_KERNELS = ("segment_sum",)
+TOP_KERNELS = 8
+
+
+def device_split(fn) -> dict:
+    """fn's kernels under ``torch.profiler``: device ms in all, in B4 and
+    in cuBLAS's matrix products; B4's kernels and all kernels; the
+    top-level aten ops the host dispatched; the TOP_KERNELS kernel names
+    that took the most device time, with their ms and counts.  Device
+    times are None where the profiler recorded no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def us(e):
+        return e.device_time_total
+
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    b4 = [e for e in kern if any(n in e.name for n in B4_KERNELS)]
+    total = sum(us(e) for e in kern)
+    host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU and
+                   e.cpu_parent is None and e.name.startswith("aten::"))
+    out = dict(kernels=len(kern), b4_kernels=len(b4), host_ops=host_ops,
+               device_ms=None, b4_ms=None, matmul_ms=None, top=[])
+    by_name: dict = {}
+    for e in kern:
+        ms, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + us(e) / 1e3, cnt + 1)
+    out["top"] = [(name[:80], ms, cnt) for name, (ms, cnt) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]]
+    if total > 0:
+        out.update(device_ms=total / 1e3,
+                   b4_ms=sum(us(e) for e in b4) / 1e3,
+                   matmul_ms=sum(us(e) for e in kern if any(
+                       n in e.name.lower() for n in MATMUL_KERNELS)) / 1e3)
+    return out
+
+
+def plain_segment_sum(data, seg, n: int, rows: int = 1 << 22):
+    """B4's plain version (``ref.segment_sum_ref``: a float64 sum), taken
+    over blocks of ``rows`` rows so a 25 GB message stream is never copied
+    whole."""
+    import torch
+    out = torch.zeros((n, data.shape[1]), dtype=torch.float64,
+                      device=data.device)
+    for a in range(0, data.shape[0], rows):
+        s = seg[a:a + rows].long()
+        keep = (s >= 0) & (s < n)
+        out.index_add_(0, s[keep], data[a:a + rows][keep].double())
+    return out.float()
+
+
+def b4_bound_ms(n_rows: int, d: int, n: int) -> float:
+    """B4's byte bound: data and seg read once, out written once."""
+    return 1e3 * (4 * n_rows * d + 4 * n_rows + 4 * n * d) / HBM_BYTES_PER_S
+
+
+def _smoke_batch(ac, cfg) -> dict:
+    """The smoke batch of tests/test_arch_smoke.py's shapes, as CPU
+    tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.core.graph import uniform_random_graph
+    from repro_torch.data import synthetic
+    rng = np.random.default_rng(0)
+    if ac.family == "lm":
+        b = {"tokens": rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32)}
+    elif ac.family == "recsys":
+        b = next(synthetic.recsys_batches(16, cfg.n_fields,
+                                          cfg.rows_per_field))
+    else:
+        g = uniform_random_graph(48, 3, seed=1, device="cpu")
+        b = synthetic.gnn_batch(cfg.arch, g, cfg.d_feat, cfg.n_classes,
+                                l_max=cfg.l_max)
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _params_to(params, dev):
+    """A copy of parameters (a module or a tree) on dev."""
+    import copy
+    import torch
+    if isinstance(params, torch.nn.Module):
+        return copy.deepcopy(params).to(dev)
+    if isinstance(params, dict):
+        return {k: _params_to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_to(v, dev) for v in params]
+    return params.detach().clone().to(dev)
+
+
+def _molecule_batch(cfg, spec: dict) -> dict:
+    """The molecule cell's batch on the card: MOL_GRAPHS graphs of
+    MOL_NODES atoms and MOL_EDGES random bonds each, a regression target
+    per graph, the node table padded to the cell's size (padded nodes
+    masked out of the readout); DimeNet's triplets and EquiformerV2's
+    Wigner rotations from the synthetic pipeline.  Fails unless it matches
+    the cell's specs."""
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic
+    rng = np.random.default_rng(0)
+    n, e = MOL_GRAPHS * MOL_NODES, MOL_GRAPHS * MOL_EDGES
+    n_pad = spec["x"].shape[0]
+    base = np.repeat(np.arange(MOL_GRAPHS) * MOL_NODES, MOL_EDGES)
+    src = (base + rng.integers(0, MOL_NODES, e)).astype(np.int32)
+    dst = (base + rng.integers(0, MOL_NODES, e)).astype(np.int32)
+    gid = np.zeros(n_pad, np.int32)
+    gid[:n] = np.repeat(np.arange(MOL_GRAPHS), MOL_NODES)
+    b = {"x": rng.standard_normal((n_pad, cfg.d_feat)).astype(np.float32),
+         "src": src, "dst": dst,
+         "labels": rng.standard_normal(MOL_GRAPHS).astype(np.float32),
+         "graph_id": gid, "node_mask": np.arange(n_pad) < n,
+         "pos": rng.standard_normal((n_pad, 3)).astype(np.float32) * 3.0}
+    if cfg.arch == "dimenet":
+        t_kj, t_ji, ang = synthetic.build_triplets(
+            src, dst, b["pos"], spec["triplet_kj"].shape[0])
+        b.update(triplet_kj=t_kj, triplet_ji=t_ji, angle=ang)
+    if cfg.arch == "equiformer_v2":
+        b["wigner"] = synthetic.build_wigner(src, dst, b["pos"], cfg.l_max)
+    b = {k: torch.from_numpy(v) for k, v in b.items() if k in spec}
+    for k, s in spec.items():
+        if k not in b or tuple(b[k].shape) != tuple(s.shape) or \
+                b[k].dtype != s.dtype:
+            fail(f"molecule batch {k} does not match the cell's spec "
+                 f"{tuple(s.shape)} {s.dtype}")
+    return {k: v.cuda() for k, v in b.items()}
+
+
+def train_phase(args, smi: str) -> dict:
+    """The training phase (``[train]`` and ``[check] train`` lines): one
+    ``make_step`` train step of each smoke config on the card and on the
+    CPU from the same parameters and batch (loss, gradients, parameters
+    after the step), no B6 launch in a train step and B6 once a layer on
+    prefill; gin-tu at its published widths on the ogb_products cell's
+    shape for GIN_STEPS steps on one batch (B4 launches per step, every B4
+    call of step 1 against its plain version, B4's device time a step,
+    each kind of B4 call beside ``index_add_`` on the same inputs); the
+    four GNNs at their published widths on the molecule cell; minicpm3-4b
+    at its published widths on train_4k's sequence, in bf16 and with f32
+    weights; a checkpoint round trip and a restart after two failures; the
+    train CLI.  Returns the
+    phase's numbers; fails on any check."""
+    import dataclasses
+    import itertools
+    import shutil
+    from unittest import mock
+
+    import torch
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.common import (GNN_SHAPES, SpecBundle,
+                                            init_params, make_step)
+    from repro_torch.core.graph import uniform_random_graph
+    from repro_torch.data import synthetic
+    from repro_torch.distributed.fault_tolerance import (
+        FTConfig, SimulatedFailure, run_training)
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as SS
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    rules = make_rules(None)
+    out = {"nvidia_smi": smi, "smoke": {}, "molecule": {}}
+    b4_main = 0                       # B4 launches on the training path
+    fast = adamw.AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=30,
+                             weight_decay=0.0)
+
+    def counted_step(step, state, batch):
+        """One step with B4's and B6's counts zeroed before it and read
+        after it; returns (state, metrics, wall s, B4, B6)."""
+        SS.reset_launches()
+        FA.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        return (state, m, time.perf_counter() - t0,
+                SS.LAUNCHES["segment_sum"], FA.LAUNCHES["flash_attention"])
+
+    # -- card vs CPU, smoke configs ------------------------------------------
+    for arch in TRAIN_SMOKE:
+        ac = get_config(arch)
+        cfg = ac.smoke
+        p_cpu = init_params(ac, cfg, 0, device="cpu")
+        batch = _smoke_batch(ac, cfg)
+        step = make_step(ac, SpecBundle("train", cfg, {}, {}), rules,
+                         adamw.AdamWConfig(**SMOKE_OPT))
+        got = {}
+        for dev, params in (("cpu", p_cpu),
+                            ("cuda", _params_to(p_cpu, "cuda"))):
+            st = adamw.init_state_with_dtype(params, ac.moment_dtype)
+            st, m, _, b4, b6 = counted_step(step, st, batch)
+            named = adamw.named_params(st.params)
+            got[dev] = dict(
+                loss=float(m["loss"]), b4=b4, b6=b6,
+                grads={k: None if p.grad is None else p.grad.float().cpu()
+                       for k, p in named.items()},
+                params={k: p.detach().float().cpu()
+                        for k, p in named.items()})
+        c, g = got["cpu"], got["cuda"]
+        b4_main += g["b4"]
+        rel = abs(g["loss"] - c["loss"]) / max(abs(c["loss"]), 1e-12)
+        scale = max(float(v.abs().max()) for v in c["grads"].values())
+        bad = [k for k, v in g["grads"].items()
+               if v is None or not bool(torch.isfinite(v).all())
+               or (bool((c["grads"][k] != 0).any())
+                   and not bool((v != 0).any()))]
+        gerr = max(float((g["grads"][k] - c["grads"][k]).abs().max())
+                   for k in c["grads"] if k not in bad) / scale
+        perr = prest = 0.0
+        n_dec = n_all = 0
+        for k, want in c["params"].items():
+            diff = (g["params"][k] - want).abs()
+            gc, gg = c["grads"][k], g["grads"][k]
+            if gc is None or gg is None:
+                dec = torch.ones_like(diff, dtype=torch.bool)
+            else:
+                t = TRAIN_GRAD_TOL * scale
+                dec = ((gc.abs() > t) & (gg.abs() > t)) | \
+                    ((gc == 0) & (gg == 0))
+            n_dec += int(dec.sum())
+            n_all += dec.numel()
+            perr = max(perr, float(torch.where(dec, diff, 0).max()))
+            prest = max(prest, float(torch.where(dec, 0, diff).max()))
+        share = n_dec / n_all
+        lr = SMOKE_OPT["lr"]
+        log(f"[train] smoke {arch}: loss card {g['loss']!r} cpu "
+            f"{c['loss']!r} (rel {rel!r}); {len(c['grads'])} parameters, "
+            f"gradient max |card - cpu| / max |grad| {gerr!r}; parameters "
+            f"after the step (lr {lr}) max |card - cpu| {perr!r} over "
+            f"{share:.4f} of {n_all} weights, {prest!r} over the rest "
+            f"(gradient within {TRAIN_GRAD_TOL} of the scale); launches B4 "
+            f"{g['b4']} B6 {g['b6']}")
+        if rel > TRAIN_LOSS_RTOL or bad or gerr > TRAIN_GRAD_TOL or \
+                perr > TRAIN_PARAM_TOL or share < 0.5 or \
+                prest > 2 * lr + TRAIN_PARAM_TOL:
+            fail(f"train smoke {arch}: card disagrees with the CPU (loss rel "
+                 f"{rel}, gradients missing / non-finite / zero {bad[:4]}, "
+                 f"gradient {gerr}, parameters {perr} over {share} of the "
+                 f"weights, {prest} over the rest)")
+        if ac.family == "lm" and g["b6"] != 0:
+            fail(f"train smoke {arch}: a train step launched B6 "
+                 f"{g['b6']} times (B6 has no backward)")
+        if ac.family == "gnn" and g["b4"] == 0:
+            fail(f"train smoke {arch}: the train step did not launch B4")
+        out["smoke"][arch] = dict(loss_rel=rel, grad_err=gerr,
+                                  param_err=perr, param_share=share,
+                                  param_err_rest=prest, b4=g["b4"],
+                                  b6=g["b6"])
+    ac = get_config("qwen3-14b")
+    model = init_params(ac, ac.smoke, 0, device="cuda")
+    FA.reset_launches()
+    TF.prefill(ac.smoke, model, _smoke_batch(ac, ac.smoke)["tokens"].cuda())
+    torch.cuda.synchronize()
+    out["b6_prefill"] = FA.LAUNCHES["flash_attention"]
+    log(f"[check] train: B6 launches in the LM smoke train steps "
+        f"{[out['smoke'][a]['b6'] for a in TRAIN_SMOKE[:3]]} (want 0); in "
+        f"qwen3 smoke prefill {out['b6_prefill']} (want "
+        f"{ac.smoke.n_layers}, one a layer)")
+    if out["b6_prefill"] != ac.smoke.n_layers:
+        fail("prefill no longer launches B6 once a layer")
+    del model
+
+    # -- gin-tu at its published widths, ogb_products ------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ac = get_config("gin-tu")
+    bundle = input_specs(ac, GIN_SHAPE)
+    cfg, spec = bundle.model, bundle.batch
+    n_real = GNN_SHAPES[GIN_SHAPE]["n"]
+    (n_pad, n_feat), e_pad = spec["x"].shape, spec["src"].shape[0]
+    t0 = time.perf_counter()
+    g = uniform_random_graph(n_real, GIN_DEGREE, seed=0, device="cuda")
+    src, dst = g.row_ids().to(torch.int32), g.indices.to(torch.int32)
+    e_real = src.numel()
+    if e_real > e_pad:
+        fail(f"gin-tu graph has {e_real} edges, more than the cell's {e_pad}")
+    pad = torch.full((e_pad - e_real,), -1, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"x": torch.randn(n_pad, n_feat, generator=gen, device="cuda"),
+             "src": torch.cat([src, pad]), "dst": torch.cat([dst, pad]),
+             "labels": torch.randint(0, cfg.n_classes, (n_pad,),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "label_mask": torch.arange(n_pad, device="cuda") < n_real}
+    del g, src, dst, pad
+    for k, s in spec.items():
+        if tuple(batch[k].shape) != tuple(s.shape) or \
+                batch[k].dtype != s.dtype:
+            fail(f"gin-tu batch {k} does not match the cell's spec")
+    torch.cuda.synchronize()
+    log(f"[train] gin-tu {GIN_SHAPE}: n {n_real} (padded {n_pad}), e "
+        f"{e_real} (padded {e_pad}), d_feat {n_feat}, {cfg.n_classes} "
+        f"classes, {cfg.n_layers} layers, d {cfg.d_hidden}; graph and batch "
+        f"in {time.perf_counter() - t0!r} s")
+    state = adamw.init_state(init_params(ac, cfg, 0, device="cuda"))
+    step = make_step(ac, bundle, rules, fast)
+    orig = ops.segment_sum_sorted
+    calls, kinds = [], {}
+
+    def checked(data, seg, n, **kw):
+        """B4 as the step calls it, then held to its plain version; the
+        first call of each kind (width, sorted ids or not) also timed
+        beside ``index_add_`` on the same inputs.  The launches made to
+        check or time are taken back out of the count."""
+        got = orig(data, seg, n, **kw)
+        kept = SS.LAUNCHES["segment_sum"]
+        want = plain_segment_sum(data, seg, n)
+        d = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=SEG_TOL, atol=SEG_TOL))
+        del want
+        live = seg[seg >= 0]
+        srt = bool((live[1:] >= live[:-1]).all())
+        del live
+        kind = f"d {data.shape[1]}, {'sorted' if srt else 'unsorted'} ids"
+        calls.append(dict(rows=data.shape[0], d=data.shape[1], kind=kind,
+                          err=d, ok=ok))
+        if kind not in kinds:
+            safe = torch.where((seg >= 0) & (seg < n), seg, n).long()
+            lib = torch.zeros((n + 1, data.shape[1]), device="cuda")
+            kinds[kind] = dict(
+                ms=cuda_ms(lambda: orig(data, seg, n, **kw), 3, 1),
+                library_ms=cuda_ms(lambda: lib.index_add_(0, safe, data),
+                                   3, 1),
+                bound_ms=b4_bound_ms(data.shape[0], data.shape[1], n))
+            del safe, lib
+        SS.LAUNCHES["segment_sum"] = kept
+        return got
+
+    gin = {"losses": [], "walls": [], "b4": []}
+    for i in range(GIN_STEPS):
+        if i == 0:
+            with mock.patch.object(ops, "segment_sum_sorted", checked):
+                state, m, wall, b4, _ = counted_step(step, state, batch)
+        elif i == GIN_STEPS - 1:
+            res = {}
+            SS.reset_launches()
+            t0 = time.perf_counter()
+            gin["profile"] = device_split(
+                lambda: res.update(out=step(state, batch)))
+            wall, b4 = time.perf_counter() - t0, SS.LAUNCHES["segment_sum"]
+            state, m = res["out"]
+        else:
+            state, m, wall, b4, _ = counted_step(step, state, batch)
+        gin["losses"].append(float(m["loss"]))
+        gin["walls"].append(wall)
+        gin["b4"].append(b4)
+    b4_main += sum(gin["b4"])
+    gin["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    gin["kinds"], gin["calls"] = kinds, calls
+    # a step's B4 calls at their kind's kernel, index_add_ and bound times
+    for key in ("ms", "library_ms", "bound_ms"):
+        gin[f"b4_{key}_per_step"] = sum(kinds[c["kind"]][key] for c in calls)
+    # per layer: the forward's segment sum, its recompute, the gather's
+    # backward; layer 0 gathers the input features, which take no gradient
+    gin["b4_per_step_want"] = 3 * cfg.n_layers - 1
+    worst = max(c["err"] for c in calls)
+    log(f"[train] gin-tu losses {gin['losses']}; step walls {gin['walls']} "
+        f"s (step 1 with the B4 checks and timings, step "
+        f"{GIN_STEPS} under the profiler); peak "
+        f"{gin['peak_gib']:.2f} GiB")
+    log(f"[train] gin-tu B4 launches per step {gin['b4']} (want "
+        f"{gin['b4_per_step_want']}: per layer the forward's segment sum, "
+        f"its recompute and the gather's backward, less layer 0's gather "
+        f"of the input features)")
+    for kind, t in kinds.items():
+        log(f"[time] gin-tu B4 {kind}: kernel {t['ms']!r} ms, bound "
+            f"{t['bound_ms']!r} ms, index_add_ {t['library_ms']!r} ms")
+    log(f"[time] gin-tu a step's {len(calls)} B4 calls: kernel "
+        f"{gin['b4_ms_per_step']!r} ms, bound {gin['b4_bound_ms_per_step']!r}"
+        f" ms, index_add_ {gin['b4_library_ms_per_step']!r} ms")
+    p = gin["profile"]
+    log(f"[train] gin-tu step {GIN_STEPS} profiled: device {p['device_ms']!r}"
+        f" ms, B4 {p['b4_ms']!r} ms over {p['b4_kernels']} kernels, matrix "
+        f"products {p['matmul_ms']!r} ms, {p['kernels']} kernels, "
+        f"{p['host_ops']} top-level aten ops")
+    for name, ms, cnt in p["top"]:
+        log(f"[train]   {ms!r} ms in {cnt} x {name}")
+    log(f"[check] train gin-tu: {len(calls)} B4 calls of step 1 held to the "
+        f"plain version (rtol / atol {SEG_TOL}), largest |kernel - plain| "
+        f"{worst!r}")
+    if not all(c["ok"] for c in calls) or \
+            len(calls) != gin["b4_per_step_want"]:
+        fail(f"gin-tu: B4 calls of step 1 disagree with the plain version "
+             f"or miss: {calls}")
+    if any(b != gin["b4_per_step_want"] for b in gin["b4"]):
+        fail(f"gin-tu: B4 launches per step {gin['b4']}")
+    if not gin["losses"][-1] < gin["losses"][0]:
+        fail(f"gin-tu: the loss did not fall: {gin['losses']}")
+    out["gin"] = gin
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # -- the four GNNs at their published widths, molecule ------------------
+    for arch in GNN_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        ac = get_config(arch)
+        bundle = input_specs(ac, "molecule")
+        batch = _molecule_batch(bundle.model, bundle.batch)
+        state = adamw.init_state(init_params(ac, bundle.model, 0,
+                                             device="cuda"))
+        step = make_step(ac, bundle, rules, fast)
+        state, m, wall, b4, _ = counted_step(step, state, batch)
+        b4_main += b4
+        named = adamw.named_params(state.params)
+        bad = [k for k, p in named.items()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        loss = float(m["loss"])
+        row = dict(loss=loss, wall_s=wall, b4=b4, params=sum(
+            p.numel() for p in named.values()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        out["molecule"][arch] = row
+        log(f"[train] molecule {arch}: {row['params']} parameters, loss "
+            f"{loss!r}, step {wall!r} s, B4 launches {b4}, peak "
+            f"{row['peak_gib']:.2f} GiB")
+        if not math.isfinite(loss) or bad or b4 == 0:
+            fail(f"molecule {arch}: loss {loss}, bad gradients {bad[:4]}, "
+                 f"B4 launches {b4}")
+        del state, step, batch
+        torch.cuda.empty_cache()
+
+    # -- minicpm3-4b at its published widths, train_4k's sequence ------------
+    ac = get_config(LM_TRAIN_ARCH)
+    bundle = input_specs(ac, "train_4k")
+    cfg = bundle.model
+    seq = bundle.batch["tokens"].shape[1]
+    tokens = torch.from_numpy(next(synthetic.lm_batches(
+        LM_TRAIN_BATCH, seq, cfg.vocab, seed=0))["tokens"]).cuda()
+    tok = LM_TRAIN_BATCH * seq
+
+    def lm_run(tag, dtype, moments, lr):
+        """LM_TRAIN_STEPS steps from seed 0 with the weights in ``dtype``
+        and the moments in ``moments``, at ``lr`` with no warmup: losses,
+        walls, B6 launches and peak memory; fails unless every parameter
+        has a finite nonzero gradient at step 1 and step 1 changed at
+        least LM_MOVED_MIN of the weights."""
+        torch.cuda.reset_peak_memory_stats()
+        run_cfg = dataclasses.replace(cfg, dtype=dtype)
+        t0 = time.perf_counter()
+        model = init_params(ac, run_cfg, 0, device="cuda")
+        state = adamw.init_state_with_dtype(model, moments)
+        torch.cuda.synchronize()
+        run = {"dtype": str(dtype), "moments": str(moments), "lr": lr,
+               "params": TF.count_params(model),
+               "init_s": time.perf_counter() - t0, "losses": [],
+               "walls": [], "b6": []}
+        step = make_step(ac, dataclasses.replace(bundle, model=run_cfg),
+                         rules, adamw.AdamWConfig(
+                             lr=lr, warmup_steps=0, total_steps=30,
+                             weight_decay=0.0))
+        named = adamw.named_params(state.params)
+        # the weights before step 1, on the host: a step smaller than half
+        # a weight's spacing leaves it as it was
+        before = {k: p.detach().to("cpu", copy=True)
+                  for k, p in named.items()}
+        for i in range(LM_TRAIN_STEPS):
+            state, m, wall, _, b6 = counted_step(step, state,
+                                                 {"tokens": tokens})
+            run["losses"].append(float(m["loss"]))
+            run["walls"].append(wall)
+            run["b6"].append(b6)
+            if i:
+                continue
+            bad = [k for k, p in named.items() if p.grad is None
+                   or not bool(torch.isfinite(p.grad).all())
+                   or not bool((p.grad != 0).any())]
+            run["grads_checked"] = len(named)
+            if bad:
+                fail(f"{LM_TRAIN_ARCH} {tag}: parameters without a finite "
+                     f"nonzero gradient: {len(bad)}, e.g. {bad[:4]}")
+            moved = sum(int((named[k].detach() != w.cuda()).sum())
+                        for k, w in before.items())
+            run["share_moved"] = moved / sum(w.numel()
+                                             for w in before.values())
+            del before
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[train] {LM_TRAIN_ARCH} {tag} (weights {dtype}, moments "
+            f"{moments}), lr {lr} with no warmup: {run['params']} "
+            f"parameters, batch {LM_TRAIN_BATCH} x {seq}, init "
+            f"{run['init_s']!r} s; step 1 changed {run['share_moved']!r} of "
+            f"the weights (want at least {LM_MOVED_MIN}); losses "
+            f"{run['losses']}; step walls {run['walls']} s; B6 launches "
+            f"{run['b6']}; peak {run['peak_gib']:.2f} GiB")
+        if any(run["b6"]):
+            fail(f"{LM_TRAIN_ARCH} {tag}: a train step launched B6")
+        if run["share_moved"] < LM_MOVED_MIN:
+            fail(f"{LM_TRAIN_ARCH} {tag}: step 1 left most weights as they "
+                 f"were ({run['share_moved']} changed)")
+        del state, model, named, step
+        torch.cuda.empty_cache()
+        return run
+
+    # the published dtype: the timings and the gradients
+    lm = lm_run("bf16", cfg.dtype, ac.moment_dtype, LM_TRAIN_LR)
+    lm.update(arch=LM_TRAIN_ARCH, batch=LM_TRAIN_BATCH, seq=seq,
+              flops_step=6 * lm["params"] * tok,
+              flops_step_remat=8 * lm["params"] * tok)
+    warm = min(lm["walls"][1:])
+    lm["tokens_per_s"] = tok / warm
+    lm["tflops_achieved"] = lm["flops_step"] / warm / 1e12
+    lm["bound_s"] = lm["flops_step_remat"] / BF16_FLOP_PER_S
+    log(f"[train] {LM_TRAIN_ARCH} bf16: {lm['tokens_per_s']!r} tokens/s "
+        f"warm; 6ND {lm['flops_step']:.3e} FLOP a step "
+        f"({lm['tflops_achieved']!r} TFLOP/s), 8ND with the recompute "
+        f"{lm['flops_step_remat']:.3e} (bound {lm['bound_s']!r} s at "
+        f"{BF16_FLOP_PER_S:.3g})")
+    # f32 weights, bf16 moments (the same 51 GB of state): the falling loss
+    lm["f32"] = lm_run("f32 weights", torch.float32, torch.bfloat16,
+                       LM_FALL_LR)
+    losses = lm["f32"]["losses"]
+    log(f"[check] train {LM_TRAIN_ARCH}: with f32 weights at lr "
+        f"{LM_FALL_LR} the loss went {losses[0]!r} -> {losses[-1]!r}; "
+        f"step 1 changed {lm['f32']['share_moved']!r} of the weights; every "
+        f"parameter had a finite nonzero gradient in both runs")
+    if not losses[-1] < losses[0]:
+        fail(f"{LM_TRAIN_ARCH}: the loss did not fall: {losses}")
+    # one layer's autograd attention, forward and backward, at this shape
+    m_ = cfg.mla
+    H, qd = cfg.n_heads, m_.nope_head_dim + m_.rope_head_dim
+    q = torch.randn(LM_TRAIN_BATCH, H, seq, qd, device="cuda",
+                    dtype=cfg.dtype, requires_grad=True)
+    k = torch.randn_like(q, requires_grad=True)
+    v = torch.randn(LM_TRAIN_BATCH, H, seq, m_.v_head_dim, device="cuda",
+                    dtype=cfg.dtype, requires_grad=True)
+    lm["attn_fwd_ms"] = cuda_ms(lambda: TF.flash_attn(
+        q.detach(), k.detach(), v.detach(), k_chunk=cfg.k_chunk), 2, 1)
+    lm["attn_fwd_bwd_ms"] = cuda_ms(lambda: TF.flash_attn(
+        q, k, v, k_chunk=cfg.k_chunk).sum().backward(), 2, 1)
+    log(f"[time] {LM_TRAIN_ARCH} autograd attention, one layer: forward "
+        f"{lm['attn_fwd_ms']!r} ms, forward + backward "
+        f"{lm['attn_fwd_bwd_ms']!r} ms (a step runs the forward twice and "
+        f"the backward once a layer, x {cfg.n_layers})")
+    out["lm"] = lm
+    del tokens, q, k, v
+    torch.cuda.empty_cache()
+
+    # -- checkpoint round trip and restart (gin-tu smoke) --------------------
+    ac = get_config("gin-tu")
+    cfg = ac.smoke
+    batch = _smoke_batch(ac, cfg)
+    step = make_step(ac, SpecBundle("train", cfg, {}, {}), rules, fast)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    state = adamw.init_state(init_params(ac, cfg, 0, device="cuda"))
+    for _ in range(2):
+        state, m = step(state, batch)
+    snap = [(k, v.detach().clone()) for k, v in CK._flatten(state)]
+    writer = CK.save(os.path.join(TRAIN_DIR, "rt"), 2, state, async_=True)
+    state, m = step(state, batch)       # in place, while the writer runs
+    writer.join()
+    fresh = adamw.init_state(init_params(ac, cfg, 1, device="cuda"))
+    back = dict(CK._flatten(CK.restore(os.path.join(TRAIN_DIR, "rt"), 2,
+                                       fresh)))
+    same = all(torch.equal(back[k], v) for k, v in snap)
+    moved = not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        snap, CK._flatten(state)))
+    log(f"[check] train checkpoint: async save of step 2 while step 3 ran, "
+        f"restored into a fresh state: bit-equal {same} over {len(snap)} "
+        f"leaves (the live state moved on: {moved})")
+    if not (same and moved):
+        fail("checkpoint round trip is not bit-equal to the saved state")
+
+    def ft_run(fails, tag):
+        pending = set(fails)
+
+        def inject(s):
+            if s in pending:
+                pending.discard(s)
+                raise SimulatedFailure(f"injected at step {s}")
+        st = adamw.init_state(init_params(ac, cfg, 0, device="cuda"))
+        mgr = CK.CheckpointManager(os.path.join(TRAIN_DIR, tag),
+                                   every=FT_EVERY, keep=3)
+        losses = {}                   # by step; a replayed step overwrites
+        st, rep = run_training(
+            step, st, itertools.repeat(batch), mgr, FT_STEPS,
+            FTConfig(ckpt_every=FT_EVERY), fail_injector=inject,
+            on_metrics=lambda i, m: losses.__setitem__(i, float(m["loss"])))
+        return st, rep, [losses[i] for i in sorted(losses)]
+    st_a, rep_a, loss_a = ft_run((), "plain")
+    st_b, rep_b, loss_b = ft_run(FT_FAILS, "failing")
+    diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+        adamw.named_params(st_a.params).values(),
+        adamw.named_params(st_b.params).values()))
+    lrel = max(abs(a - b) / max(abs(a), 1e-12)
+               for a, b in zip(loss_a, loss_b))
+    log(f"[check] train restart: uninterrupted {int(st_a.step)} steps "
+        f"({rep_a}); with failures at {FT_FAILS}: {int(st_b.step)} steps, "
+        f"{rep_b['restarts']} restarts, {rep_b['steps_run']} steps run; "
+        f"losses step for step {len(loss_a)} / {len(loss_b)}, max rel "
+        f"{lrel!r} (limit {TRAIN_LOSS_RTOL}); parameters max |a - b| "
+        f"{diff!r} (limit {TRAIN_PARAM_TOL})")
+    if not (int(st_a.step) == int(st_b.step) == FT_STEPS
+            and rep_b["restarts"] == len(FT_FAILS)
+            and rep_b["steps_run"] > rep_a["steps_run"]
+            and len(loss_a) == len(loss_b) == FT_STEPS):
+        fail("run_training did not resume to the same step count")
+    if lrel > TRAIN_LOSS_RTOL or diff > TRAIN_PARAM_TOL:
+        fail(f"run_training after restarts differs from the uninterrupted "
+             f"run: losses {loss_a} / {loss_b}, parameters {diff}")
+    out["ckpt"] = dict(bit_equal=same, restarts=rep_b["restarts"],
+                       steps_run=rep_b["steps_run"], param_diff=diff,
+                       loss_rel=lrel)
+
+    # -- the train CLI ---------------------------------------------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gin-tu",
+         "--smoke", "--steps", "3", "--log-every", "1", "--ckpt-dir",
+         os.path.join(TRAIN_DIR, "cli")], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=300)
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"[train] cli exit {proc.returncode} in {cli_s!r} s: "
+        f"{lines[-1] if lines else proc.stderr[-2000:]}")
+    if proc.returncode != 0 or not lines or \
+            not lines[-1].startswith("done: 3 steps"):
+        fail(f"the train CLI failed: {proc.stdout[-2000:]}"
+             f"{proc.stderr[-2000:]}")
+    out["cli_s"] = cli_s
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    out["b4_launches"] = b4_main
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase wall {out['phase_s']!r} s; B4 launches on the "
+        f"training path {b4_main}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -3051,6 +3742,23 @@ def main() -> int:
         b6_device_share=model["b6_device_share"],
         b6_ms_per_step=model["b6_ms_per_step"]))
 
+    # -- 8. training: B4 under autograd on the GNN path ---------------------
+    torch.cuda.empty_cache()
+    train = train_phase(args, smi)
+    launches["segment_sum"] += train["b4_launches"]
+    gin = train["gin"]
+    timed["segment_sum"].setdefault("cases", []).append(dict(
+        shape=f"gin-tu {GIN_SHAPE} training, {GIN_STEPS} steps (training "
+              f"path; launches also from the smoke and molecule steps)",
+        launches=train["b4_launches"], launches_per_step=gin["b4"],
+        kinds=gin["kinds"], profiled_step=gin["profile"],
+        ms_per_step=gin["b4_ms_per_step"],
+        bound_ms_per_step=gin["b4_bound_ms_per_step"],
+        index_add_ms_per_step=gin["b4_library_ms_per_step"],
+        max_abs_err=max(c["err"] for c in gin["calls"])))
+    err["segment_sum"] = max(err["segment_sum"],
+                             max(c["err"] for c in gin["calls"]))
+
     kernels = [dict(name=k, route="cuda", source=SOURCE[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=err[k], ms=timed[k]["ms"],
@@ -3068,6 +3776,7 @@ def main() -> int:
                    "kernels": kernels, "walls_s": walls,
                    "service": service, "structured": structured,
                    "dist": dist, "dist2": dist2, "model": model,
+                   "train": train,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)

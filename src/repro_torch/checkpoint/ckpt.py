@@ -1,0 +1,220 @@
+"""Checkpointing: per-leaf .npy + JSON manifest, atomic, async (counterpart
+of ``repro.checkpoint.ckpt``, in its on-disk format).
+
+* atomic    — written to ``<dir>/tmp_<step>`` then renamed to
+              ``step_<N>`` (a crashed save never shadows a good one);
+* async     — the device-to-host copy is taken synchronously, the disk
+              write runs on a thread, so the loop keeps stepping;
+* resumable — :func:`latest_step` scans the directory, so a restarted job
+              picks up where it died.
+
+The format is the reference's: ``leaf_<i>.npy`` per leaf, and
+``manifest.json`` with each leaf's key, shape and logical dtype; bfloat16
+is stored as its uint16 bit pattern.  Keys are the reference's pytree
+paths joined with "/": a :class:`~repro_torch.optim.adamw.TrainState` is
+the tuple (params, m, v, step), so an FM state's keys are ``0/table``,
+``0/w0``, ``1/table``, ..., ``3``, and a checkpoint written by either
+package restores in the other.  A module's parameters are keyed by their
+names with "." read as "/".
+
+The port's train step updates parameters in place, so :func:`save` copies
+every leaf to the host before it returns, also when the write is async:
+on the CPU ``tensor.numpy()`` would alias the live storage.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..optim.adamw import TrainState
+
+__all__ = ["save", "restore", "latest_step", "CheckpointManager"]
+
+_SEP = "/"
+
+
+def _children(node):
+    """(key, child) pairs of a container, in the reference's flatten
+    order; None for a leaf."""
+    if isinstance(node, TrainState):
+        return list(enumerate((node.params, node.m, node.v, node.step)))
+    if isinstance(node, nn.Module):
+        return [(k.replace(".", _SEP), p) for k, p in node.named_parameters()]
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    return None
+
+
+def _flatten(tree, prefix=()):
+    kids = _children(tree)
+    if kids is None:
+        return [(_SEP.join(prefix), tree)]
+    out = []
+    for k, child in kids:
+        out.extend(_flatten(child, prefix + (str(k),)))
+    return out
+
+
+def _to_host(t) -> tuple:
+    """(logical dtype name, numpy array): a host copy, never a view."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return "bfloat16", t.view(torch.int16).numpy().view(np.uint16)
+        return str(t.dtype).removeprefix("torch."), t.numpy()
+    a = np.array(t)
+    return str(a.dtype), a
+
+
+def save(directory: str, step: int, tree: Any, *,
+         async_: bool = False) -> Optional[threading.Thread]:
+    """Write the checkpoint of ``step``.  Returns the writer thread when
+    async (the host copy is complete when this returns)."""
+    os.makedirs(directory, exist_ok=True)
+    host = [(k,) + _to_host(v) for k, v in _flatten(tree)]
+    manifest = {"step": step,
+                "leaves": [{"key": k, "shape": list(a.shape), "dtype": dt}
+                           for k, dt, a in host]}
+
+    def _write():
+        tmp = os.path.join(directory, f"tmp_{step}")
+        final = os.path.join(directory, f"step_{step:08d}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        for i, (_, _, a) in enumerate(host):
+            np.save(os.path.join(tmp, f"leaf_{i}.npy"), a)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+
+    if async_:
+        t = threading.Thread(target=_write, daemon=True)
+        t.start()
+        return t
+    _write()
+    return None
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(directory)
+             if d.startswith("step_")]
+    return max(steps) if steps else None
+
+
+def _from_disk(arr: np.ndarray, logical: str) -> torch.Tensor:
+    """A leaf as read from disk, in its logical dtype (bfloat16 from its
+    stored bit pattern)."""
+    arr = np.require(arr, requirements="C")      # keeps a 0-d shape
+    if logical == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if str(arr.dtype) != logical:
+        arr = arr.view(np.dtype(logical))      # a stored bit pattern
+    return torch.from_numpy(arr)
+
+
+def restore(directory: str, step: int, target: Any, *,
+            device=None) -> Any:
+    """The checkpoint of ``step`` in the structure of ``target`` (a tree of
+    tensors, real or on the ``meta`` device, or a ``TrainState``): each
+    leaf cast to its target's dtype and placed on ``device`` (default: the
+    target leaf's device; CUDA for a meta target).  A leaf that requires
+    grad in the target requires grad in the result.  A module in the
+    target is loaded in place (materialised first if on the meta device)
+    and returned as itself.  Raises KeyError for a missing key and
+    ValueError for a shape that differs."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(final, "manifest.json")) as f:
+        manifest = json.load(f)
+    keys = {e["key"]: i for i, e in enumerate(manifest["leaves"])}
+
+    def load(key: str, tgt: torch.Tensor) -> torch.Tensor:
+        if key not in keys:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        entry = manifest["leaves"][keys[key]]
+        arr = np.load(os.path.join(final, f"leaf_{keys[key]}.npy"))
+        if tuple(arr.shape) != tuple(tgt.shape):
+            raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "
+                             f"{tuple(tgt.shape)}")
+        dev = device
+        if dev is None:
+            dev = "cuda" if tgt.device.type == "meta" else tgt.device
+        return _from_disk(arr, entry["dtype"]).to(device=dev, dtype=tgt.dtype)
+
+    def build(node, prefix):
+        if isinstance(node, TrainState):
+            return TrainState(*(build(c, prefix + (str(i),)) for i, c in
+                                enumerate((node.params, node.m, node.v,
+                                           node.step))))
+        if isinstance(node, nn.Module):
+            if any(p.device.type == "meta" for p in node.parameters()):
+                node.to_empty(device=device or "cuda")
+            with torch.no_grad():
+                for k, p in node.named_parameters():
+                    p.copy_(load(_SEP.join(prefix + (k.replace(".", _SEP),)),
+                                 p))
+            return node
+        if isinstance(node, dict):
+            return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, prefix + (str(i),))
+                              for i, v in enumerate(node))
+        out = load(_SEP.join(prefix), node)
+        return out.requires_grad_(True) if node.requires_grad else out
+
+    return build(target, ())
+
+
+class CheckpointManager:
+    """Every-N-steps async checkpointing with bounded retention."""
+
+    def __init__(self, directory: str, every: int = 100, keep: int = 3):
+        self.directory = directory
+        self.every = every
+        self.keep = keep
+        self._pending: Optional[threading.Thread] = None
+
+    def maybe_save(self, step: int, tree: Any, *, force: bool = False):
+        if not force and (self.every <= 0 or step % self.every != 0):
+            return
+        self.wait()
+        self._pending = save(self.directory, step, tree, async_=True)
+        self._gc(pending_step=step)
+
+    def wait(self):
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def _gc(self, pending_step: Optional[int] = None):
+        if not os.path.isdir(self.directory):
+            return
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)
+                       if d.startswith("step_"))
+        if pending_step is not None and pending_step not in steps:
+            steps = sorted(steps + [pending_step])  # count the in-flight save
+        doomed = [s for s in steps[: -self.keep] if s != pending_step]
+        for s in doomed:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    def restore_latest(self, target, *, device=None):
+        """(restored, step) of the newest checkpoint, or (None, None)."""
+        self.wait()
+        step = latest_step(self.directory)
+        if step is None:
+            return None, None
+        return restore(self.directory, step, target, device=device), step

@@ -1,19 +1,17 @@
 """ArchConfig + per-family shape tables + input_specs + step functions
-(counterpart of ``repro.configs.common``) for the serving path.
+(counterpart of ``repro.configs.common``).
 
-Every (architecture x input-shape) cell of the lm and recsys families
-resolves here to a model config, a batch of specs with their logical
-sharding axes, and a step function (prefill / decode / serve /
-retrieval).  A spec is a tensor on the ``meta`` device: it has the
-shape and the ``torch.dtype`` of the input and holds no memory.  A decode
-cell's cache spec is :func:`transformer.init_cache` on the meta device:
-per-layer lists, (B, Kv, Smax, hd) for GQA, where the reference stacks
-(G, P, B, Smax, Kv, hd).
-
-Not yet: the ``train`` step, ``state_shapes``, ``state_logical_axes``,
-``param_shardings`` and the GNN family's specs need ``optim.adamw`` and
-``models.gnn``, which come with the training slice (ROADMAP §A.9); they
-raise until then.
+Every (architecture x input-shape) cell resolves here to a model config
+(shape-adapted for the GNN shapes), a batch of specs with their logical
+sharding axes, a step function (train / prefill / decode / serve /
+retrieval), and the training state's structure and logical axes.  A spec
+is a tensor on the ``meta`` device: it has the shape and the
+``torch.dtype`` of the input and holds no memory.  A decode cell's cache
+spec is :func:`transformer.init_cache` on the meta device: per-layer
+lists, (B, Kv, Smax, hd) for GQA, where the reference stacks (G, P, B,
+Smax, Kv, hd).  Logical axes are keyed by parameter name (the names of
+``optim.adamw.named_params``).  One device: :func:`param_shardings` over
+a mesh waits for rules over a mesh (slice 14).
 """
 from __future__ import annotations
 
@@ -23,16 +21,16 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..distributed.sharding import MeshRules
+from ..models import gnn as GNN
 from ..models import recsys as RS
 from ..models import transformer as TF
+from ..optim import adamw
 
 __all__ = ["ArchConfig", "SpecBundle", "LM_SHAPES", "GNN_SHAPES",
            "RECSYS_SHAPES", "VARIANTS", "shape_names", "input_specs",
-           "apply_variant", "init_params", "make_step", "state_shapes",
-           "state_logical_axes", "param_shardings"]
-
-_TRAINING = ("comes with the training slice (optim.adamw, models.gnn; "
-             "ROADMAP §A.9)")
+           "apply_variant", "init_params", "param_logical_axes",
+           "make_step", "state_shapes", "state_logical_axes",
+           "param_shardings"]
 
 
 def S(shape, dtype) -> torch.Tensor:
@@ -120,8 +118,53 @@ def _lm_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
 
 
 def _pad512(x: int) -> int:
-    """Pad dims to a multiple of 512 so both production meshes divide them."""
+    """Pad dims to a multiple of 512 so both production meshes divide them
+    (padding edges carry src = dst = -1, padding nodes are masked)."""
     return -(-x // 512) * 512
+
+
+def _gnn_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
+    sh = GNN_SHAPES[shape_name]
+    cfg: GNN.GNNConfig = ac.model
+    n, e, f = _pad512(sh["n"]), _pad512(sh["e"]), sh["d_feat"]
+    task = sh.get("task", "node")
+    cfg = dataclasses.replace(
+        cfg, d_feat=f, n_classes=sh.get("classes", 2), task=task,
+        # memory blocking for the big shapes
+        edge_chunk=(262144 if e > 1_000_000 else None),
+        triplet_chunk=(1_048_576 if e > 1_000_000 else None))
+    batch = {"x": S((n, f), torch.float32), "src": S((e,), torch.int32),
+             "dst": S((e,), torch.int32)}
+    axes = {"x": ("nodes", None), "src": ("edges",), "dst": ("edges",)}
+    if task == "regression":
+        batch["labels"] = S((sh["graphs"],), torch.float32)
+        axes["labels"] = (None,)
+    else:
+        batch["labels"] = S((n,), torch.int32)
+        axes["labels"] = ("nodes",)
+        # padded nodes are always masked out of the loss
+        batch["label_mask"] = S((n,), torch.bool)
+        axes["label_mask"] = ("nodes",)
+    if sh.get("graphs"):
+        batch["graph_id"] = S((n,), torch.int32)
+        axes["graph_id"] = ("nodes",)
+        batch["node_mask"] = S((n,), torch.bool)
+        axes["node_mask"] = ("nodes",)
+    if cfg.arch in ("dimenet", "equiformer_v2"):
+        batch["pos"] = S((n, 3), torch.float32)
+        axes["pos"] = ("nodes", None)
+    if cfg.arch == "dimenet":
+        t = min(4 * e, 256_000_000)
+        batch["triplet_kj"] = S((t,), torch.int32)
+        batch["triplet_ji"] = S((t,), torch.int32)
+        batch["angle"] = S((t,), torch.float32)
+        axes.update(triplet_kj=("edges",), triplet_ji=("edges",),
+                    angle=("edges",))
+    if cfg.arch == "equiformer_v2":
+        nc = cfg.n_coef
+        batch["wigner"] = S((e, nc, nc), torch.float32)
+        axes["wigner"] = ("edges", None, None)
+    return SpecBundle("train", cfg, batch, axes)
 
 
 def _recsys_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
@@ -145,10 +188,6 @@ def _recsys_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
     return SpecBundle("serve", cfg, batch, axes)
 
 
-def _gnn_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
-    raise NotImplementedError(f"GNN specs {_TRAINING}")
-
-
 def input_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
     if shape_name in ac.skips:
         raise ValueError(f"{ac.name} skips {shape_name}: "
@@ -157,13 +196,16 @@ def input_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
             "recsys": _recsys_specs}[ac.family](ac, shape_name)
 
 
-# Named model-config transforms (the reference's dryrun --variant X); its
-# edge-chunk variants come with the GNN configs
+# Named model-config transforms (the reference's dryrun --variant X)
 VARIANTS = {
     # PIUMA fine-grained embedding exchange instead of a gather
     "fm_dgas": lambda m: dataclasses.replace(m, use_dgas=True),
-    # halve DGAS all_to_all buffer capacity
+    # halve DGAS all_to_all buffer capacity (FM; the GNNs' DGAS exchange
+    # and its capacity wait for slice 14)
     "dgas_cap2": lambda m: dataclasses.replace(m, dgas_cap_factor=2),
+    # larger / smaller edge streaming chunks (graph models)
+    "chunk_512k": lambda m: dataclasses.replace(m, edge_chunk=524288),
+    "chunk_128k": lambda m: dataclasses.replace(m, edge_chunk=131072),
     # Megatron-style fused QKV + fused gate matmuls (LM)
     "fused_qkv": lambda m: dataclasses.replace(m, fused_qkv=True),
 }
@@ -181,25 +223,49 @@ def apply_variant(bundle: SpecBundle, variant: Optional[str]) -> SpecBundle:
 # ---------------------------------------------------------------------------
 
 def init_params(ac: ArchConfig, model_cfg, seed: int = 0, *, device=None):
-    """An LM's :class:`~repro_torch.models.transformer.Transformer` or FM's
-    parameter dict, drawn from ``seed`` on ``device`` (CUDA by default)."""
+    """An LM's :class:`~repro_torch.models.transformer.Transformer`, or a
+    GNN's or FM's parameter tree, drawn from ``seed`` on ``device`` (CUDA
+    by default; ``meta`` for the shapes alone)."""
     if ac.family == "lm":
         return TF.init_params(model_cfg, seed, device=device)
+    if ac.family == "gnn":
+        return GNN.init_params(model_cfg, seed, device=device)
+    return RS.init_params(model_cfg, seed, device=device)
+
+
+def param_logical_axes(ac: ArchConfig, model_cfg, params_shape) -> dict:
+    """{parameter name: logical axes}."""
+    if ac.family == "lm":
+        return TF.param_logical_axes(model_cfg)
     if ac.family == "recsys":
-        return RS.init_params(model_cfg, seed, device=device)
-    raise NotImplementedError(f"GNN parameters {_TRAINING}")
+        return {"table": ("rows", None), "w0": ()}
+    # gnn params are small: replicate
+    return {k: (None,) * p.dim()
+            for k, p in adamw.named_params(params_shape).items()}
 
 
 def state_shapes(ac: ArchConfig, model_cfg, seed: int = 0):
-    raise NotImplementedError(f"optimizer state {_TRAINING}")
+    """(parameters, TrainState) on the meta device: the shapes and dtypes
+    a train step holds, moments in the architecture's moment dtype."""
+    params_shape = init_params(ac, model_cfg, seed, device="meta")
+    return params_shape, adamw.init_state_with_dtype(params_shape,
+                                                     ac.moment_dtype)
 
 
 def state_logical_axes(ac: ArchConfig, model_cfg, params_shape):
-    raise NotImplementedError(f"optimizer state axes {_TRAINING}")
+    pax = param_logical_axes(ac, model_cfg, params_shape)
+    return adamw.TrainState(params=pax, m=pax, v=pax, step=())
 
 
-def param_shardings(rules: MeshRules, params_shape, pax):
-    raise NotImplementedError(f"parameter shardings {_TRAINING}")
+def param_shardings(rules: MeshRules, params_shape, pax) -> dict:
+    """{parameter name: sharding}: None for every parameter on one device
+    (replicated: nothing to place).  Over a mesh it raises until rules
+    over a mesh are ported (slice 14)."""
+    if rules is not None and rules.mesh is not None:
+        raise NotImplementedError(
+            "parameter shardings over a mesh wait for rules over a mesh "
+            "(ROADMAP §A.9, slice 14)")
+    return {k: None for k in pax}
 
 
 # ---------------------------------------------------------------------------
@@ -210,16 +276,32 @@ def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
               opt=None) -> Callable:
     """The step for this cell:
 
+    train:      step(state, batch) -> (state, metrics)
     prefill:    step(params, batch) -> (logits, cache)
     decode:     step(params, cache, batch) -> (logits, cache)
     serve:      step(params, batch) -> scores
     retrieval:  step(params, batch) -> scores
 
-    ``params`` is what :func:`init_params` returns.  ``train`` raises: it
-    comes with the training slice."""
+    ``params`` is what :func:`init_params` returns, ``state`` an
+    ``optim.adamw.TrainState`` over it.  The train step reads the
+    parameters from ``state.params`` (so a restored state is the one it
+    trains), runs the loss forward and backward and applies AdamW in
+    place; metrics are detached tensors on the device."""
     cfg = bundle.model
     if bundle.kind == "train":
-        raise NotImplementedError(f"the train step {_TRAINING}")
+        opt = opt or adamw.AdamWConfig()
+        loss_fn = {"lm": TF.loss_fn, "gnn": GNN.loss_fn,
+                   "recsys": RS.loss_fn}[ac.family]
+
+        def step(state, batch):
+            for p in adamw.named_params(state.params).values():
+                p.grad = None
+            with torch.enable_grad():
+                loss, metrics = loss_fn(cfg, state.params, batch, rules)
+                loss.backward()
+            adamw.apply_update(opt, state)
+            return state, {k: v.detach() for k, v in metrics.items()}
+        return step
     if bundle.kind == "prefill":
         return lambda params, batch: TF.prefill(cfg, params, batch["tokens"],
                                                 rules)

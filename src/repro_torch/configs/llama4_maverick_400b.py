@@ -20,7 +20,7 @@ def config() -> ArchConfig:
     smoke = LMConfig(
         name="llama4-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         head_dim=16, d_ff=128, vocab=128, dtype=torch.float32,
-        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, period=2))
+        moe=MoEConfig(n_experts=4, top_k=1, d_ff=64, period=2), k_chunk=16)
     return ArchConfig(
         name="llama4-maverick-400b-a17b", family="lm", model=model,
         smoke=smoke, moment_dtype=torch.bfloat16,

@@ -20,7 +20,7 @@ def config() -> ArchConfig:
         name="minicpm3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
         head_dim=24, d_ff=128, vocab=128, dtype=torch.float32,
         mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, rope_head_dim=8,
-                      nope_head_dim=16, v_head_dim=16))
+                      nope_head_dim=16, v_head_dim=16), k_chunk=16)
     return ArchConfig(
         name="minicpm3-4b", family="lm", model=model, smoke=smoke,
         skips={"long_500k": "pure full attention (MLA latent cache but "

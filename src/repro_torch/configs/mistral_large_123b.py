@@ -16,7 +16,7 @@ def config() -> ArchConfig:
     smoke = LMConfig(
         name="mistral-large-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=2, head_dim=16, d_ff=128, vocab=128, rope_theta=1e6,
-        dtype=torch.float32)
+        dtype=torch.float32, k_chunk=16)
     return ArchConfig(
         name="mistral-large-123b", family="lm", model=model, smoke=smoke,
         skips={"long_500k": "pure full attention (no sub-quadratic path); "

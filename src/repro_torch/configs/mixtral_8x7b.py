@@ -16,7 +16,7 @@ def config() -> ArchConfig:
     smoke = LMConfig(
         name="mixtral-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         head_dim=16, d_ff=128, vocab=128, window=8, dtype=torch.float32,
-        moe=MoEConfig(n_experts=4, top_k=2, d_ff=64, period=1))
+        moe=MoEConfig(n_experts=4, top_k=2, d_ff=64, period=1), k_chunk=16)
     return ArchConfig(
         name="mixtral-8x7b", family="lm", model=model, smoke=smoke,
         notes="SWA makes long_500k decodable with a window-sized ring cache "

@@ -15,7 +15,8 @@ def config() -> ArchConfig:
         dtype=torch.bfloat16)
     smoke = LMConfig(
         name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-        head_dim=16, d_ff=128, vocab=128, qk_norm=True, dtype=torch.float32)
+        head_dim=16, d_ff=128, vocab=128, qk_norm=True, dtype=torch.float32,
+        k_chunk=16)
     return ArchConfig(
         name="qwen3-14b", family="lm", model=model, smoke=smoke,
         skips={"long_500k": "pure full attention (no sub-quadratic path)"})

@@ -3,9 +3,10 @@
 
 Models annotate activations with *logical* axes; :class:`MeshRules` maps
 them onto a mesh.  Without a mesh every constraint is the identity, which
-is what every model, the serving path and the tests use
-(``make_rules(None)``).  Rules over a ``launch.mesh.Mesh`` come with the
-training slice (ROADMAP §A.9): ``make_rules(mesh)`` raises until then.
+is what every model, the serving and training paths and the tests use
+(``make_rules(None)``).  Rules over a ``launch.mesh.Mesh`` wait for the
+multi-device training slice (ROADMAP §A.9, slice 14):
+``make_rules(mesh)`` raises until then.
 """
 from __future__ import annotations
 
@@ -68,9 +69,9 @@ class MeshRules:
 
 def make_rules(mesh=None, *, seq_parallel: bool = False) -> MeshRules:
     """The one-device rules for ``mesh=None``.  A mesh raises: rules over
-    ``launch.mesh.Mesh`` come with the training slice (ROADMAP §A.9)."""
+    ``launch.mesh.Mesh`` wait for slice 14 (ROADMAP §A.9)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharding rules over a mesh are not ported yet (ROADMAP §A.9, "
-            "the training slice); pass mesh=None for one device")
+            "slice 14); pass mesh=None for one device")
     return MeshRules(None)

@@ -253,7 +253,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     another (MLA's).  The g query heads of a kv head are folded into q's
     rows, as (Hkv, g * Sq, D), so k and v are never repeated; one batch
     entry at a time, so the logits of a long cache stay small.  Returns
-    (B, Hq, Sq, Dv) in q.dtype."""
+    (B, Hq, Sq, Dv) in q.dtype; differentiable."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if Hq % Hkv:
@@ -266,7 +266,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qf = q[b].reshape(Hkv, g * Sq, D).float()
         logits = torch.matmul(qf, k[b].float().transpose(1, 2)) * scale
         logits.masked_fill_(~mask, float("-inf"))
-        p = torch.softmax(logits, dim=-1).nan_to_num_(nan=0.0)
+        # out of place: softmax's backward reads its own output
+        p = torch.softmax(logits, dim=-1).nan_to_num(nan=0.0)
         out[b] = torch.matmul(p, v[b].float()).reshape(Hq, Sq, Dv).to(q.dtype)
     return out
 

@@ -1,2 +1,3 @@
 """Launch helpers: the process mesh of the distributed placement and the
-serving entry point (``python -m repro_torch.launch.serve``)."""
+serving and training entry points (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

@@ -1,2 +1,2 @@
-"""The model stack's serving path: the LM transformer family and FM."""
-from . import recsys, transformer
+"""The model stack: the LM transformer family, the GNN family and FM."""
+from . import gnn, recsys, transformer

@@ -1,5 +1,6 @@
 """Factorization Machine (Rendle, ICDM'10) over the PIUMA embedding engine
-(counterpart of ``repro.models.recsys``), scoring and its loss.
+(counterpart of ``repro.models.recsys``): scoring, its loss and, under
+autograd, its gradients.
 
 score(x) = w0 + sum_i w_i x_i + 1/2 [ (sum_i v_i x_i)^2 - sum_i (v_i x_i)^2 ]
 
@@ -35,7 +36,7 @@ class FMConfig:
     embed_dim: int = 10
     rows_per_field: int = 1_000_000
     # the reference's DGAS table exchange when a mesh is active; needs mesh
-    # rules, which come with the training slice
+    # rules, which wait for slice 14
     use_dgas: bool = False
     dgas_cap_factor: int = 4
     dtype: torch.dtype = torch.float32
@@ -79,7 +80,7 @@ def fm_scores(cfg: FMConfig, params, ids,
     rules = rules or make_rules(None)
     if cfg.use_dgas and rules.mesh is not None:
         raise NotImplementedError("the DGAS lookup needs mesh rules "
-                                  "(ROADMAP §A.9, the training slice)")
+                                  "(ROADMAP §A.9, slice 14)")
     rows = offload.dma_gather(params["table"], _ids(params, ids))  # (B, F, 1+k)
     rows = rules.constrain(rows, "batch", None, None)
     return _fm_from_rows(params["w0"], rows)

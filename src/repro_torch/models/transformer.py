@@ -1,5 +1,6 @@
 """LM transformer family: GQA / MLA / qk-norm / sliding window / RoPE / MoE
-(counterpart of ``repro.models.transformer``), forward and serving.
+(counterpart of ``repro.models.transformer``): forward, serving and
+training.
 
 One parameterized stack covers the five LM architectures of the registry
 (mistral-large-123b, qwen3-14b, minicpm3-4b, llama4-maverick, mixtral-8x7b).
@@ -10,13 +11,20 @@ keep the reference's names and per-group shapes
 (``layers.{i}.attn.wq`` is ``layers/sub{j}/attn/wq[g]``).
 :func:`params_from_reference` carries the reference's tree across.
 
-Attention runs in the (B, heads, S, head dim) layout.  Its route is fixed
-by the configuration (:func:`attention_route`): GQA models call the B6
-kernel through ``kernels.ops.flash_attention`` (on CUDA tensors it
-launches the kernel or raises, on CPU tensors it computes the plain
-version); MLA, whose q / k head dim is not one of B6's and differs from
-v's, runs the plain version (``kernels.ref.flash_attention_ref``), and its
-decode the absorbed latent form.
+Attention runs in the (B, heads, S, head dim) layout.  Where autograd
+records (grad enabled and q, k or v requiring grad: a train step) it runs
+:class:`FlashAttention`, the reference's custom-VJP flash attention
+(online softmax over ``k_chunk`` key blocks forward, probabilities
+recomputed from the saved log-sum-exp backward): B6 is forward-only.
+Otherwise its route is fixed by the configuration (:func:`attention_route`):
+GQA models call the B6 kernel through ``kernels.ops.flash_attention`` (on
+CUDA tensors it launches the kernel or raises, on CPU tensors it computes
+the plain version); MLA, whose q / k head dim is not one of B6's and
+differs from v's, runs the plain version (``kernels.ref.flash_attention_ref``),
+and its decode the absorbed latent form.  ``prefill`` and ``decode_step``
+run under ``inference_mode``.  With ``remat`` a training forward
+checkpoints each layer (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint(nothing_saveable)``).
 
 Decode keeps one KV cache per layer, (B, Kv, Smax, hd), so a step's B6
 call reads the cache's first slots in place, with no transpose or copy;
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import resolve_device
 from ..distributed.sharding import MeshRules, make_rules
@@ -43,7 +52,8 @@ __all__ = ["LMConfig", "MoEConfig", "MLAConfig", "Transformer", "init_params",
            "forward", "prefill", "loss_fn", "init_cache", "decode_step",
            "grow_cache", "count_params", "attention_route", "rmsnorm", "rope",
            "rope_tables", "params_from_reference", "cache_from_reference",
-           "cache_to_reference"]
+           "cache_to_reference", "FlashAttention", "flash_attn",
+           "param_logical_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +92,10 @@ class LMConfig:
     mla: Optional[MLAConfig] = None
     rope_theta: float = 1e6
     dtype: torch.dtype = torch.bfloat16
+    # training: checkpoint each layer; keys per block of the autograd
+    # attention's online softmax
+    remat: bool = True
+    k_chunk: int = 64
     tie_embeddings: bool = False
     # fuse wq/wk/wv into one matmul and w1/w3 into one (Megatron-style)
     fused_qkv: bool = False
@@ -158,7 +172,7 @@ def _ffn_shapes(cfg: LMConfig, is_moe: bool) -> dict:
 
 def _init(shape, fan_in, dtype, gen, device) -> nn.Parameter:
     """N(0, 1 / fan_in) drawn in f32 and cast (fan_in None: a norm, ones
-    in f32)."""
+    in f32).  gen None on the meta device (shapes only)."""
     if fan_in is None:
         return nn.Parameter(torch.ones(shape, dtype=torch.float32,
                                        device=device))
@@ -189,12 +203,14 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The LM stack with its parameters, drawn from ``seed`` by a
     ``torch.Generator`` on ``device`` (CUDA unless ``device`` says
-    otherwise; a CUDA request without a card raises)."""
+    otherwise; a CUDA request without a card raises; ``meta`` gives the
+    shapes alone)."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         self.cfg = cfg
         P = cfg.moe_period
         self.layers = nn.ModuleList(
@@ -226,6 +242,48 @@ def init_params(cfg: LMConfig, seed: int = 0, *, device=None) -> Transformer:
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def param_logical_axes(cfg: LMConfig, tp_size: int = 16) -> dict:
+    """Logical axes per parameter name (the reference's table without its
+    leading stacked-group axis): MoE weights are expert parallel when
+    n_experts divides the TP axis, else tensor parallel within each
+    expert."""
+    if cfg.mla is None:
+        attn = ({"wqkv": ("embed", "heads")} if cfg.fused_qkv else
+                {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+                 "wv": ("embed", "kv_heads")})
+        attn["wo"] = ("heads", "embed")
+    else:
+        attn = {"wq_a": ("embed", None), "q_a_norm": (None,),
+                "wq_b": (None, "heads"), "wkv_a": ("embed", None),
+                "kv_a_norm": (None,), "wk_b": (None, "heads"),
+                "wv_b": (None, "heads"), "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        attn["q_norm"] = (None,)
+        attn["k_norm"] = (None,)
+    if cfg.moe is not None and cfg.moe.n_experts % tp_size == 0:
+        moe = {"router": (None, None), "w1": ("expert", "embed", None),
+               "w3": ("expert", "embed", None),
+               "w2": ("expert", None, "embed")}
+    else:
+        moe = {"router": (None, None), "w1": (None, "embed", "ff"),
+               "w3": (None, "embed", "ff"), "w2": (None, "ff", "embed")}
+    mlp = ({"w13": ("embed", "ff"), "w2": ("ff", "embed")} if cfg.fused_qkv
+           else {"w1": ("embed", "ff"), "w3": ("embed", "ff"),
+                 "w2": ("ff", "embed")})
+    out = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed", "vocab")
+    P = cfg.moe_period
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        out[pre + "ln1"] = out[pre + "ln2"] = (None,)
+        out.update({pre + "attn." + k: a for k, a in attn.items()})
+        ffn, name = ((moe, "moe") if cfg.moe is not None and i % P == P - 1
+                     else (mlp, "mlp"))
+        out.update({pre + name + "." + k: a for k, a in ffn.items()})
+    return out
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -286,7 +344,138 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return _rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
+def _key_blocks(skv: int, k_chunk: int) -> tuple[int, int]:
+    """(block, count): the reference's block is the largest divisor of
+    Skv that is at most k_chunk."""
+    t = min(k_chunk, skv)
+    while skv % t:
+        t -= 1
+    return t, skv // t
+
+
+def _block_rows(k0: int, k1: int, sq: int, causal: bool,
+                window: Optional[int]) -> tuple[int, int]:
+    """[a, b): the query positions that see at least one key of [k0, k1)
+    (query p sees key j when j <= p if causal, and j > p - window)."""
+    a = k0 if causal else 0
+    b = sq if window is None else min(sq, k1 - 1 + window)
+    return a, max(a, b)
+
+
+def _block_logits(qs, kb, a: int, k0: int, scale: float, causal: bool,
+                  window: Optional[int]):
+    """Scaled logits of the query rows qs (B, Kv, G, r, D), positions a to
+    a + r - 1, against the key block kb (B, Kv, t, D) starting at key k0,
+    in f32, -1e30 where masked."""
+    s = torch.matmul(qs, kb[:, :, None].transpose(-1, -2)) * scale
+    qpos = a + torch.arange(qs.shape[3], device=qs.device)[:, None]
+    kpos = k0 + torch.arange(kb.shape[2], device=qs.device)[None, :]
+    mask = torch.ones((qs.shape[3], kb.shape[2]), dtype=torch.bool,
+                      device=qs.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return torch.where(mask, s, -1e30)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP (``_flash_attn``,
+    plain f32 arithmetic): q (B, H, Sq, D), k (B, Kv, Skv, D), v (B, Kv,
+    Skv, Dv), Dv free (MLA's), GQA with kv head h // (H / Kv); queries at
+    positions 0..Sq-1, as in a training forward.
+
+    Forward: online softmax over key blocks of :func:`_key_blocks`,
+    keeping q, k, v, the output and the log-sum-exp (B, Kv, G, Sq).
+    Backward: each block's probabilities recomputed from the lse, so no
+    (Sq, Skv) tensor is kept between the passes.  Each block updates only
+    the query rows that see one of its keys (:func:`_block_rows`): in the
+    reference's arithmetic a row's fully masked block adds exactly 0 (its
+    probabilities are exp(-1e30 - m) = 0), or, before the row's first
+    visible key, adds a placeholder that its first visible block scales by
+    exp(-1e30 - m) = 0.  So causal attention does half the work for the
+    same values: the forward's bits, and key gradients that only leave out
+    sums of zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, k_chunk, scale):
+        B, H, Sq, D = q.shape
+        Kv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+        qr = q.reshape(B, Kv, H // Kv, Sq, D).float()
+        t, nk = _key_blocks(Skv, k_chunk)
+        m = qr.new_full(qr.shape[:4], -1e30)
+        l = qr.new_zeros(qr.shape[:4])
+        acc = qr.new_zeros(qr.shape[:4] + (Dv,))
+        for i in range(nk):
+            a, b = _block_rows(i * t, (i + 1) * t, Sq, causal, window)
+            if a == b:
+                continue
+            kb = k[:, :, i * t:(i + 1) * t].float()
+            vb = v[:, :, i * t:(i + 1) * t].float()
+            s = _block_logits(qr[:, :, :, a:b], kb, a, i * t, scale, causal,
+                              window)
+            mr = m[..., a:b]
+            mc = torch.maximum(mr, s.amax(dim=-1))
+            p = torch.exp(s - mc[..., None])
+            alpha = torch.exp(mr - mc)
+            l[..., a:b] = l[..., a:b] * alpha + p.sum(dim=-1)
+            acc[..., a:b, :] = acc[..., a:b, :] * alpha[..., None] + \
+                torch.matmul(p, vb[:, :, None])
+            m[..., a:b] = mc
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        out = out.reshape(B, H, Sq, Dv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, window, k_chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, k_chunk, scale = ctx.cfg
+        B, H, Sq, D = q.shape
+        Kv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+        G = H // Kv
+        qr = q.reshape(B, Kv, G, Sq, D).float()
+        do = dout.reshape(B, Kv, G, Sq, Dv).float()
+        delta = torch.sum(do * out.reshape(B, Kv, G, Sq, Dv).float(), dim=-1)
+        t, nk = _key_blocks(Skv, k_chunk)
+        dq = torch.zeros_like(qr)
+        dk = qr.new_zeros((B, Kv, Skv, D))
+        dv = qr.new_zeros((B, Kv, Skv, Dv))
+        for i in range(nk):
+            a, b = _block_rows(i * t, (i + 1) * t, Sq, causal, window)
+            if a == b:
+                continue
+            k0, k1 = i * t, (i + 1) * t
+            kb = k[:, :, k0:k1].float()
+            vb = v[:, :, k0:k1].float()
+            qs, dos = qr[:, :, :, a:b], do[:, :, :, a:b]
+            s = _block_logits(qs, kb, a, k0, scale, causal, window)
+            p = torch.exp(s - lse[..., a:b, None])
+            dv[:, :, k0:k1] = torch.einsum("bkgqc,bkgqd->bkcd", p, dos)
+            dp = torch.matmul(dos, vb[:, :, None].transpose(-1, -2))
+            ds = p * (dp - delta[..., a:b, None]) * scale
+            dq[:, :, :, a:b] += torch.matmul(ds, kb[:, :, None])
+            dk[:, :, k0:k1] = torch.einsum("bkgqc,bkgqd->bkcd", ds, qs)
+        return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None)
+
+
+def flash_attn(q, k, v, *, causal: bool = True,
+               window: Optional[int] = None, k_chunk: int = 64,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """:class:`FlashAttention` (the training attention); scale D ** -0.5
+    unless given."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return FlashAttention.apply(q, k, v, causal, window, k_chunk, scale)
+
+
 def _attend(cfg: LMConfig, q, k, v, *, causal: bool, window: Optional[int]):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attn(q, k, v, causal=causal, window=window,
+                          k_chunk=cfg.k_chunk)
     if attention_route(cfg) == "flash":
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -509,13 +698,23 @@ def forward(cfg: LMConfig, model: Transformer, tokens,
     rot = rope_tables(torch.arange(S, device=x.device)[None].expand(B, S),
                       _rope_dim(cfg), cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in model.layers:
-        h, _ = _attention(cfg, layer.attn, rmsnorm(x, layer.ln1), rot)
-        x = x + h
-        h, a = _ffn(cfg, layer, x, rules)
+        if remat:
+            x, a = checkpoint(_layer, cfg, layer, x, rot, rules,
+                              use_reentrant=False)
+        else:
+            x, a = _layer(cfg, layer, x, rot, rules)
         aux = aux if a is None else aux + a
-        x = x + h
     return _logits(model, x), aux
+
+
+def _layer(cfg: LMConfig, layer: Block, x, rot, rules: MeshRules):
+    """One sublayer of the forward: (x, aux or None)."""
+    h, _ = _attention(cfg, layer.attn, rmsnorm(x, layer.ln1), rot)
+    x = x + h
+    h, a = _ffn(cfg, layer, x, rules)
+    return x + h, a
 
 
 @torch.inference_mode()
@@ -544,7 +743,9 @@ def prefill(cfg: LMConfig, model: Transformer, tokens,
 def loss_fn(cfg: LMConfig, model: Transformer, batch: dict,
             rules: Optional[MeshRules] = None):
     """batch = {tokens (B, S), labels? (B, S)}; next-token cross-entropy +
-    z-loss + aux.  The forward value (gradients come with training)."""
+    z-loss + aux.  Returns (objective, metrics); differentiable when grad
+    is enabled (the training attention, layers checkpointed with
+    ``remat``)."""
     tokens = torch.as_tensor(batch["tokens"], device=model.device).long()
     labels = batch.get("labels")
     if labels is None:

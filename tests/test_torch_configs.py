@@ -2,13 +2,15 @@
 ``repro_torch.configs`` and ``repro_torch.distributed.sharding`` against
 ``repro.configs`` / ``repro.distributed.sharding``.
 
-The registry names the reference's LM and recsys architectures (the four
-GNN names wait for ``models.gnn``), each full and smoke config equal field
-for field over the port's fields (the reference's training-only ``remat``,
-``q_chunk`` and ``k_chunk`` wait for the training slice), every lm / recsys ``input_specs`` shape and dtype equal to the
-reference's (the decode cache per layer, (B, Kv, Smax, hd) against the
-reference's stacked (G, P, B, Smax, Kv, hd)), and ``make_step``'s prefill /
-decode / serve / retrieval steps equal to the model calls.
+The registry names the reference's architectures, each full and smoke
+config equal field for field over the port's fields (the reference's
+``q_chunk``, which its attention ignores, is not ported, nor the GNNs'
+DGAS fields, which only a mesh reads), every
+``input_specs`` shape and dtype equal to the reference's (the decode cache
+per layer, (B, Kv, Smax, hd) against the reference's stacked (G, P, B,
+Smax, Kv, hd)), ``make_step``'s prefill / decode / serve / retrieval steps
+equal to the model calls, its train step and the training state's shapes
+and logical axes (by parameter name) equal to the reference's.
 """
 import dataclasses
 
@@ -21,20 +23,25 @@ import torch
 import repro.configs as RC
 from repro.configs import piuma_graph as RPG
 from repro.distributed import sharding as RSH
+from repro.models import gnn as RG
 from repro.models import transformer as RT
 import repro_torch.configs as TC
 from repro_torch.configs import common as TCOM
 from repro_torch.configs import piuma_graph as TPG
 from repro_torch.distributed import sharding as TSH
+from repro_torch.models import gnn as TG
 from repro_torch.models import recsys as TRS
 from repro_torch.models import transformer as T
 
 GNN = ("equiformer-v2", "dimenet", "gatedgcn", "gin-tu")
-PORTED = [a for a in RC.ARCH_NAMES if a not in GNN]
+PORTED = list(RC.ARCH_NAMES)
 
 
-# the reference LMConfig's fields that only its training path reads
-TRAIN_ONLY = {"remat", "q_chunk", "k_chunk"}
+# the reference LMConfig's field that no code of it reads
+TRAIN_ONLY = {"q_chunk"}
+# the reference GNNConfig's fields that only its DGAS exchange over a mesh
+# reads (slice 14)
+MESH_ONLY = {"dgas_threshold", "dgas_cap_factor"}
 
 
 def _plain(x, like=None):
@@ -55,11 +62,11 @@ def _plain(x, like=None):
 
 
 def test_registry_names_are_the_reference_minus_gnn():
-    assert TC.ARCH_NAMES == PORTED
-    assert set(RC.ARCH_NAMES) - set(TC.ARCH_NAMES) == set(GNN)
+    """The name is kept from when the GNNs were missing; the registry now
+    equals the reference's, GNNs included."""
+    assert TC.ARCH_NAMES == RC.ARCH_NAMES
     for name in GNN:
-        with pytest.raises(KeyError, match="A.9"):
-            TC.get_config(name)
+        assert TC.get_config(name).family == "gnn"
     with pytest.raises(KeyError, match="unknown arch"):
         TC.get_config("gpt-17")
 
@@ -75,6 +82,12 @@ def test_lm_config_lacks_only_the_training_fields():
     names = lambda c: {f.name for f in dataclasses.fields(c)}
     assert names(RT.LMConfig) - names(T.LMConfig) == TRAIN_ONLY
     assert names(T.LMConfig) <= names(RT.LMConfig)
+
+
+def test_gnn_config_lacks_only_the_mesh_fields():
+    names = lambda c: {f.name for f in dataclasses.fields(c)}
+    assert names(RG.GNNConfig) - names(TG.GNNConfig) == MESH_ONLY
+    assert names(TG.GNNConfig) <= names(RG.GNNConfig)
 
 
 def test_piuma_graph_config_equal():
@@ -128,19 +141,28 @@ def test_mixtral_long500k_uses_ring_cache():
 
 
 def test_apply_variant_and_training_parts_raise():
+    """The name is kept from when the training parts raised: the train
+    step, the state's shapes and axes and the GNN specs now work, and only
+    parameter shardings over a mesh still raise (slice 14)."""
     tac = TC.get_config("qwen3-14b")
     b = TCOM.apply_variant(TC.input_specs(tac, "prefill_32k"), "fused_qkv")
     assert b.model.fused_qkv
     assert TCOM.apply_variant(b, None) is b
+    gac = TC.get_config("equiformer-v2")
+    g = TCOM.apply_variant(TC.input_specs(gac, "ogb_products"), "chunk_128k")
+    assert g.model.edge_chunk == 131072
     train = TC.input_specs(tac, "train_4k")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TC.make_step(tac, train, TSH.make_rules(None))
-    for fn in (lambda: TC.state_shapes(tac, tac.smoke),
-               lambda: TC.state_logical_axes(tac, tac.smoke, None),
-               lambda: TC.param_shardings(None, None, None),
-               lambda: TCOM._gnn_specs(tac, "molecule")):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            fn()
+    assert callable(TC.make_step(tac, train, TSH.make_rules(None)))
+    params, state = TC.state_shapes(tac, tac.smoke)
+    axes = TC.state_logical_axes(tac, tac.smoke, params)
+    assert set(state.m) == set(axes.m) == set(dict(params.named_parameters()))
+    assert state.step.device.type == "meta" and axes.step == ()
+    pax = TCOM.param_logical_axes(tac, tac.smoke, params)
+    assert TC.param_shardings(TSH.make_rules(None), params, pax) == {
+        k: None for k in pax}
+    with pytest.raises(NotImplementedError, match="slice 14"):
+        TC.param_shardings(TSH.MeshRules(mesh=object()), params, pax)
+    assert TCOM._gnn_specs(gac, "molecule").kind == "train"
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "minicpm3-4b"])
@@ -195,7 +217,7 @@ def test_one_device_rules():
                                                                 "heads", None))
     with pytest.raises(KeyError):
         rules.constrain(x, "nonsense")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         TSH.make_rules(object())
 
 

@@ -1142,3 +1142,74 @@ def test_lm_smoke_on_the_card_matches_cpu(cuda, arch, prompt, gen):
     np.testing.assert_array_equal(g["tokens"], w["tokens"])
     torch.testing.assert_close(g["logits"].cpu(), w["logits"], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [1, 64, 100])
+def test_segment_sum_under_autograd_matches_plain(cuda, d):
+    """The GNN path's B4 Functions on the card: ``gnn.segment_sum``
+    launches B4 forward and gathers backward, ``gnn.gather_rows`` gathers
+    forward and launches B4 backward; both against the same calls on the
+    CPU (unsorted ids, -1 and out-of-range ids dropped; 1e-4)."""
+    from repro_torch.kernels import segment_sum as SS
+    from repro_torch.models import gnn as G
+    gen = torch.Generator().manual_seed(d)
+    n, rows = 3000, 50_000
+    seg = torch.randint(-1, n + 1, (rows,), generator=gen, dtype=torch.int32)
+    data = torch.randn(rows, d, generator=gen)
+    cot = torch.randn(n, d, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        # detach: a leaf of its own on each device (to("cpu") is a no-op)
+        x = data.to(dev).detach().requires_grad_(True)
+        SS.reset_launches()
+        y = G.segment_sum(x, seg.to(dev), n)
+        launched = SS.LAUNCHES["segment_sum"]
+        y.backward(cot.to(dev))
+        t = cot.to(dev).detach().requires_grad_(True)
+        z = G.gather_rows(t, seg.to(dev))
+        z.backward(data.to(dev))
+        out[dev] = [a.detach().cpu() for a in (y, x.grad, z, t.grad)]
+        out[dev].append((launched, SS.LAUNCHES["segment_sum"]))
+    assert out["cuda"][4] == (1, 2) and out["cpu"][4] == (0, 0)
+    for got, want in zip(out["cuda"][:4], out["cpu"][:4]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "minicpm3-4b", "mixtral-8x7b"])
+def test_lm_smoke_gradients_on_the_card_match_cpu(cuda, arch):
+    """One ``make_step`` train step of the smoke config on the card and on
+    the CPU from the same parameters: the loss, every parameter's gradient
+    (finite, 1e-4 of the largest) and the parameters after the step; B6
+    launches no time in the train step (it has no backward)."""
+    import copy
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import SpecBundle, init_params, make_step
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.optim import adamw
+    ac = get_config(arch)
+    cfg = ac.smoke
+    cpu = init_params(ac, cfg, 0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    # the default warmup: step 1's lr is 3e-6, so a gradient whose sign
+    # is rounding noise moves its parameter by less than the tolerance
+    step = make_step(ac, SpecBundle("train", cfg, {}, {}), make_rules(None),
+                     adamw.AdamWConfig())
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        FA.reset_launches()
+        st, m = step(adamw.init_state(model), {"tokens": toks})
+        res[dev] = (float(m["loss"]), FA.LAUNCHES["flash_attention"],
+                    {k: (p.grad.cpu(), p.detach().cpu())
+                     for k, p in model.named_parameters()})
+    assert res["cuda"][1] == 0
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-5)
+    scale = max(float(g.abs().max()) for g, _ in res["cpu"][2].values())
+    for k, (g, p) in res["cuda"][2].items():
+        gw, pw = res["cpu"][2][k]
+        assert bool(torch.isfinite(g).all()), k
+        torch.testing.assert_close(g, gw, rtol=1e-4, atol=1e-4 * scale)
+        torch.testing.assert_close(p, pw, rtol=1e-5, atol=1e-5)

@@ -47,7 +47,7 @@ def _np(tree):
 
 def _port_cfg(ref_cfg, **kw):
     """The port's LMConfig with the fields of a reference LMConfig (the
-    reference's training-only fields, which the port lacks, dropped)."""
+    reference's ``q_chunk``, which the port lacks, dropped)."""
     f = {k.name: getattr(ref_cfg, k.name) for k in dataclasses.fields(T.LMConfig)}
     f["dtype"] = torch.float32
     if f["moe"] is not None:
@@ -470,7 +470,7 @@ def test_fm_dgas_with_a_mesh_raises(fm_case):
     _, cfg, _, params, batch = fm_case
     from repro_torch.distributed.sharding import MeshRules
     rules = MeshRules(mesh=object())
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         TRS.fm_scores(dataclasses.replace(cfg, use_dgas=True), params,
                       batch["ids"], rules)
 
