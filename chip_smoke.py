@@ -124,7 +124,19 @@ Phases, each of which exits non-zero on failure:
    just before it and read just after, each kernel held against its plain
    version on the same inputs and timed beside its bound, the plain version
    and a library call: ``segment_sum_sorted`` (B4) on gin-tu's aggregation
-   over the RMAT graph's in-edges (d 64), ``embedding_bag`` (B5) on fm
+   over the RMAT graph's in-edges (d 64, sorted ids: the kernel on its plan
+   and the entry with the plan built inside), then ``segment_sum_csr`` (B4
+   with the row gather fused in) on gin-tu's ogb_products edges as GIN's
+   layer calls it, one ``gnn.EdgePlan`` for all three kinds: the forward at
+   d 100 and d 64 and the backward at d 64, each beside both bounds (the
+   gathered rows read once; the table read once), ``torch.sparse.mm`` on
+   the same CSR of ones (cuSPARSE SpMM) and ``index_add_`` of the (E, d)
+   messages the port no longer writes; each B4 case held also to its
+   order's mirror bit for bit, run twice for equal bits and on a planted
+   fault (its longest row's largest entry dropped), which must fail the
+   check (``[repro]``); B4 timed at each block_n of ``B4_BLOCK_NS`` on
+   RMAT-20 and on gin-tu's d 64 forward (the tuned default's choice);
+   ``embedding_bag`` (B5) on fm
    serving (39 fields x 1M rows: ``serve_bulk`` batch 262,144 as a sum and
    as a weighted mean with 10% of ids -1, ``serve_p99`` batch 512 as a
    sum, each with the bytes of its rows' 32-byte sectors beside its byte
@@ -159,8 +171,11 @@ Phases, each of which exits non-zero on failure:
    25)``, padded to the cell's shape) for 4 steps on one batch, B4's
    launches counted per step (14), every B4 call of step 1 held to its
    plain version (1e-4),
-   each kind of B4 call timed beside ``index_add_``, a step profiled; the
-   four GNNs at their published widths on the ``molecule`` cell; minicpm3-4b
+   each kind of B4 call timed beside ``torch.sparse.mm``, a step profiled
+   (its torch gathers must take less time than one (E, d) message takes to
+   write: GIN gathers its rows inside B4); the
+   four GNNs at their published widths on the ``molecule`` cell (a cold
+   step, then a warm one); minicpm3-4b
    (4.26 B parameters) at ``train_4k``'s sequence, batch 2, 4 steps in
    bf16 and 4 with f32 weights (every parameter gets a finite nonzero
    gradient, step 1 changes at least half the weights, the loss of the f32
@@ -204,9 +219,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 ADD_RTOL = ADD_ATOL = 1e-5         # kernel vs plain, f32 'add'
-# B4: f32 atomics in no fixed order, runs of up to ~1e5 rows (RMAT hubs),
-# against a float64-accumulated plain version
+# B4: in-order f32 sums of rows of up to ~1e5 entries (RMAT hubs, summed
+# in pieces of at most block_n), against a float64-accumulated plain version
 SEG_TOL = 1e-4
+B4_BLOCK_NS = (128, 256, 512, 1024, 2048)   # B4's merge-path shares timed
 # B5: each bag is summed in stream order in f32, 39 rows: a few ulps of
 # the float64-accumulated plain version
 BAG_TOL = 1e-5
@@ -601,24 +617,45 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
     d_hidden = 64                         # configs/gin_tu.py d_hidden
     n_e = seg.numel()
     data = torch.randn(n_e, d_hidden, device="cuda", generator=gen)
+    label = f"B4 segment_sum ({n_e}, {d_hidden}) -> ({n_vertices}, {d_hidden})"
     out, cnt = called(SS, "segment_sum", lambda: ops.segment_sum_sorted(
         data, seg, n_vertices))
-    held("segment_sum", f"B4 segment_sum ({n_e}, {d_hidden}) -> "
-         f"({n_vertices}, {d_hidden})", out,
-         ref.segment_sum_ref(data, seg, n_vertices), SEG_TOL)
-    del out
+    want = ref.segment_sum_ref(data, seg, n_vertices)
+    held("segment_sum", label, out, want, SEG_TOL)
+    plan = SS.SegmentPlan(seg, n_vertices)
+    b4_repro(label, out, plan.offsets, data, None, want,
+             lambda: ops.segment_sum_sorted(data, seg, n_vertices))
+    del out, want
     lib_out = torch.zeros(n_vertices, d_hidden, device="cuda")
-    rows["segment_sum"] = dict(
+    rmat_case = dict(
+        shape=f"RMAT-{args.scale} in-edges, sorted ids, d {d_hidden}",
         launches=cnt,
-        ms=cuda_ms(lambda: ops.segment_sum_sorted(data, seg, n_vertices),
+        ms=cuda_ms(lambda: ops.segment_sum_csr(data, plan.offsets, None),
                    args.reps),
+        entry_ms=cuda_ms(lambda: ops.segment_sum_sorted(data, seg,
+                                                        n_vertices),
+                         args.reps),
+        plan_ms=cuda_ms(lambda: SS.SegmentPlan(seg, n_vertices).offsets,
+                        args.reps),
         plain_ms=cuda_ms(lambda: ref.segment_sum_ref(data, seg, n_vertices),
                          3, 1),
         bound_ms=b4_bound_ms(n_e, d_hidden, n_vertices),
         bound_by="bytes",
         library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg, data),
-                           args.reps))
-    del data, lib_out, seg
+                           args.reps),
+        split_rows=SS.split_rows(plan.offsets, b4_block_n(n_vertices)),
+        block_n_ms=b4_sweep(lambda bn: ops.segment_sum_csr(
+            data, plan.offsets, None, block_n=bn), args.reps))
+    log(f"[time] segment_sum {rmat_case['shape']}: kernel on its plan "
+        f"{rmat_case['ms']!r} ms, the entry with its plan "
+        f"{rmat_case['entry_ms']!r} ms (the plan alone "
+        f"{rmat_case['plan_ms']!r} ms), {rmat_case['split_rows']} rows "
+        f"split; by block_n {rmat_case['block_n_ms']}")
+    del data, lib_out, seg, plan
+    torch.cuda.empty_cache()
+    cases = [rmat_case] + b4_gin_cases(args, gen, called, held)
+    rows["segment_sum"] = dict(rmat_case, cases=cases, launches=sum(
+        c["launches"] for c in cases))
     torch.cuda.empty_cache()
 
     # -- B5: fm serving, bulk and p99 batches -------------------------------
@@ -2710,6 +2747,8 @@ LM_MOVED_MIN = 0.5
 FT_STEPS, FT_EVERY, FT_FAILS = 12, 3, (4, 8)
 TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
 B4_KERNELS = ("segment_sum",)
+# torch's row gathers (index_select, advanced indexing, gather)
+GATHER_KERNELS = ("index", "gather")
 TOP_KERNELS = 8
 
 
@@ -2733,11 +2772,15 @@ def device_split(fn) -> dict:
 
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     b4 = [e for e in kern if any(n in e.name for n in B4_KERNELS)]
+    gathers = [e for e in kern if e not in b4 and any(
+        n in e.name.lower() for n in GATHER_KERNELS)]
     total = sum(us(e) for e in kern)
     host_ops = sum(1 for e in events if e.device_type == DeviceType.CPU and
                    e.cpu_parent is None and e.name.startswith("aten::"))
-    out = dict(kernels=len(kern), b4_kernels=len(b4), host_ops=host_ops,
-               device_ms=None, b4_ms=None, matmul_ms=None, top=[])
+    out = dict(kernels=len(kern), b4_kernels=len(b4),
+               gather_kernels=len(gathers), host_ops=host_ops,
+               device_ms=None, b4_ms=None, matmul_ms=None, gather_ms=None,
+               top=[])
     by_name: dict = {}
     for e in kern:
         ms, cnt = by_name.get(e.name, (0.0, 0))
@@ -2747,28 +2790,184 @@ def device_split(fn) -> dict:
     if total > 0:
         out.update(device_ms=total / 1e3,
                    b4_ms=sum(us(e) for e in b4) / 1e3,
+                   gather_ms=sum(us(e) for e in gathers) / 1e3,
                    matmul_ms=sum(us(e) for e in kern if any(
                        n in e.name.lower() for n in MATMUL_KERNELS)) / 1e3)
     return out
 
 
-def plain_segment_sum(data, seg, n: int, rows: int = 1 << 22):
-    """B4's plain version (``ref.segment_sum_ref``: a float64 sum), taken
-    over blocks of ``rows`` rows so a 25 GB message stream is never copied
-    whole."""
-    import torch
-    out = torch.zeros((n, data.shape[1]), dtype=torch.float64,
-                      device=data.device)
-    for a in range(0, data.shape[0], rows):
-        s = seg[a:a + rows].long()
-        keep = (s >= 0) & (s < n)
-        out.index_add_(0, s[keep], data[a:a + rows][keep].double())
-    return out.float()
-
-
 def b4_bound_ms(n_rows: int, d: int, n: int) -> float:
-    """B4's byte bound: data and seg read once, out written once."""
+    """B4's byte bound: data (or the gathered rows) and the ids read once,
+    out written once."""
     return 1e3 * (4 * n_rows * d + 4 * n_rows + 4 * n * d) / HBM_BYTES_PER_S
+
+
+def b4_strict_bound_ms(t_rows: int, n_rows: int, d: int, n: int) -> float:
+    """B4's strict byte bound with the row gather fused in: the table read
+    once (only an L2 that held it whole would come near), the ids and the
+    offsets read once, out written once."""
+    return 1e3 * (4 * t_rows * d + 4 * n_rows + 8 * (n + 1) + 4 * n * d) / \
+        HBM_BYTES_PER_S
+
+
+def b4_block_n(n: int) -> int:
+    """The block_n B4's entry resolves for n segments on the card."""
+    import torch
+    from repro_torch import tune
+    return int(tune.resolve("kernels.segment_sum.block_n", None, n=n,
+                            device=torch.device("cuda")))
+
+
+def b4_sweep(call, reps: int) -> dict:
+    """B4's kernel time at each block_n of B4_BLOCK_NS: ``call(block_n)``
+    launches it (the choice of the tuned default)."""
+    return {bn: cuda_ms(lambda: call(bn), reps) for bn in B4_BLOCK_NS}
+
+
+def csr_adjacency(offsets, rows, t_rows: int):
+    """The (M, T) CSR matrix of ones whose product with a (T, d) table is
+    B4 on (offsets, rows): ``torch.sparse.mm``'s yardstick (cuSPARSE
+    SpMM), timed only; an id outside [0, T) gets a 0."""
+    import torch
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    ids = torch.arange(lo, hi, device=offsets.device) if rows is None \
+        else rows[lo:hi].long()
+    ok = (ids >= 0) & (ids < t_rows)
+    return torch.sparse_csr_tensor(offsets - lo, ids.clamp(0, t_rows - 1),
+                                   ok.float(),
+                                   size=(offsets.numel() - 1, t_rows))
+
+
+def b4_repro(label, out, offsets, table, rows, want, again):
+    """The ``[repro]`` line of B4: a second launch on the same inputs
+    (``again()``) gives out's bits, which are the bits of the kernel's
+    order (``ref.segment_sum_pieces_ref``); and a planted fault, the
+    longest row's largest entry dropped, fails the SEG_TOL check."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    bn = b4_block_n(offsets.numel() - 1)
+    same = bool(torch.equal(again(), out))
+    mirror = bool(torch.equal(ref.segment_sum_pieces_ref(
+        table, offsets, rows, block_n=bn), out))
+    hub = int(torch.argmax(offsets[1:] - offsets[:-1]))
+    lo, hi = int(offsets[hub]), int(offsets[hub + 1])
+    ids = torch.arange(lo, hi, device=table.device) if rows is None \
+        else rows[lo:hi].long()
+    faulty = torch.arange(table.shape[0], dtype=torch.int32,
+                          device=table.device) if rows is None \
+        else rows.clone()
+    faulty[lo + int(torch.argmax(table[ids].abs().amax(1)))] = -1
+    bad = ops.segment_sum_csr(table, offsets, faulty)
+    caught = not bool(torch.allclose(bad, want, rtol=SEG_TOL, atol=SEG_TOL))
+    log(f"[repro] {label}: two launches bit-equal: {same}; equal to the "
+        f"kernel order's mirror (block_n {bn}): {mirror}; a planted fault "
+        f"(row {hub}'s {hi - lo} entries less its largest) fails the "
+        f"check: {caught}")
+    if not (same and mirror and caught):
+        fail(f"{label}: B4 is not reproducible, not in its order, or the "
+             f"check passes a fault")
+
+
+def gin_graph():
+    """gin-tu's ogb_products cell: its spec bundle, and the edges of
+    ``uniform_random_graph(n, GIN_DEGREE, seed=0)`` on the card as int32
+    (src, dst) in CSR order, padded with -1 to the cell's edge count;
+    the count of real edges."""
+    import torch
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.core.graph import uniform_random_graph
+    bundle = input_specs(get_config("gin-tu"), GIN_SHAPE)
+    e_pad = bundle.batch["src"].shape[0]
+    g = uniform_random_graph(GNN_SHAPES[GIN_SHAPE]["n"], GIN_DEGREE, seed=0,
+                             device="cuda")
+    src, dst = g.row_ids().to(torch.int32), g.indices.to(torch.int32)
+    e_real = src.numel()
+    if e_real > e_pad:
+        fail(f"gin-tu graph has {e_real} edges, more than the cell's {e_pad}")
+    pad = torch.full((e_pad - e_real,), -1, dtype=torch.int32, device="cuda")
+    return bundle, torch.cat([src, pad]), torch.cat([dst, pad]), e_real
+
+
+def b4_gin_cases(args, gen, called, held) -> list:
+    """Phase 6's gin-tu cases of B4 at ogb_products' widths: GIN's fused
+    gather-and-sum forward at d 100 (layer 0) and d 64, and its backward at
+    d 64, on one EdgePlan of the cell's edges, each held to its plain
+    version (the d 64 forward also to its order's mirror and twice for its
+    bits) and timed beside both bounds, the plain version, torch.sparse.mm
+    on the same CSR of ones and, for the unfused form, index_add_ of the
+    (E, d) messages the port no longer writes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import segment_sum as SS
+    from repro_torch.models import gnn as G
+    t0 = time.perf_counter()
+    bundle, src, dst, e_real = gin_graph()
+    n = bundle.batch["x"].shape[0]
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+
+    def build():
+        p = G.EdgePlan(src, dst, n, n)
+        p.form("dst")
+        p.form("src")
+        return p
+    plan_ms = cuda_ms(build, 2, 1)
+    plan = build()
+    log(f"[time] B4 gin-tu {GIN_SHAPE}: graph {graph_s!r} s; an EdgePlan "
+        f"of its {src.numel()} edges (both forms: one stable sort of the "
+        f"destinations, the sources already in order) {plan_ms!r} ms")
+    mdst = plan.dst
+    cases = []
+    for name, d, by in (("fused forward, d 100", 100, "dst"),
+                        ("fused forward, d 64", 64, "dst"),
+                        ("fused backward, d 64", 64, "src")):
+        offsets, rows = plan.form(by)
+        table = torch.randn(n, d, device="cuda", generator=gen)
+        label = f"B4 gin-tu {GIN_SHAPE} {name}"
+        got, cnt = called(SS, "segment_sum", lambda: ops.segment_sum_csr(
+            table, offsets, rows))
+        want = ref.segment_sum_csr_ref(table, offsets, rows)
+        err = held("segment_sum", label, got, want, SEG_TOL)
+        if name == "fused forward, d 64":
+            b4_repro(label, got, offsets, table, rows, want,
+                     lambda: ops.segment_sum_csr(table, offsets, rows))
+        del got, want
+        e = int(offsets[-1] - offsets[0])
+        adj = csr_adjacency(offsets, rows, n)
+        case = dict(
+            shape=label, launches=cnt, max_abs_err=err,
+            ms=cuda_ms(lambda: ops.segment_sum_csr(table, offsets, rows),
+                       args.reps),
+            plain_ms=cuda_ms(lambda: ref.segment_sum_csr_ref(
+                table, offsets, rows), 2, 1),
+            bound_ms=b4_bound_ms(e, d, n),
+            strict_bound_ms=b4_strict_bound_ms(n, e, d, n), bound_by="bytes",
+            library_ms=cuda_ms(lambda: torch.sparse.mm(adj, table), 3, 1),
+            plan_ms=plan_ms, split_rows=SS.split_rows(offsets, b4_block_n(n)))
+        if name == "fused forward, d 64":
+            case["block_n_ms"] = b4_sweep(lambda bn: ops.segment_sum_csr(
+                table, offsets, rows, block_n=bn), args.reps)
+        del adj
+        # the unfused form: the (E, d) messages, then index_add_ of them
+        ids, key = (src, mdst) if by == "dst" else (mdst, src)
+        msg = table[ids.clamp(min=0).long()].masked_fill_((ids < 0)[:, None],
+                                                          0)
+        safe = torch.where((key >= 0) & (key < n), key, n).long()
+        acc = torch.zeros(n + 1, d, device="cuda")
+        case["index_add_ms"] = cuda_ms(lambda: acc.index_add_(0, safe, msg),
+                                       3, 1)
+        del msg, safe, acc, table
+        torch.cuda.empty_cache()
+        log(f"[time] segment_sum {label}: kernel {case['ms']!r} ms, plain "
+            f"{case['plain_ms']!r} ms, bound {case['bound_ms']!r} ms "
+            f"(strict {case['strict_bound_ms']!r}), torch.sparse.mm "
+            f"{case['library_ms']!r} ms, index_add_ of the messages "
+            f"{case['index_add_ms']!r} ms; {case['split_rows']} rows split"
+            + (f"; by block_n {case['block_n_ms']}" if "block_n_ms" in case
+               else ""))
+        cases.append(case)
+    return cases
 
 
 def _smoke_batch(ac, cfg) -> dict:
@@ -2866,13 +3065,12 @@ def train_phase(args, smi: str) -> dict:
     from repro_torch.configs import get_config, input_specs
     from repro_torch.configs.common import (GNN_SHAPES, SpecBundle,
                                             init_params, make_step)
-    from repro_torch.core.graph import uniform_random_graph
     from repro_torch.data import synthetic
     from repro_torch.distributed.fault_tolerance import (
         FTConfig, SimulatedFailure, run_training)
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import segment_sum as SS
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adamw
@@ -2984,25 +3182,19 @@ def train_phase(args, smi: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ac = get_config("gin-tu")
-    bundle = input_specs(ac, GIN_SHAPE)
+    t0 = time.perf_counter()
+    bundle, src, dst, e_real = gin_graph()
     cfg, spec = bundle.model, bundle.batch
     n_real = GNN_SHAPES[GIN_SHAPE]["n"]
     (n_pad, n_feat), e_pad = spec["x"].shape, spec["src"].shape[0]
-    t0 = time.perf_counter()
-    g = uniform_random_graph(n_real, GIN_DEGREE, seed=0, device="cuda")
-    src, dst = g.row_ids().to(torch.int32), g.indices.to(torch.int32)
-    e_real = src.numel()
-    if e_real > e_pad:
-        fail(f"gin-tu graph has {e_real} edges, more than the cell's {e_pad}")
-    pad = torch.full((e_pad - e_real,), -1, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = {"x": torch.randn(n_pad, n_feat, generator=gen, device="cuda"),
-             "src": torch.cat([src, pad]), "dst": torch.cat([dst, pad]),
+             "src": src, "dst": dst,
              "labels": torch.randint(0, cfg.n_classes, (n_pad,),
                                      generator=gen, device="cuda",
                                      dtype=torch.int32),
              "label_mask": torch.arange(n_pad, device="cuda") < n_real}
-    del g, src, dst, pad
+    del src, dst
     for k, s in spec.items():
         if tuple(batch[k].shape) != tuple(s.shape) or \
                 batch[k].dtype != s.dtype:
@@ -3014,42 +3206,46 @@ def train_phase(args, smi: str) -> dict:
         f"in {time.perf_counter() - t0!r} s")
     state = adamw.init_state(init_params(ac, cfg, 0, device="cuda"))
     step = make_step(ac, bundle, rules, fast)
-    orig = ops.segment_sum_sorted
-    calls, kinds = [], {}
+    orig = ops.segment_sum_csr
+    calls, kinds, first = [], {}, []
 
-    def checked(data, seg, n, **kw):
+    def checked(table, offsets, rows=None, **kw):
         """B4 as the step calls it, then held to its plain version; the
-        first call of each kind (width, sorted ids or not) also timed
-        beside ``index_add_`` on the same inputs.  The launches made to
+        first call of each kind (width; edges grouped by destination, the
+        forward, or by source, the backward) also timed beside
+        ``torch.sparse.mm`` on the same CSR of ones.  The launches made to
         check or time are taken back out of the count."""
-        got = orig(data, seg, n, **kw)
+        got = orig(table, offsets, rows, **kw)
         kept = SS.LAUNCHES["segment_sum"]
-        want = plain_segment_sum(data, seg, n)
+        want = ref.segment_sum_csr_ref(table, offsets, rows)
         d = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, rtol=SEG_TOL, atol=SEG_TOL))
         del want
-        live = seg[seg >= 0]
-        srt = bool((live[1:] >= live[:-1]).all())
-        del live
-        kind = f"d {data.shape[1]}, {'sorted' if srt else 'unsorted'} ids"
-        calls.append(dict(rows=data.shape[0], d=data.shape[1], kind=kind,
+        # the step's first B4 call is layer 0's forward, by destination
+        first[:] = first or [offsets.data_ptr()]
+        by = "destination (forward)" if offsets.data_ptr() == first[0] \
+            else "source (backward)"
+        kind = f"d {table.shape[1]}, by {by}"
+        calls.append(dict(rows=table.shape[0], d=table.shape[1], kind=kind,
                           err=d, ok=ok))
         if kind not in kinds:
-            safe = torch.where((seg >= 0) & (seg < n), seg, n).long()
-            lib = torch.zeros((n + 1, data.shape[1]), device="cuda")
+            m, e = offsets.numel() - 1, int(offsets[-1] - offsets[0])
+            adj = csr_adjacency(offsets, rows, table.shape[0])
             kinds[kind] = dict(
-                ms=cuda_ms(lambda: orig(data, seg, n, **kw), 3, 1),
-                library_ms=cuda_ms(lambda: lib.index_add_(0, safe, data),
-                                   3, 1),
-                bound_ms=b4_bound_ms(data.shape[0], data.shape[1], n))
-            del safe, lib
+                ms=cuda_ms(lambda: orig(table, offsets, rows, **kw), 3, 1),
+                library_ms=cuda_ms(lambda: torch.sparse.mm(adj, table), 3,
+                                   1),
+                bound_ms=b4_bound_ms(e, table.shape[1], m),
+                strict_bound_ms=b4_strict_bound_ms(table.shape[0], e,
+                                                   table.shape[1], m))
+            del adj
         SS.LAUNCHES["segment_sum"] = kept
         return got
 
     gin = {"losses": [], "walls": [], "b4": []}
     for i in range(GIN_STEPS):
         if i == 0:
-            with mock.patch.object(ops, "segment_sum_sorted", checked):
+            with mock.patch.object(ops, "segment_sum_csr", checked):
                 state, m, wall, b4, _ = counted_step(step, state, batch)
         elif i == GIN_STEPS - 1:
             res = {}
@@ -3067,8 +3263,9 @@ def train_phase(args, smi: str) -> dict:
     b4_main += sum(gin["b4"])
     gin["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     gin["kinds"], gin["calls"] = kinds, calls
-    # a step's B4 calls at their kind's kernel, index_add_ and bound times
-    for key in ("ms", "library_ms", "bound_ms"):
+    # a step's B4 calls at their kind's kernel, torch.sparse.mm and bound
+    # times
+    for key in ("ms", "library_ms", "bound_ms", "strict_bound_ms"):
         gin[f"b4_{key}_per_step"] = sum(kinds[c["kind"]][key] for c in calls)
     # per layer: the forward's segment sum, its recompute, the gather's
     # backward; layer 0 gathers the input features, which take no gradient
@@ -3084,14 +3281,21 @@ def train_phase(args, smi: str) -> dict:
         f"of the input features)")
     for kind, t in kinds.items():
         log(f"[time] gin-tu B4 {kind}: kernel {t['ms']!r} ms, bound "
-            f"{t['bound_ms']!r} ms, index_add_ {t['library_ms']!r} ms")
+            f"{t['bound_ms']!r} ms (strict {t['strict_bound_ms']!r}), "
+            f"torch.sparse.mm {t['library_ms']!r} ms")
     log(f"[time] gin-tu a step's {len(calls)} B4 calls: kernel "
         f"{gin['b4_ms_per_step']!r} ms, bound {gin['b4_bound_ms_per_step']!r}"
-        f" ms, index_add_ {gin['b4_library_ms_per_step']!r} ms")
+        f" ms (strict {gin['b4_strict_bound_ms_per_step']!r}), "
+        f"torch.sparse.mm {gin['b4_library_ms_per_step']!r} ms")
     p = gin["profile"]
+    # an (E, d) message, however many launches write it, takes at least
+    # its bytes over the memory rate: the step's gathers must take less
+    gin["message_write_ms"] = 1e3 * 4 * e_pad * cfg.d_hidden / \
+        HBM_BYTES_PER_S
     log(f"[train] gin-tu step {GIN_STEPS} profiled: device {p['device_ms']!r}"
         f" ms, B4 {p['b4_ms']!r} ms over {p['b4_kernels']} kernels, matrix "
-        f"products {p['matmul_ms']!r} ms, {p['kernels']} kernels, "
+        f"products {p['matmul_ms']!r} ms, gathers {p['gather_ms']!r} ms over "
+        f"{p['gather_kernels']} kernels, {p['kernels']} kernels, "
         f"{p['host_ops']} top-level aten ops")
     for name, ms, cnt in p["top"]:
         log(f"[train]   {ms!r} ms in {cnt} x {name}")
@@ -3106,6 +3310,12 @@ def train_phase(args, smi: str) -> dict:
         fail(f"gin-tu: B4 launches per step {gin['b4']}")
     if not gin["losses"][-1] < gin["losses"][0]:
         fail(f"gin-tu: the loss did not fall: {gin['losses']}")
+    log(f"[check] train gin-tu: the profiled step's gather kernels take "
+        f"{p['gather_ms']!r} ms in all, under the {gin['message_write_ms']!r}"
+        f" ms one ({e_pad}, {cfg.d_hidden}) f32 message takes to write: "
+        f"no (E, d) message is gathered")
+    if p["gather_ms"] is None or p["gather_ms"] >= gin["message_write_ms"]:
+        fail("gin-tu: the step still gathers (E, d) messages")
     out["gin"] = gin
     del state, step, batch
     torch.cuda.empty_cache()
@@ -3125,16 +3335,19 @@ def train_phase(args, smi: str) -> dict:
         bad = [k for k, p in named.items()
                if p.grad is None or not bool(torch.isfinite(p.grad).all())]
         loss = float(m["loss"])
-        row = dict(loss=loss, wall_s=wall, b4=b4, params=sum(
-            p.numel() for p in named.values()),
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        # a second step, warm: the first pays each kernel's first load
+        state, _, warm, b4_warm, _ = counted_step(step, state, batch)
+        b4_main += b4_warm
+        row = dict(loss=loss, wall_s=wall, warm_wall_s=warm, b4=b4,
+                   params=sum(p.numel() for p in named.values()),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         out["molecule"][arch] = row
         log(f"[train] molecule {arch}: {row['params']} parameters, loss "
-            f"{loss!r}, step {wall!r} s, B4 launches {b4}, peak "
-            f"{row['peak_gib']:.2f} GiB")
-        if not math.isfinite(loss) or bad or b4 == 0:
+            f"{loss!r}, step {wall!r} s (a second step {warm!r} s), B4 "
+            f"launches {b4} ({b4_warm}), peak {row['peak_gib']:.2f} GiB")
+        if not math.isfinite(loss) or bad or b4 == 0 or b4_warm != b4:
             fail(f"molecule {arch}: loss {loss}, bad gradients {bad[:4]}, "
-                 f"B4 launches {b4}")
+                 f"B4 launches {b4} then {b4_warm}")
         del state, step, batch
         torch.cuda.empty_cache()
 
@@ -3754,7 +3967,9 @@ def main() -> int:
         kinds=gin["kinds"], profiled_step=gin["profile"],
         ms_per_step=gin["b4_ms_per_step"],
         bound_ms_per_step=gin["b4_bound_ms_per_step"],
-        index_add_ms_per_step=gin["b4_library_ms_per_step"],
+        strict_bound_ms_per_step=gin["b4_strict_bound_ms_per_step"],
+        library_ms_per_step=gin["b4_library_ms_per_step"],
+        gather_ms_profiled=gin["profile"]["gather_ms"],
         max_abs_err=max(c["err"] for c in gin["calls"])))
     err["segment_sum"] = max(err["segment_sum"],
                              max(c["err"] for c in gin["calls"]))

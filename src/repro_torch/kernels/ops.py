@@ -16,8 +16,8 @@ from . import flash_attention as _fa
 from . import segment_sum as _ss
 from . import spmv_dma as _spmv
 
-__all__ = ["spmv_dma", "spmspv_dma", "segment_sum_sorted", "embedding_bag",
-           "flash_attention"]
+__all__ = ["spmv_dma", "spmspv_dma", "segment_sum_sorted", "segment_sum_csr",
+           "embedding_bag", "flash_attention"]
 
 
 def spmv_dma(bb: BBCSR, x: torch.Tensor) -> torch.Tensor:
@@ -39,14 +39,32 @@ def segment_sum_sorted(data: torch.Tensor, seg: torch.Tensor,
                        block_n: Optional[int] = None) -> torch.Tensor:
     """Segment sum of data (N, d) by seg (N,) into (num_segments, d)
     float32; seg = -1 rows are dropped.  Sorted ids are the contract of the
-    reference; the kernel takes any order and any size.
+    reference; the port takes any order and any size: on CUDA tensors a plan
+    of seg (:class:`.segment_sum.SegmentPlan`), then B4 on data's rows in
+    plan order.
 
-    block_n: rows one CTA walks; None takes the tuned value
-    (:mod:`repro_torch.tune`; an explicit value wins)."""
+    block_n: see :func:`segment_sum_csr`."""
     block_n = int(_tune.resolve("kernels.segment_sum.block_n", block_n,
                                 n=num_segments, device=data.device))
     return _ss.segment_sum_kernel_call(data, seg, num_segments,
                                        block_n=block_n)
+
+
+def segment_sum_csr(table: torch.Tensor, offsets: torch.Tensor,
+                    rows: Optional[torch.Tensor] = None, *,
+                    block_n: Optional[int] = None) -> torch.Tensor:
+    """B4 as a CSR row reduction with an optional row gather: out (M, d)
+    float32, out[s] = the sum of table's rows rows[j] (None: row j) for j
+    in [offsets[s], offsets[s + 1]), in the order of j; a rows[j] outside
+    [0, len(table)) adds 0.  A :class:`.segment_sum.SegmentPlan` gives
+    offsets and the order of a segment-id stream.
+
+    block_n: the rows plus entries one group of lanes walks before a row is
+    cut into pieces (:func:`.segment_sum.segment_sum_csr_call`); None takes
+    the tuned value (:mod:`repro_torch.tune`; an explicit value wins)."""
+    block_n = int(_tune.resolve("kernels.segment_sum.block_n", block_n,
+                                n=offsets.numel() - 1, device=table.device))
+    return _ss.segment_sum_csr_call(table, offsets, rows, block_n=block_n)
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, bag: torch.Tensor,

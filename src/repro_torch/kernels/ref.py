@@ -16,7 +16,8 @@ import torch
 from ..core.graph import BBCSR
 
 __all__ = ["spmv_bbcsr_ref", "spmspv_bbcsr_ref", "combine_identity",
-           "segment_sum_ref", "segment_or_ref", "run_sum_ref",
+           "segment_sum_ref", "segment_sum_csr_ref", "segment_sum_pieces_ref",
+           "segment_or_ref", "run_sum_ref",
            "segment_mode_ref", "embedding_bag_ref",
            "embedding_bag_pieces_ref",
            "attention_mask",
@@ -98,6 +99,81 @@ def segment_sum_ref(data: torch.Tensor, seg: torch.Tensor,
                       dtype=torch.float64, device=data.device)
     out.index_add_(0, seg[keep].long(), data[keep].double())
     return out.float()
+
+
+def segment_sum_csr_ref(table: torch.Tensor, offsets: torch.Tensor,
+                        rows: Optional[torch.Tensor] = None, *,
+                        block: int = 1 << 22) -> torch.Tensor:
+    """out[s] = sum over j in [offsets[s], offsets[s + 1]) of
+    table[rows[j]] (rows None: table[j]); a rows[j] outside
+    [0, len(table)) adds 0.  (T, d) -> (M, d) float32 for offsets (M + 1,),
+    accumulated in float64 over blocks of ``block`` entries, so a stream of
+    tens of millions of gathered rows is never copied whole."""
+    m = offsets.numel() - 1
+    t = table.shape[0]
+    out = torch.zeros((m,) + tuple(table.shape[1:]), dtype=torch.float64,
+                      device=table.device)
+    offsets = offsets.long()
+    lo, hi = (int(v) for v in offsets[[0, -1]])
+    for a in range(lo, hi, block):
+        j = torch.arange(a, min(a + block, hi), device=table.device)
+        seg = torch.searchsorted(offsets, j, right=True) - 1
+        ids = j if rows is None else rows[j].long()
+        keep = (ids >= 0) & (ids < t)
+        out.index_add_(0, seg[keep], table[ids[keep]].double())
+    return out.float()
+
+
+def segment_sum_pieces_ref(table: torch.Tensor, offsets: torch.Tensor,
+                           rows: Optional[torch.Tensor] = None, *,
+                           block_n: int) -> torch.Tensor:
+    """:func:`segment_sum_csr_ref` in the CUDA kernel's f32 order, for its
+    bits: the path of row ends and entries is cut into shares of block_n
+    items; each piece of a row (its entries within one share) is summed in
+    the order of j from 0, and a row's pieces are added in share order.  A
+    dropped id adds 0.  Loops over the positions within a piece (at most
+    block_n), each loop one add per piece."""
+    m = offsets.numel() - 1
+    dev = table.device
+    out = torch.zeros((m,) + tuple(table.shape[1:]), dtype=torch.float32,
+                      device=dev)
+    o = offsets.long()
+    lo, hi = (int(v) for v in o[[0, -1]])
+    if hi <= lo:
+        return out
+    j = torch.arange(lo, hi, device=dev)
+    r = torch.searchsorted(o, j, right=True) - 1
+    ids = j if rows is None else rows[j].long()
+    keep = (ids >= 0) & (ids < table.shape[0])
+    vals = torch.zeros((j.numel(),) + tuple(table.shape[1:]),
+                       dtype=torch.float32, device=dev)
+    vals[keep] = table[ids[keep]].float()
+    share = (r + j - lo) // block_n
+    new = torch.ones_like(keep)
+    new[1:] = (r[1:] != r[:-1]) | (share[1:] != share[:-1])
+    piece = torch.cumsum(new.long(), 0) - 1
+    first = torch.nonzero(new)[:, 0]
+    sums = torch.zeros((first.numel(),) + tuple(table.shape[1:]),
+                       dtype=torch.float32, device=dev)
+    for sel in _by_rank(torch.arange(j.numel(), device=dev) - first[piece]):
+        sums.index_add_(0, piece[sel], vals[sel])
+    owner = r[first]
+    lead = torch.ones_like(owner, dtype=torch.bool)
+    lead[1:] = owner[1:] != owner[:-1]
+    rank = torch.arange(owner.numel(), device=dev) - \
+        torch.nonzero(lead)[:, 0][torch.cumsum(lead.long(), 0) - 1]
+    for sel in _by_rank(rank):
+        out.index_add_(0, owner[sel], sums[sel])
+    return out
+
+
+def _by_rank(rank: torch.Tensor):
+    """The positions of rank 0, then of rank 1, ...: each position once."""
+    order = torch.sort(rank, stable=True).indices
+    at = 0
+    for c in torch.bincount(rank).tolist():
+        yield order[at:at + c]
+        at += c
 
 
 def segment_or_ref(idx: torch.Tensor, words: torch.Tensor,

@@ -2,15 +2,22 @@
 (counterpart of ``repro.models.gnn``), forward, loss and gradients.
 
 Message passing is a gather of node (or edge) rows and a segment sum of
-messages into their destinations.  Both are autograd Functions over the
-B4 kernel (``csrc/segment_sum.cu``, through ``kernels.ops
-.segment_sum_sorted``): :func:`segment_sum`'s forward is B4 and its
-backward a gather; :func:`gather_rows`' forward is a gather and its
-backward B4.  On CPU tensors B4's wrapper computes the plain version, on
-CUDA tensors it launches the kernel or raises.  B4 takes ids in any order,
-so a CSR-ordered destination stream needs no sort.  The segment max of
-the softmaxes is ``scatter_reduce('amax')`` and is kept out of the graph:
-a softmax does not depend on the shift, so its gradient cancels.
+messages into their destinations, over the B4 kernel
+(``csrc/segment_sum.cu``, a CSR row reduction with an optional row
+gather, through ``kernels.ops.segment_sum_csr``) under autograd.  GIN's
+layer is :func:`gather_segment_sum`: one B4 launch gathers and sums the
+source rows of each destination, so the (E, d) messages are never
+written, and its backward is one B4 launch over the edges by source.  The
+other GNNs compute per-edge messages: :func:`segment_sum`'s forward is B4
+and its backward a gather; :func:`gather_rows`' forward is a gather and
+its backward B4.  Each B4 reads an id stream's plan (``SegmentPlan``,
+``EdgePlan``: one stable sort and the offsets), built at first use; a
+forward builds one plan per id stream and reuses it over its layers, the
+recompute and the backward.  On CPU tensors B4's wrapper computes the
+plain version, on CUDA tensors it launches the kernel or raises.  The
+segment max of the softmaxes is ``scatter_reduce('amax')`` and is kept out
+of the graph: a softmax does not depend on the shift, so its gradient
+cancels.
 
 Parameters are a nested dict / list tree with the reference's names;
 where the reference stacks identical layers (``layers``, ``blocks``) for
@@ -41,10 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from ..core.graph import resolve_device
 from ..distributed.sharding import MeshRules, make_rules
 from ..kernels import ops
+from ..kernels.segment_sum import SegmentPlan
 
 __all__ = ["GNNConfig", "init_params", "forward", "loss_fn", "segment_sum",
-           "gather_rows", "gather_nodes", "scatter_add_nodes",
-           "params_from_reference", "batch_to"]
+           "gather_rows", "gather_segment_sum", "EdgePlan", "gather_nodes",
+           "scatter_add_nodes", "params_from_reference", "batch_to"]
 
 _MESH = ("gathers and scatters over a mesh (the DGAS exchange) are not "
          "ported yet: they wait for rules over a mesh (ROADMAP §A.9, "
@@ -86,27 +94,42 @@ class GNNConfig:
 # B4 under autograd
 # ---------------------------------------------------------------------------
 
-def _b4(data: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """B4 on data (N, ...) -> (n, ...) f32; ids outside [0, n) dropped."""
-    rows = data.reshape(data.shape[0], -1)
-    out = ops.segment_sum_sorted(rows, seg, n)
-    return out.reshape((n,) + tuple(data.shape[1:]))
+def _b4(table: torch.Tensor, offsets: torch.Tensor,
+        rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """B4 on table (T, ...) -> (M, ...) f32 for offsets (M + 1,): each
+    output row the sum of table's rows rows[j] (None: row j) over its
+    entries; ids outside [0, T) add 0."""
+    flat = table.reshape(table.shape[0], -1)
+    out = ops.segment_sum_csr(flat, offsets, rows)
+    return out.reshape((offsets.numel() - 1,) + tuple(table.shape[1:]))
 
 
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] in one pass, 0 where idx is outside [0, len(table)):
-    the table gets one zero row, and those ids point at it."""
+    """table[idx], 0 where idx is outside [0, len(table)): the clamped ids
+    gathered, then the dropped rows zeroed (no copy of the table)."""
     n = table.shape[0]
-    ext = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
-    safe = torch.where((idx >= 0) & (idx < n), idx, n).long()
-    return ext[safe]
+    if n == 0:
+        return table.new_zeros((idx.shape[0],) + tuple(table.shape[1:]))
+    out = table.index_select(0, idx.clamp(0, n - 1))
+    drop = (idx < 0) | (idx >= n)
+    return out.masked_fill_(drop.reshape((-1,) + (1,) * (out.dim() - 1)), 0)
+
+
+def _plan(seg: torch.Tensor, n: int,
+          plan: Optional[SegmentPlan]) -> SegmentPlan:
+    if plan is None:
+        return SegmentPlan(seg, n)
+    if plan.n != n or plan.seg.shape != seg.shape:
+        raise ValueError(f"plan of {tuple(plan.seg.shape)} ids over {plan.n} "
+                         f"segments given for {tuple(seg.shape)} over {n}")
+    return plan
 
 
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, seg, n):
+    def forward(ctx, data, seg, plan):
         ctx.save_for_backward(seg)
-        return _b4(data, seg, n)
+        return _b4(data, plan.offsets, plan.perm)
 
     @staticmethod
     def backward(ctx, grad):
@@ -116,48 +139,114 @@ class _SegmentSum(torch.autograd.Function):
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.n = table.shape[0]
+    def forward(ctx, table, idx, plan):
+        ctx.plan = plan
         return _take(table, idx)
 
     @staticmethod
     def backward(ctx, grad):
-        idx, = ctx.saved_tensors
-        return _b4(grad, idx, ctx.n), None
+        plan = ctx.plan
+        return _b4(grad, plan.offsets, plan.perm), None, None
 
 
-def segment_sum(data: torch.Tensor, seg: torch.Tensor,
-                n: int) -> torch.Tensor:
+class EdgePlan:
+    """An edge set (src, dst) in the two CSR forms of
+    :func:`gather_segment_sum`, each built at first use and kept: by
+    destination for the forward (rows: the sources), by source for its VJP
+    (rows: the destinations).  An edge with src -1 is dropped on both
+    sides, as the reference's ``msg * valid`` with
+    ``jnp.where(src >= 0, dst, -1)`` drops it.  Holds index tensors only."""
+
+    def __init__(self, src: torch.Tensor, dst: torch.Tensor, n_src: int,
+                 n_dst: int):
+        self.n_src, self.n_dst = int(n_src), int(n_dst)
+        self.src, self.dst = src, torch.where(src >= 0, dst, -1)
+        self._plans = {"dst": SegmentPlan(self.dst, n_dst),
+                       "src": SegmentPlan(src, n_src)}
+        self._forms: dict = {}
+
+    def form(self, by: str):
+        """(offsets, rows) of the edges grouped by ``by`` ('dst' or
+        'src'), rows being the other end of each edge."""
+        if by not in self._forms:
+            plan = self._plans[by]
+            rows = self.src if by == "dst" else self.dst
+            perm = plan.perm
+            self._forms[by] = (plan.offsets, rows if perm is None
+                               else rows.index_select(0, perm))
+        return self._forms[by]
+
+
+class _GatherSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _b4(x, *plan.form("dst"))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _b4(grad, *ctx.plan.form("src")), None
+
+
+def segment_sum(data: torch.Tensor, seg: torch.Tensor, n: int,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """out[s] = sum of data's rows with seg == s, (n, ...) f32; ids
-    outside [0, n), such as -1, are dropped.  Forward B4; backward
-    grad[seg], 0 for a dropped row (``jax.ops.segment_sum``'s VJP)."""
-    return _SegmentSum.apply(data.to(torch.float32), seg, n)
+    outside [0, n), such as -1, are dropped.  Forward B4 on data's rows in
+    the order of ``plan`` (``SegmentPlan(seg, n)``, built here when None);
+    backward grad[seg], 0 for a dropped row (``jax.ops.segment_sum``'s
+    VJP)."""
+    return _SegmentSum.apply(data.to(torch.float32), seg,
+                             _plan(seg, n, plan))
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """table[idx], 0 where idx is outside [0, len(table)).  Backward: B4
-    of the gradient's rows by idx (the gather's VJP, a scatter-add)."""
-    return _GatherRows.apply(table, idx)
+    of the gradient's rows by idx (the gather's VJP, a scatter-add) in the
+    order of ``plan`` (``SegmentPlan(idx, len(table))``, built at first
+    use when None)."""
+    return _GatherRows.apply(table, idx, _plan(idx, table.shape[0], plan))
+
+
+def gather_segment_sum(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                       n: int, plan: Optional[EdgePlan] = None) -> torch.Tensor:
+    """out[v] = the sum of x[src[e]] over the edges e with dst[e] == v and
+    src[e] >= 0, (n, ...) f32; a src outside [0, len(x)) adds 0, a dst
+    outside [0, n) is dropped.  The reference's ``scatter_add_nodes(n,
+    where(src >= 0, dst, -1), gather_nodes(x, src) * valid)`` as one B4
+    launch with the row gather fused in, so the (E, ...) messages are never
+    written; its VJP with respect to x is one B4 launch over the edges by
+    source, gathering the gradient's rows by destination.  plan:
+    ``EdgePlan(src, dst, len(x), n)``, built here when None; pass one to
+    reuse its sort over layers, the recompute and the backward."""
+    if plan is None:
+        plan = EdgePlan(src, dst, x.shape[0], n)
+    elif (plan.n_src, plan.n_dst) != (x.shape[0], n):
+        raise ValueError(f"plan over ({plan.n_src}, {plan.n_dst}) nodes given "
+                         f"for ({x.shape[0]}, {n})")
+    return _GatherSegmentSum.apply(x.to(torch.float32), plan)
 
 
 def gather_nodes(cfg: GNNConfig, x: torch.Tensor, idx: torch.Tensor,
-                 rules: MeshRules) -> torch.Tensor:
-    """x[idx] with padding (-1 -> 0 rows)."""
+                 rules: MeshRules,
+                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+    """x[idx] with padding (-1 -> 0 rows); plan: see :func:`gather_rows`."""
     if rules.mesh is not None:
         raise NotImplementedError(_MESH)
-    return gather_rows(x, idx)
+    return gather_rows(x, idx, plan)
 
 
 def scatter_add_nodes(cfg: GNNConfig, dest, idx: torch.Tensor,
-                      vals: torch.Tensor, rules: MeshRules) -> torch.Tensor:
+                      vals: torch.Tensor, rules: MeshRules,
+                      plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """dest + the segment sum of vals by idx (idx < 0 dropped); dest an
-    int n for a fresh zero buffer.  Out of place, so autograd sees it."""
+    int n for a fresh zero buffer.  Out of place, so autograd sees it.
+    plan: see :func:`segment_sum`."""
     if rules.mesh is not None:
         raise NotImplementedError(_MESH)
     if isinstance(dest, int):
-        return segment_sum(vals, idx, dest)
-    return dest + segment_sum(vals, idx, dest.shape[0])
+        return segment_sum(vals, idx, dest, plan)
+    return dest + segment_sum(vals, idx, dest.shape[0], plan)
 
 
 # ---------------------------------------------------------------------------
@@ -210,12 +299,14 @@ def _segment_max(scores, seg, n):
                                "amax", include_self=True)
 
 
-def _edge_head_softmax(alpha, valid, dst, n, n_heads):
+def _edge_head_softmax(alpha, valid, dst, n, n_heads, plan=None):
+    """plan: ``SegmentPlan(where(valid, dst, n), n + 1)``, built here when
+    None."""
     safe = torch.where(valid, dst, n)
     smax = _segment_max(torch.where(valid[:, None], alpha, -1e30), safe,
                         n + 1)
     ex = torch.exp(alpha - smax[safe.long()]) * valid[:, None]
-    den = segment_sum(ex, safe, n + 1)
+    den = segment_sum(ex, safe, n + 1, plan)
     return ex / torch.clamp(den[safe.long()], min=1e-20)
 
 
@@ -243,12 +334,15 @@ def _gin_forward(cfg, params, batch, rules):
     x = batch["x"].to(torch.float32)
     src, dst = batch["src"], batch["dst"]
     n = x.shape[0]
-    mdst = torch.where(src >= 0, dst, -1)
+    if rules.mesh is not None:
+        raise NotImplementedError(_MESH)
+    # one sort of the edges for every layer, its recompute and backward
+    plan = EdgePlan(src, dst, n, n)
 
     def layer(lyr, x):
-        # gather gives 0 for src -1: the reference's `* valid`
-        msg = gather_nodes(cfg, x, src, rules)
-        agg = scatter_add_nodes(cfg, n, mdst, msg, rules)
+        # the reference's scatter_add(where(src >= 0, dst, -1),
+        # gather(x, src) * valid) in one B4 launch
+        agg = gather_segment_sum(x, src, dst, n, plan)
         x = _mlp(lyr["mlp"], (1.0 + lyr["eps"]) * x + agg)
         return rules.constrain(_rmsnorm(x, lyr["ln"]), "nodes", None)
 
@@ -279,17 +373,19 @@ def _gatedgcn_forward(cfg, params, batch, rules):
     e = params["edge_embed"].expand(src.shape[0], d)
     valid = (src >= 0)[:, None]
     mdst = torch.where(src >= 0, dst, -1)
+    p_src, p_dst, p_mdst = (SegmentPlan(ids, n) for ids in (src, dst, mdst))
 
     def layer(lyr, h, e):
-        hs = gather_nodes(cfg, h, src, rules)
-        hd = gather_nodes(cfg, h, dst, rules)
+        hs = gather_nodes(cfg, h, src, rules, p_src)
+        hd = gather_nodes(cfg, h, dst, rules, p_dst)
         e_new = e + F.relu(_rmsnorm(e @ lyr["C"] + hd @ lyr["D"]
                                     + hs @ lyr["E"], lyr["ln_e"]))
         eta = torch.sigmoid(e_new)
         msg = (eta * (hs @ lyr["B"])) * valid
         # numerator and denominator in one segment sum (columns apart)
         both = scatter_add_nodes(cfg, n, mdst,
-                                 torch.cat([msg, eta * valid], -1), rules)
+                                 torch.cat([msg, eta * valid], -1), rules,
+                                 p_mdst)
         agg = both[:, :d] / (both[:, d:] + 1e-6)
         h = h + F.relu(_rmsnorm(h @ lyr["A"] + agg, lyr["ln_h"]))
         return (rules.constrain(h, "nodes", None),
@@ -363,27 +459,34 @@ def _dimenet_forward(cfg, params, batch, rules):
 
     t_kj, t_ji, angle = batch["triplet_kj"], batch["triplet_ji"], batch["angle"]
     T = t_kj.shape[0]
-    tri_chunks = _chunks(cfg.triplet_chunk or T, T, t_kj, t_ji, angle)
+    # per chunk: ji masked to the valid triplets, and the plans of kj (the
+    # gather's backward) and of masked ji (the scatter), kept for every block
+    tri_chunks = [(kj, torch.where(kj >= 0, ji, -1), ang)
+                  for kj, ji, ang in _chunks(cfg.triplet_chunk or T, T, t_kj,
+                                             t_ji, angle)]
+    tri_plans = [(SegmentPlan(kj, E), SegmentPlan(mji, E))
+                 for kj, mji, _ in tri_chunks]
     out_dst = torch.where(valid_e, dst, -1)
+    p_out = SegmentPlan(out_dst, n)
 
     def block(blk, m, node_out):
         # triplet gather: message of edge kj modulated by the angular basis
         # -> edge ji, in chunks so the (T, d) intermediates stay bounded
         agg = None
-        for kj, ji, ang in tri_chunks:
+        for (kj, mji, ang), (p_kj, p_ji) in zip(tri_chunks, tri_plans):
             vt = kj >= 0
             sbf = _sbf(gather_nodes(cfg, dist, kj, rules), ang, cfg.n_radial,
                        cfg.n_spherical, cfg.cutoff) * vt[:, None]
-            m_kj = gather_nodes(cfg, m, kj, rules)
+            m_kj = gather_nodes(cfg, m, kj, rules, p_kj)
             tri = (m_kj @ blk["w_kj"]) * (sbf @ blk["w_sbf"])
             tri = (tri @ blk["w_bil"]) * vt[:, None]
-            agg = scatter_add_nodes(cfg, E if agg is None else agg,
-                                    torch.where(vt, ji, -1), tri, rules)
+            agg = scatter_add_nodes(cfg, E if agg is None else agg, mji, tri,
+                                    rules, p_ji)
         m = m + _mlp(blk["mlp"], m * (rbf @ blk["w_rbf"]) + agg)
         m = rules.constrain(m * valid_e[:, None], "edges", None)
         # per-block output: edges -> dst nodes
         node_out = node_out + scatter_add_nodes(
-            cfg, n, out_dst, _mlp(blk["out"], m), rules)
+            cfg, n, out_dst, _mlp(blk["out"], m), rules, p_out)
         return m, node_out
 
     node_out = x.new_zeros((n, d))
@@ -466,24 +569,31 @@ def _equiformer_forward(cfg, params, batch, rules):
     chunk = cfg.edge_chunk or E
     pad = -(-E // chunk) * chunk - E
     edge_chunks = _chunks(chunk, E, src, dst, wig)   # padding: src -1
+    # per chunk the plans of s and d (the gathers' backward) and of d masked
+    # to the valid edges (the scatter); the softmax's; kept for every layer
+    chunk_plans = [(SegmentPlan(s, n), SegmentPlan(d, n),
+                    SegmentPlan(torch.where(s >= 0, d, -1), n))
+                   for s, d, _ in edge_chunks]
+    p_soft = SegmentPlan(torch.where(valid, dst, n), n + 1)
 
     def layer_fn(X, lyr):
         # pass A: attention logits from the invariant (l = 0) features
         alpha = torch.cat([_mlp(lyr["alpha"], torch.cat(
-            [gather_nodes(cfg, X[:, 0, :], d, rules),
-             gather_nodes(cfg, X[:, 0, :], s, rules)], -1))
-            for s, d, _ in edge_chunks])[:E]
-        alpha = _edge_head_softmax(alpha, valid, dst, n, cfg.n_heads)
+            [gather_nodes(cfg, X[:, 0, :], d, rules, pd),
+             gather_nodes(cfg, X[:, 0, :], s, rules, ps)], -1))
+            for (s, d, _), (ps, pd, _) in zip(edge_chunks, chunk_plans)])[:E]
+        alpha = _edge_head_softmax(alpha, valid, dst, n, cfg.n_heads, p_soft)
         a_mean = alpha.mean(-1)
         if pad:
             a_mean = torch.cat([a_mean, a_mean.new_zeros(pad)])
         alpha_c = a_mean.split(chunk)
 
         # pass B: eSCN messages, streamed; aggregation = segment sum
-        def msg_body(X, s, d, w, a):
+        def msg_body(X, s, d, w, a, plans):
+            ps, pd, pm = plans
             vmask = s >= 0
-            Xi = gather_nodes(cfg, X, d, rules)
-            Xj = gather_nodes(cfg, X, s, rules)
+            Xi = gather_nodes(cfg, X, d, rules, pd)
+            Xj = gather_nodes(cfg, X, s, rules, ps)
             msg = _so2_conv(torch.bmm(w, Xi) + torch.bmm(w, Xj), lyr["so2"],
                             idx_sets, C)             # rotated to edge frame
             gate = _mlp(lyr["gate"], msg[:, 0, :]).reshape(-1, cfg.l_max + 1,
@@ -492,12 +602,11 @@ def _equiformer_forward(cfg, params, batch, rules):
             msg = msg * a[:, None, None]
             back = torch.bmm(w.transpose(1, 2), msg)  # rotate back (D^T)
             back = back * vmask[:, None, None]
-            return scatter_add_nodes(cfg, n, torch.where(vmask, d, -1), back,
-                                     rules)
+            return scatter_add_nodes(cfg, n, pm.seg, back, rules, pm)
 
         agg = None
-        for (s, d, w), a in zip(edge_chunks, alpha_c):
-            part = _remat(msg_body, X, s, d, w, a)
+        for (s, d, w), a, plans in zip(edge_chunks, alpha_c, chunk_plans):
+            part = _remat(msg_body, X, s, d, w, a, plans)
             agg = part if agg is None else agg + part
         agg = rules.constrain(agg, "nodes", None, None)
         X = X + agg @ lyr["proj"]

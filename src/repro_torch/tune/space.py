@@ -36,9 +36,10 @@ DEFAULTS = {
     # lanes per GraphService micro-batch.
     "service.batch_budget": 32,
     # The port kernels' own tiles, not the reference's TPU values (512 and
-    # 128 there, sized to VMEM and the 128-wide MXU).  segment_sum: rows of
-    # data one CTA walks (csrc/segment_sum.cu; its 8 warps split them).
-    "kernels.segment_sum.block_n": 2048,
+    # 128 there, sized to VMEM and the 128-wide MXU).  segment_sum: the rows
+    # plus entries of one merge-path share, which one group of lanes walks
+    # (csrc/segment_sum.cu); a row that straddles shares is summed in pieces.
+    "kernels.segment_sum.block_n": 512,
     # flash_attention, the folded (decode and f32) paths: block_q is the
     # rows of the folded (query position x group head) space one CTA
     # serves, 16 per warp (16, 32, 64 or 128); block_k the keys per

@@ -283,6 +283,100 @@ def test_segment_sum_kernel_matches_plain(cuda, d, order):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _csr_case(cuda, ids, gathered, d, seed, n_seg=3000, e=60_000):
+    """(table, offsets, rows) of B4's CSR form: a plan of sorted, random
+    or hub-heavy segment ids (a tenth -1; 'hub': two rows of 15,000 and
+    8,000 entries), the identity rows or rows gathered from a table of
+    2,000 rows with a few ids outside it."""
+    from repro_torch.kernels import segment_sum as SS
+    gen = _gen(seed)
+    seg = torch.randint(0, n_seg, (e,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    if ids == "hub":
+        seg[:15_000], seg[20_000:28_000] = 17, n_seg - 1
+        seg = seg[torch.randperm(e, device=cuda, generator=gen)]
+    seg[torch.rand(e, device=cuda, generator=gen) < 0.1] = -1
+    if ids == "sorted":
+        seg = torch.cat([seg[seg >= 0].sort().values, seg[seg < 0]])
+    plan = SS.SegmentPlan(seg, n_seg)
+    assert (plan.perm is None) == (ids == "sorted")
+    if not gathered:
+        table = torch.randn(e, d, device=cuda, generator=gen)
+        return table, plan.offsets, plan.perm
+    table = torch.randn(2000, d, device=cuda, generator=gen)
+    src = torch.randint(-5, 2005, (e,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    rows = src if plan.perm is None else src[plan.perm.long()]
+    return table, plan.offsets, rows
+
+
+def _within_sum_bound(got, want, table, offsets, rows):
+    """|got - want| within the error bound of an f32 sum of each row's L
+    terms in any order, L 2^-24 sum |x| (a hub row of 13,500 terms drifts
+    by 1e-4 from the float64 sum), plus 1e-6."""
+    length = (offsets[1:] - offsets[:-1]).to(torch.float32)[:, None]
+    mass = ref.segment_sum_csr_ref(table.abs(), offsets, rows)
+    return bool(((got - want).abs() <= length * 2.0 ** -24 * mass * 1.01
+                 + 1e-6).all())
+
+
+@pytest.mark.parametrize("d", [16, 64, 100])
+@pytest.mark.parametrize("ids", ["sorted", "random", "hub"])
+@pytest.mark.parametrize("gathered", [False, True])
+def test_segment_sum_csr_kernel_matches_plain(cuda, d, ids, gathered):
+    """B4's CSR kernel: the bits of its order's mirror
+    (``ref.segment_sum_pieces_ref``) and within an f32 sum's error bound of
+    the float64 plain version, at the tuned block_n and at 256 (hub rows
+    split)."""
+    from repro_torch import tune
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as SS
+    table, offsets, rows = _csr_case(cuda, ids, gathered, d, d)
+    want = ref.segment_sum_csr_ref(table, offsets, rows)
+    for block_n in (None, 256):
+        before = SS.LAUNCHES["segment_sum"]
+        got = ops.segment_sum_csr(table, offsets, rows, block_n=block_n)
+        torch.cuda.synchronize()
+        assert SS.LAUNCHES["segment_sum"] == before + 1
+        bn = int(tune.resolve("kernels.segment_sum.block_n", block_n,
+                              n=offsets.numel() - 1, device=table.device))
+        torch.testing.assert_close(got, ref.segment_sum_pieces_ref(
+            table, offsets, rows, block_n=bn), rtol=0, atol=0)
+        assert _within_sum_bound(got, want, table, offsets, rows)
+
+
+def test_segment_sum_csr_splits_rows_bit_reproducibly(cuda):
+    """Hub rows cut into pieces: the split path is taken (the kernel's rule
+    names split rows) and right (the bits of its order's mirror, and within
+    an f32 sum's error bound of the float64 sum); two launches give equal
+    bits; a planted fault (the hub row's largest entry dropped) fails the
+    bit check and the 1e-4 one of ``chip_smoke.py``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as SS
+    table, offsets, rows = _csr_case(cuda, "hub", True, 64, 5)
+    assert SS.split_rows(offsets, 512) >= 2
+    want = ref.segment_sum_csr_ref(table, offsets, rows)
+    a = ops.segment_sum_csr(table, offsets, rows, block_n=512)
+    b = ops.segment_sum_csr(table, offsets, rows, block_n=512)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _within_sum_bound(a, want, table, offsets, rows)
+    # the fault: the hub row's entry with the largest |x| dropped
+    hub = int(torch.argmax(offsets[1:] - offsets[:-1]))
+    lo, hi = int(offsets[hub]), int(offsets[hub + 1])
+    ids = rows[lo:hi].long()
+    size = torch.where((ids >= 0) & (ids < table.shape[0]),
+                       table[ids.clamp(0, table.shape[0] - 1)].abs().amax(1),
+                       0)
+    faulty = rows.clone()
+    faulty[lo + int(torch.argmax(size))] = -1
+    bad = ops.segment_sum_csr(table, offsets, faulty, block_n=512)
+    assert torch.equal(a, ref.segment_sum_pieces_ref(table, offsets, rows,
+                                                      block_n=512))
+    assert not torch.equal(bad, a)
+    assert not torch.allclose(bad, want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("d", [1, 4, 11, 16, 33, 64, 200])
 @pytest.mark.parametrize("weighted,mode", [(False, "sum"), (True, "sum"),
                                            (False, "mean"), (True, "mean")])
@@ -1173,6 +1267,42 @@ def test_segment_sum_under_autograd_matches_plain(cuda, d):
     assert out["cuda"][4] == (1, 2) and out["cpu"][4] == (0, 0)
     for got, want in zip(out["cuda"][:4], out["cpu"][:4]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 64, 100])
+def test_gather_segment_sum_under_autograd_matches_plain(cuda, d):
+    """GIN's fused gather-and-sum on the card: one B4 launch forward and
+    one backward, both against the same calls on the CPU (padded edges,
+    random destinations, a hub source of 9,000 edges; within an f32 sum's
+    error bound); a second call on the same plan gives equal bits."""
+    from repro_torch.kernels import segment_sum as SS
+    from repro_torch.models import gnn as G
+    gen = torch.Generator().manual_seed(d)
+    n, e = 3000, 60_000
+    src = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32)
+    src[:9000] = 11
+    src = src.sort().values
+    dst = torch.randint(0, n, (e,), generator=gen, dtype=torch.int32)
+    src[-500:] = dst[-500:] = -1
+    x = torch.randn(n, d, generator=gen)
+    cot = torch.randn(n, d, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        plan = G.EdgePlan(src.to(dev), dst.to(dev), n, n)
+        xx = x.to(dev).detach().requires_grad_(True)
+        SS.reset_launches()
+        y = G.gather_segment_sum(xx, src.to(dev), dst.to(dev), n, plan)
+        y.backward(cot.to(dev))
+        launched = SS.LAUNCHES["segment_sum"]
+        again = G.gather_segment_sum(x.to(dev), src.to(dev), dst.to(dev), n,
+                                     plan)
+        assert torch.equal(again, y.detach())
+        out[dev] = ([y.detach().cpu(), xx.grad.cpu()], launched, plan)
+    assert out["cuda"][1] == 2 and out["cpu"][1] == 0
+    plan = out["cpu"][2]
+    for got, want, table, by in zip(out["cuda"][0], out["cpu"][0],
+                                    (x, cot), ("dst", "src")):
+        assert _within_sum_bound(got, want, table, *plan.form(by))
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "minicpm3-4b", "mixtral-8x7b"])
