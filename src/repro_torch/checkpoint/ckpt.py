@@ -20,6 +20,15 @@ names with "." read as "/".
 The port's train step updates parameters in place, so :func:`save` copies
 every leaf to the host before it returns, also when the write is async:
 on the CPU ``tensor.numpy()`` would alias the live storage.
+
+Elastic: over a process mesh each rank holds its block of a sharded leaf
+(``shardings``: each leaf's ``distributed.sharding.Placement``, as
+``configs.common.state_shardings`` gives a ``TrainState``'s).  :func:`save`
+gathers every sharded leaf, rank 0 writes the whole arrays, the same
+files as one device writes, and every rank waits for the write;
+:func:`restore` slices each whole leaf to this rank's block of its
+placement, so a checkpoint written on one mesh restores onto any other,
+or onto one device.
 """
 from __future__ import annotations
 
@@ -35,7 +44,8 @@ from torch import nn
 
 from ..optim.adamw import TrainState
 
-__all__ = ["save", "restore", "latest_step", "CheckpointManager"]
+__all__ = ["save", "restore", "latest_step", "CheckpointManager",
+           "placements", "map_leaves"]
 
 _SEP = "/"
 
@@ -64,6 +74,49 @@ def _flatten(tree, prefix=()):
     return out
 
 
+def placements(tree, shardings) -> dict:
+    """{checkpoint key: Placement} of ``tree``'s leaves: ``shardings`` a
+    ``TrainState`` of {parameter name: Placement} dicts (its moments keyed
+    as the state's), or one such dict for a tree of parameters; {} for
+    None."""
+    if shardings is None:
+        return {}
+    if not isinstance(shardings, TrainState):
+        return {k: v for k, v in shardings.items() if v is not None}
+    module = isinstance(tree, TrainState) and isinstance(tree.params,
+                                                         nn.Module)
+    out = {}
+    for i, part in enumerate((shardings.params, shardings.m, shardings.v)):
+        for name, pl in (part or {}).items():
+            if pl is not None:
+                key = name.replace(".", _SEP) if i == 0 and module else name
+                out[f"{i}{_SEP}{key}"] = pl
+    return out
+
+
+def _mesh_of(places: dict):
+    return next((pl.mesh for pl in places.values()), None)
+
+
+def map_leaves(tree, fn):
+    """The tree with each tensor leaf replaced by ``fn(key, leaf)`` (keys
+    as :func:`save` writes them); a module is not rebuilt."""
+    def build(node, prefix):
+        if isinstance(node, TrainState):
+            return TrainState(*(build(c, prefix + (str(i),)) for i, c in
+                                enumerate((node.params, node.m, node.v,
+                                           node.step))))
+        if isinstance(node, dict):
+            return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, prefix + (str(i),))
+                              for i, v in enumerate(node))
+        if isinstance(node, nn.Module):
+            raise TypeError("map_leaves does not rebuild a module")
+        return fn(_SEP.join(prefix), node)
+    return build(tree, ())
+
+
 def _to_host(t) -> tuple:
     """(logical dtype name, numpy array): a host copy, never a view."""
     if isinstance(t, torch.Tensor):
@@ -75,12 +128,29 @@ def _to_host(t) -> tuple:
     return str(a.dtype), a
 
 
-def save(directory: str, step: int, tree: Any, *,
-         async_: bool = False) -> Optional[threading.Thread]:
+def save(directory: str, step: int, tree: Any, *, async_: bool = False,
+         shardings: Any = None) -> Optional[threading.Thread]:
     """Write the checkpoint of ``step``.  Returns the writer thread when
-    async (the host copy is complete when this returns)."""
+    async (the host copy is complete when this returns).
+
+    ``shardings`` (see :func:`placements`): the leaves are this rank's
+    blocks; every rank must call, each sharded leaf is gathered whole,
+    rank 0 writes, and, unless async, every rank waits for the write
+    (async: ``CheckpointManager.wait`` waits on every rank)."""
+    places = placements(tree, shardings)
+    mesh = _mesh_of(places)
+    leaves = []
+    for k, v in _flatten(tree):
+        pl = places.get(k)
+        if pl is not None and not pl.replicated:
+            v = pl.whole(v.detach())
+        leaves.append((k, v))
+    if mesh is not None and mesh.rank != 0:
+        if not async_:
+            mesh.barrier()
+        return None
     os.makedirs(directory, exist_ok=True)
-    host = [(k,) + _to_host(v) for k, v in _flatten(tree)]
+    host = [(k,) + _to_host(v) for k, v in leaves]
     manifest = {"step": step,
                 "leaves": [{"key": k, "shape": list(a.shape), "dtype": dt}
                            for k, dt, a in host]}
@@ -104,6 +174,8 @@ def save(directory: str, step: int, tree: Any, *,
         t.start()
         return t
     _write()
+    if mesh is not None:
+        mesh.barrier()
     return None
 
 
@@ -126,33 +198,43 @@ def _from_disk(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(directory: str, step: int, target: Any, *,
-            device=None) -> Any:
+def restore(directory: str, step: int, target: Any, *, device=None,
+            shardings: Any = None) -> Any:
     """The checkpoint of ``step`` in the structure of ``target`` (a tree of
     tensors, real or on the ``meta`` device, or a ``TrainState``): each
     leaf cast to its target's dtype and placed on ``device`` (default: the
     target leaf's device; CUDA for a meta target).  A leaf that requires
     grad in the target requires grad in the result.  A module in the
     target is loaded in place (materialised first if on the meta device)
-    and returned as itself.  Raises KeyError for a missing key and
-    ValueError for a shape that differs."""
+    and returned as itself.  ``shardings`` (see :func:`placements`): each
+    sharded leaf is this rank's block of the whole array, and its target
+    may have the block's shape or the whole's.  Raises KeyError for a
+    missing key and ValueError for a shape that differs."""
     final = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     keys = {e["key"]: i for i, e in enumerate(manifest["leaves"])}
+    places = placements(target, shardings)
 
     def load(key: str, tgt: torch.Tensor) -> torch.Tensor:
         if key not in keys:
             raise KeyError(f"checkpoint missing leaf {key}")
         entry = manifest["leaves"][keys[key]]
         arr = np.load(os.path.join(final, f"leaf_{keys[key]}.npy"))
-        if tuple(arr.shape) != tuple(tgt.shape):
+        pl = places.get(key)
+        shapes = {tuple(arr.shape)}
+        if pl is not None:
+            shapes.add(pl.block_shape(arr.shape))
+        if tuple(tgt.shape) not in shapes:
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "
                              f"{tuple(tgt.shape)}")
         dev = device
         if dev is None:
             dev = "cuda" if tgt.device.type == "meta" else tgt.device
-        return _from_disk(arr, entry["dtype"]).to(device=dev, dtype=tgt.dtype)
+        out = _from_disk(arr, entry["dtype"])
+        if pl is not None:
+            out = pl.block(out)
+        return out.to(device=dev, dtype=tgt.dtype)
 
     def build(node, prefix):
         if isinstance(node, TrainState):
@@ -179,25 +261,36 @@ def restore(directory: str, step: int, target: Any, *,
 
 
 class CheckpointManager:
-    """Every-N-steps async checkpointing with bounded retention."""
+    """Every-N-steps async checkpointing with bounded retention.  Over a
+    mesh (``shardings``) every rank makes the same calls: rank 0 writes
+    and prunes, and :meth:`wait` and :meth:`restore_latest` wait for every
+    rank, so all of them see the same checkpoints."""
 
     def __init__(self, directory: str, every: int = 100, keep: int = 3):
         self.directory = directory
         self.every = every
         self.keep = keep
         self._pending: Optional[threading.Thread] = None
+        self._mesh = None      # the mesh of a save not yet waited for
 
-    def maybe_save(self, step: int, tree: Any, *, force: bool = False):
+    def maybe_save(self, step: int, tree: Any, *, force: bool = False,
+                   shardings: Any = None):
         if not force and (self.every <= 0 or step % self.every != 0):
             return
         self.wait()
-        self._pending = save(self.directory, step, tree, async_=True)
-        self._gc(pending_step=step)
+        self._pending = save(self.directory, step, tree, async_=True,
+                             shardings=shardings)
+        self._mesh = _mesh_of(placements(tree, shardings))
+        if self._mesh is None or self._mesh.rank == 0:
+            self._gc(pending_step=step)
 
     def wait(self):
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._mesh is not None:
+            self._mesh.barrier()
+            self._mesh = None
 
     def _gc(self, pending_step: Optional[int] = None):
         if not os.path.isdir(self.directory):
@@ -211,10 +304,16 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, target, *, device=None):
-        """(restored, step) of the newest checkpoint, or (None, None)."""
+    def restore_latest(self, target, *, device=None, shardings=None):
+        """(restored, step) of the newest checkpoint, or (None, None); over
+        a mesh (``shardings``) each rank's blocks, once every rank is
+        here."""
         self.wait()
+        mesh = _mesh_of(placements(target, shardings))
+        if mesh is not None:
+            mesh.barrier()
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return restore(self.directory, step, target, device=device), step
+        return restore(self.directory, step, target, device=device,
+                       shardings=shardings), step

@@ -10,8 +10,15 @@ is a tensor on the ``meta`` device: it has the shape and the
 spec is :func:`transformer.init_cache` on the meta device: per-layer
 lists, (B, Kv, Smax, hd) for GQA, where the reference stacks (G, P, B,
 Smax, Kv, hd).  Logical axes are keyed by parameter name (the names of
-``optim.adamw.named_params``).  One device: :func:`param_shardings` over
-a mesh waits for rules over a mesh (slice 14).
+``optim.adamw.named_params``).
+
+Over a process mesh (``rules`` from ``make_rules(mesh)``),
+:func:`param_shardings` gives each parameter the ``Placement`` its
+logical axes give it: a GNN's parameters are whole on every rank, FM's
+table is row-sharded over the flat axes.  The GNN and FM train steps run
+on every rank from the global batch (the models slice it) and sum each
+replicated parameter's gradient over the ranks; an LM over a mesh raises
+(ROADMAP §A.9: the multi-card LM slice).
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ __all__ = ["ArchConfig", "SpecBundle", "LM_SHAPES", "GNN_SHAPES",
            "RECSYS_SHAPES", "VARIANTS", "shape_names", "input_specs",
            "apply_variant", "init_params", "param_logical_axes",
            "make_step", "state_shapes", "state_logical_axes",
-           "param_shardings"]
+           "param_shardings", "state_shardings", "reduce_grads"]
 
 
 def S(shape, dtype) -> torch.Tensor:
@@ -135,35 +142,27 @@ def _gnn_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
         triplet_chunk=(1_048_576 if e > 1_000_000 else None))
     batch = {"x": S((n, f), torch.float32), "src": S((e,), torch.int32),
              "dst": S((e,), torch.int32)}
-    axes = {"x": ("nodes", None), "src": ("edges",), "dst": ("edges",)}
     if task == "regression":
         batch["labels"] = S((sh["graphs"],), torch.float32)
-        axes["labels"] = (None,)
     else:
         batch["labels"] = S((n,), torch.int32)
-        axes["labels"] = ("nodes",)
         # padded nodes are always masked out of the loss
         batch["label_mask"] = S((n,), torch.bool)
-        axes["label_mask"] = ("nodes",)
     if sh.get("graphs"):
         batch["graph_id"] = S((n,), torch.int32)
-        axes["graph_id"] = ("nodes",)
         batch["node_mask"] = S((n,), torch.bool)
-        axes["node_mask"] = ("nodes",)
     if cfg.arch in ("dimenet", "equiformer_v2"):
         batch["pos"] = S((n, 3), torch.float32)
-        axes["pos"] = ("nodes", None)
     if cfg.arch == "dimenet":
         t = min(4 * e, 256_000_000)
         batch["triplet_kj"] = S((t,), torch.int32)
         batch["triplet_ji"] = S((t,), torch.int32)
         batch["angle"] = S((t,), torch.float32)
-        axes.update(triplet_kj=("edges",), triplet_ji=("edges",),
-                    angle=("edges",))
     if cfg.arch == "equiformer_v2":
         nc = cfg.n_coef
         batch["wigner"] = S((e, nc, nc), torch.float32)
-        axes["wigner"] = ("edges", None, None)
+    every = GNN.batch_axes(cfg)
+    axes = {k: every[k] for k in batch}
     return SpecBundle("train", cfg, batch, axes)
 
 
@@ -200,8 +199,7 @@ def input_specs(ac: ArchConfig, shape_name: str) -> SpecBundle:
 VARIANTS = {
     # PIUMA fine-grained embedding exchange instead of a gather
     "fm_dgas": lambda m: dataclasses.replace(m, use_dgas=True),
-    # halve DGAS all_to_all buffer capacity (FM; the GNNs' DGAS exchange
-    # and its capacity wait for slice 14)
+    # halve DGAS all_to_all buffer capacity (graph models and FM)
     "dgas_cap2": lambda m: dataclasses.replace(m, dgas_cap_factor=2),
     # larger / smaller edge streaming chunks (graph models)
     "chunk_512k": lambda m: dataclasses.replace(m, edge_chunk=524288),
@@ -258,19 +256,46 @@ def state_logical_axes(ac: ArchConfig, model_cfg, params_shape):
 
 
 def param_shardings(rules: MeshRules, params_shape, pax) -> dict:
-    """{parameter name: sharding}: None for every parameter on one device
-    (replicated: nothing to place).  Over a mesh it raises until rules
-    over a mesh are ported (slice 14)."""
-    if rules is not None and rules.mesh is not None:
-        raise NotImplementedError(
-            "parameter shardings over a mesh wait for rules over a mesh "
-            "(ROADMAP §A.9, slice 14)")
-    return {k: None for k in pax}
+    """{parameter name: Placement} from each parameter's whole shape
+    (``params_shape``: the parameters, or their meta specs) and logical
+    axes (``pax``), by ``rules.input_sharding``: a dim the axes do not
+    divide stays whole.  None for every parameter on one device."""
+    if rules is None or rules.mesh is None:
+        return {k: None for k in pax}
+    named = adamw.named_params(params_shape)
+    return {k: rules.input_sharding(tuple(named[k].shape), *(ax or ()))
+            for k, ax in pax.items()}
+
+
+def state_shardings(shardings: dict) -> adamw.TrainState:
+    """The placements of a ``TrainState`` over parameters placed by
+    ``shardings`` (moments as their parameters, ``step`` whole), the form
+    ``checkpoint.restore`` and ``fault_tolerance.reshard_state`` take."""
+    return adamw.TrainState(params=shardings, m=shardings, v=shardings,
+                            step=None)
 
 
 # ---------------------------------------------------------------------------
 # step functions
 # ---------------------------------------------------------------------------
+
+def reduce_grads(named: dict, shardings: dict, mesh) -> None:
+    """Sum each parameter's gradient over the ranks that hold the same
+    block of it (every rank for a replicated one, none for one split over
+    every axis), in place: one all-reduce per set of such axes, of the
+    gradients flattened together."""
+    groups: dict = {}
+    for k, p in named.items():
+        pl = shardings.get(k)
+        split = () if pl is None else pl.axes
+        over = tuple(a for a in mesh.axis_names if a not in split)
+        if over and p.grad is not None:
+            groups.setdefault(over, []).append(p)
+    for over, ps in groups.items():
+        flat = torch.cat([p.grad.reshape(-1) for p in ps])
+        flat = mesh.over(over).all_reduce(flat, "sum")
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad = g.view_as(p.grad).to(p.grad.dtype)
 
 def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
               opt=None) -> Callable:
@@ -286,20 +311,40 @@ def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
     ``optim.adamw.TrainState`` over it.  The train step reads the
     parameters from ``state.params`` (so a restored state is the one it
     trains), runs the loss forward and backward and applies AdamW in
-    place; metrics are detached tensors on the device."""
+    place; metrics are detached tensors on the device.
+
+    Over a mesh (gnn and recsys) every rank calls the step with the global
+    batch and its blocks of the state (``fault_tolerance.reshard_state``
+    of the whole parameters); the loss carries each rank's share, so each replicated
+    parameter's gradient is summed over the ranks (one all-reduce of them
+    all) before the update, and a sharded one keeps its owner's."""
     cfg = bundle.model
+    if rules is not None and rules.mesh is not None and ac.family == "lm":
+        raise NotImplementedError(
+            "an LM over a mesh is not ported: FSDP, tensor, expert "
+            "parallelism and the per-data-shard MoE are ROADMAP §A.9's "
+            "multi-card LM slice; pass make_rules(None)")
     if bundle.kind == "train":
         opt = opt or adamw.AdamWConfig()
         loss_fn = {"lm": TF.loss_fn, "gnn": GNN.loss_fn,
                    "recsys": RS.loss_fn}[ac.family]
+        shardings = None
+        if rules is not None and rules.mesh is not None:
+            params_shape, _ = state_shapes(ac, cfg)
+            shardings = param_shardings(
+                rules, params_shape,
+                param_logical_axes(ac, cfg, params_shape))
 
         def step(state, batch):
-            for p in adamw.named_params(state.params).values():
+            named = adamw.named_params(state.params)
+            for p in named.values():
                 p.grad = None
             with torch.enable_grad():
                 loss, metrics = loss_fn(cfg, state.params, batch, rules)
                 loss.backward()
-            adamw.apply_update(opt, state)
+            if shardings is not None:
+                reduce_grads(named, shardings, rules.mesh)
+            adamw.apply_update(opt, state, shardings)
             return state, {k: v.detach() for k, v in metrics.items()}
         return step
     if bundle.kind == "prefill":

@@ -8,8 +8,14 @@ ATT of ``core.dgas``), the owner performs the gather or the commutative
 update locally, and only the requested or accepted words cross between
 ranks, in one fixed-capacity ``all_to_all`` per plane (:func:`_route`).
 Every collective of the port is a ``Mesh`` method called from this module
-(or from ``launch/mesh.py`` itself), so the address-translation layer
-stays the one place where data crosses shards.  The work queue engine
+(or from ``launch/mesh.py`` itself, or ``distributed/routed.py``'s
+autograd wrappers of them), so the address-translation layer stays the
+one place where data crosses shards.  A request that overflows a peer's
+capacity is dropped and answers the fill value, as in the reference,
+which drops it silently; the port counts it on the mesh
+(``Mesh.dropped``).  A :class:`Route` keeps an exchange's slots, so rows
+can travel along them again (:func:`send_along`, :func:`reply_along`):
+the autograd exchanges send their gradients back that way.  The work queue engine
 (:func:`queue_balance`) routes queued items through the same
 :func:`_route`.  Routed helpers take the 1-D mesh a call runs on; a
 caller that holds a multi-axis mesh picks it with ``Mesh.over(axis)`` (a
@@ -33,7 +39,9 @@ import torch
 __all__ = ["LABEL_PAD", "dma_gather", "dma_scatter_add", "segment_or",
            "segment_argmax", "run_starts", "segment_weighted_mode",
            "compact_labels", "run_sum", "segment_sum_ordered", "tree_sum",
-           "axis_size", "my_shard", "dgas_gather", "remote_scatter_add",
+           "axis_size", "my_shard", "Route", "dgas_requests", "send_along",
+           "reply_along", "segment_sum_rows", "dgas_gather",
+           "remote_scatter_add",
            "remote_scatter_combine", "remote_scatter_or",
            "remote_scatter_weighted_mode", "buffered_flush",
            "all_gather_gather", "QueueState", "queue_make",
@@ -259,11 +267,14 @@ def _route(payload: tuple, dest: torch.Tensor, mesh, capacity: int):
     Returns (recv, recv_valid, flat, valid): recv — the planes with leading
     dim S * capacity, grouped by source rank; recv_valid (S * capacity,)
     bool; flat, valid — the sender's slot bookkeeping for :func:`_reply`.
+    Items bound for a shard in range that find its bucket full are counted
+    on the mesh as dropped.
     Each slot holds at most one item, so the items are stored, not added
     into a zeroed buffer as the reference adds them; a float -0.0 is routed
     as +0.0, the value the reference's add gives."""
     S = axis_size(mesh)
     flat, valid = _owner_slots(dest, S, capacity)
+    mesh.add_dropped(((dest >= 0) & (dest < S) & ~valid).sum())
     # invalid items land in a spare slot past the end, dropped
     to = torch.where(valid, flat.long(), S * capacity)
 
@@ -314,6 +325,81 @@ def _capacity(capacity, n: int, S: int) -> int:
 # DGAS remote access primitives
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class Route:
+    """The slots of one routed exchange, kept to send rows along them
+    again (index tensors only): the sender's ``flat`` (m,) slot of each
+    request and ``valid`` (m,) whether it found one, and the owner's
+    ``local`` (S * capacity,) int32, the local id each received slot asks
+    for, -1 where the slot is empty."""
+
+    flat: torch.Tensor
+    valid: torch.Tensor
+    local: torch.Tensor
+
+
+def _send(rows: torch.Tensor, flat: torch.Tensor, valid: torch.Tensor,
+          slots: int, mesh, fill=0) -> torch.Tensor:
+    """Each request's row into its slot of a (slots, ...) buffer of
+    ``fill`` (a request without a slot into a spare one past the end,
+    dropped), through one ``all_to_all``."""
+    to = torch.where(valid, flat.long(), slots)
+    buf = rows.new_full((slots + 1,) + tuple(rows.shape[1:]), fill)
+    buf[to] = rows
+    return _all_to_all(buf[:-1], mesh)
+
+
+def dgas_requests(gidx: torch.Tensor, att, mesh, *, capacity=None,
+                  payload: tuple = ()):
+    """Route each request (global id ``gidx[i]``, with its rows of each
+    payload tensor) to the id's owner, in the slots :func:`dgas_gather`
+    gives it (the reference's order, so overflowing requests drop alike),
+    one ``all_to_all`` per plane.  The local-id plane carries the slots'
+    validity (-1 where a slot is empty), so there is no validity plane.
+    capacity: the most requests any one peer pair exchanges (default 2 *
+    ceil(m / S)).  Returns (Route, the payload planes as received, (S *
+    capacity, ...) each, grouped by source rank, 0 in the empty slots)."""
+    S = axis_size(mesh)
+    C = _capacity(capacity, gidx.shape[0], S)
+    owner, local_idx = _routed_ids(gidx, att, mask_owner=False)
+    flat, valid = _owner_slots(owner, S, C)
+    mesh.add_dropped(((owner >= 0) & (owner < S) & ~valid).sum())
+    local = _send(local_idx, flat, valid, S * C, mesh, fill=-1)
+    return (Route(flat, valid, local),
+            tuple(_send(x, flat, valid, S * C, mesh) for x in payload))
+
+
+def send_along(rows: torch.Tensor, route: Route, mesh) -> torch.Tensor:
+    """Requester-side rows, one per request, to the owners along the
+    route's slots: (S * capacity, ...) rows aligned with ``route.local``,
+    0 in the empty slots (one ``all_to_all``)."""
+    return _send(rows, route.flat, route.valid, route.local.shape[0], mesh)
+
+
+def reply_along(rows: torch.Tensor, route: Route, mesh,
+                fill=0) -> torch.Tensor:
+    """Owner-side rows, one per slot of ``route.local``, back to the
+    requesters: one row per request, ``fill`` where a request found no
+    slot (one ``all_to_all``)."""
+    return _reply(rows, route.flat, route.valid, mesh, fill=fill)
+
+
+def segment_sum_rows(idx: torch.Tensor, rows: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """The owner-side update of a routed scatter-add through B4: (n, ...)
+    float32, out[i] the sum of the rows whose idx is i; ids outside [0, n),
+    such as the -1 of an empty slot, dropped.  A ``SegmentPlan`` over idx,
+    then B4 (``kernels.ops.segment_sum_csr``) on the rows in its order:
+    the plain version on CPU tensors, the kernel on CUDA tensors (or it
+    raises)."""
+    from ..kernels import ops
+    from ..kernels.segment_sum import SegmentPlan
+    plan = SegmentPlan(idx, n)
+    flat = rows.reshape(rows.shape[0], -1)
+    out = ops.segment_sum_csr(flat, plan.offsets, plan.perm)
+    return out.reshape((n,) + tuple(rows.shape[1:]))
+
+
 def dgas_gather(local: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
                 capacity=None, fill: float = 0.0) -> torch.Tensor:
     """PIUMA fine-grained remote gather across the DGAS.
@@ -343,7 +429,9 @@ def remote_scatter_add(local: torch.Tensor, gidx: torch.Tensor,
     kernel on the card) and adds that sum into ``local`` (pass zeros to
     get the sum itself).  Under a contiguous rule and source-sorted
     senders that is the ascending-source order a local in-order sum
-    takes; a scatter-add's atomics follow no order on the card."""
+    takes; a scatter-add's atomics follow no order on the card.  The
+    meshed GNNs' owners sum (m, d) rows with B4 instead
+    (:func:`segment_sum_rows`, through ``distributed.routed``)."""
     C = _capacity(capacity, gidx.shape[0], axis_size(mesh))
     owner, local_idx = _routed_ids(gidx, att, mask_owner=False)
     (ridx, rvals), recvv, _, _ = _route((local_idx, vals), owner, mesh, C)

@@ -1,3 +1,4 @@
-"""Logical-axis sharding rules of the model stack (one device so far) and
-the fault-tolerant training loop."""
-from . import fault_tolerance, sharding
+"""Logical-axis sharding rules of the model stack over a process mesh,
+collectives and DGAS exchanges under autograd, and the fault-tolerant
+training loop."""
+from . import fault_tolerance, routed, sharding

@@ -1,5 +1,5 @@
-"""Fault tolerance: the restartable training driver and straggler watch
-(counterpart of ``repro.distributed.fault_tolerance``, one device).
+"""Fault tolerance: the restartable training driver, straggler watch and
+elastic re-meshing (counterpart of ``repro.distributed.fault_tolerance``).
 
 :func:`run_training` wraps a step function with
   * periodic async checkpoints (``checkpoint.CheckpointManager``),
@@ -11,8 +11,15 @@
 A step function reads the parameters from the state it is given
 (``state.params``), never from a module it closed over: after a restart
 the loop hands it the restored state.  A module in the state is restored
-in place, so the two are one object anyway.  Restoring across meshes
-(the reference's ``reshard_state``) waits for rules over a mesh.
+in place, so the two are one object anyway.
+
+Over a process mesh every rank runs the loop with its blocks of the state
+and the state's placements (``shardings``, as
+``configs.common.state_shardings`` gives them): checkpoints are written
+whole by rank 0 and restored onto the current mesh, whatever mesh wrote
+them, and a failure raised on every rank restarts every rank from the
+same checkpoint.  :func:`reshard_state` moves a state between placements
+on one process world.
 """
 from __future__ import annotations
 
@@ -24,9 +31,9 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from ..checkpoint.ckpt import CheckpointManager
+from ..checkpoint.ckpt import CheckpointManager, map_leaves, placements
 
-__all__ = ["FTConfig", "SimulatedFailure", "run_training"]
+__all__ = ["FTConfig", "SimulatedFailure", "run_training", "reshard_state"]
 
 
 class SimulatedFailure(RuntimeError):
@@ -54,26 +61,28 @@ def run_training(step_fn: Callable, state: Any, batches: Iterator,
                  ckpt: CheckpointManager, max_steps: int,
                  ft: FTConfig = FTConfig(), *,
                  fail_injector: Optional[Callable[[int], None]] = None,
-                 on_metrics: Optional[Callable[[int, dict], None]] = None
-                 ) -> tuple[Any, dict]:
+                 on_metrics: Optional[Callable[[int, dict], None]] = None,
+                 shardings: Any = None) -> tuple[Any, dict]:
     """Run to ``max_steps`` with restart-on-failure.  ``state`` is a
-    ``TrainState``; ``step_fn(state, batch) -> (state, metrics)``.  Returns
-    (state, report)."""
+    ``TrainState``; ``step_fn(state, batch) -> (state, metrics)``.
+    ``shardings``: over a mesh, the state's placements (every rank runs
+    the loop).  Returns (state, report)."""
     report = {"restarts": 0, "straggler_events": [], "steps_run": 0}
     durations: list[float] = []
 
-    restored, step0 = ckpt.restore_latest(state)
+    restored, step0 = ckpt.restore_latest(state, shardings=shardings)
     if restored is not None:
         state = restored
         start = int(step0)
     else:
         start = 0
-        ckpt.maybe_save(0, state, force=True)
+        ckpt.maybe_save(0, state, force=True, shardings=shardings)
 
     if ft.install_sigterm:
         def _on_term(signum, frame):
             ckpt.wait()
-            ckpt.maybe_save(int(state.step), state, force=True)
+            ckpt.maybe_save(int(state.step), state, force=True,
+                            shardings=shardings)
             raise SystemExit(143)
         signal.signal(signal.SIGTERM, _on_term)
 
@@ -97,7 +106,7 @@ def run_training(step_fn: Callable, state: Any, batches: Iterator,
                     {"step": step, "dt": dt, "median": med})
             step += 1
             report["steps_run"] += 1
-            ckpt.maybe_save(step, state)
+            ckpt.maybe_save(step, state, shardings=shardings)
             if on_metrics is not None:
                 on_metrics(step, {k: v.detach().cpu().numpy()
                                   for k, v in metrics.items()})
@@ -107,12 +116,31 @@ def run_training(step_fn: Callable, state: Any, batches: Iterator,
             if restarts > ft.max_restarts:
                 raise
             ckpt.wait()
-            restored, step0 = ckpt.restore_latest(state)
+            restored, step0 = ckpt.restore_latest(state, shardings=shardings)
             if restored is None:
                 raise
             state = restored
             step = int(step0)
     ckpt.wait()
-    ckpt.maybe_save(step, state, force=True)
+    ckpt.maybe_save(step, state, force=True, shardings=shardings)
     ckpt.wait()
     return state, report
+
+
+def reshard_state(state: Any, shardings: Any, *, old: Any = None) -> Any:
+    """The state moved from the placements ``old`` onto ``shardings``
+    (each a ``TrainState`` of {name: Placement} dicts, or one dict for a
+    tree of parameters; None: whole on every rank): each leaf gathered
+    whole from its old placement, then this rank's block of its new one
+    taken.  Every rank of the old placements' meshes must call.  A leaf
+    that required grad still does."""
+    new_pl, old_pl = placements(state, shardings), placements(state, old)
+
+    @torch.no_grad()
+    def move(key, x):
+        pl = old_pl.get(key)
+        y = x if pl is None else pl.whole(x)
+        pl = new_pl.get(key)
+        y = y if pl is None else pl.block(y)
+        return y.requires_grad_(x.requires_grad) if y is not x else x
+    return map_leaves(state, move)

@@ -1,0 +1,178 @@
+"""Collectives and DGAS exchanges under autograd, for training over a
+process mesh.
+
+The reference differentiates through ``shard_map``: each collective's
+transpose is another collective.  These are the same pairs as
+``torch.autograd.Function``s over a ``launch.mesh.Mesh`` (a 1-D mesh: the
+caller picks it with ``Mesh.over(axes)``), on the owner-routed primitives
+of ``core.offload``:
+
+* :func:`all_reduce_sum` — forward and backward a sum over the ranks;
+* :func:`all_gather_rows` — the rows of every rank's block, in rank
+  order; backward, the summed gradient's rows of this rank's block;
+* :func:`reduce_scatter_rows` — this rank's block of the sum over the
+  ranks; backward, the all-gathered gradient;
+* :func:`gather` — the DGAS gather: each request routes to the row's
+  owner and only the requested rows return; backward, the gradient rows
+  travel back along the same slots and the owner sums them into its block
+  (B4, or torch's ``index_add_``);
+* :func:`scatter_add` — the DGAS remote add: (id, row) pairs route to the
+  owner, which sums them into its block with B4; backward, a routed gather
+  of the gradient at the same slots;
+* :func:`global_mean` — a loss's mean over every rank's rows, carrying
+  the gradient of this rank's share.
+
+A routed exchange keeps its slot bookkeeping (``offload.Route``: index
+tensors, never rows) for its backward.  Every rank issues the same
+collectives in the same order in the forward, the backward and the
+recompute of ``torch.utils.checkpoint`` (which routes again, to the same
+slots), whatever its block holds: a rank with nothing to send still
+routes.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import offload
+
+__all__ = ["all_reduce_sum", "all_gather_rows", "reduce_scatter_rows",
+           "gather", "scatter_add", "global_mean"]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x, "sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad, "sum"), None
+
+
+def _block(x: torch.Tensor, mesh) -> torch.Tensor:
+    per = x.shape[0] // mesh.size
+    return x.narrow(0, mesh.rank * per, per).clone()
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        g = mesh.all_gather(x)
+        return g.reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _block(ctx.mesh.all_reduce(grad, "sum"), ctx.mesh), None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _block(mesh.all_reduce(x, "sum"), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.mesh.all_gather(grad.contiguous())
+        return g.reshape((-1,) + tuple(grad.shape[1:])), None
+
+
+def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ranks; its gradient is the sum of the
+    ranks' gradients."""
+    return _AllReduceSum.apply(x, mesh)
+
+
+def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's block ``x`` stacked along dim 0 in rank order (the
+    whole table of a row-sharded one)."""
+    return _AllGatherRows.apply(x, mesh)
+
+
+def reduce_scatter_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of rows of the sum of ``x`` over the ranks (x's
+    rows divide into ``mesh.size`` blocks)."""
+    if x.shape[0] % mesh.size:
+        raise ValueError(f"{x.shape[0]} rows do not split into "
+                         f"{mesh.size} blocks")
+    return _ReduceScatterRows.apply(x, mesh)
+
+
+def _owner_sum(idx, rows, n, b4):
+    """(n, ...) f32 sums of rows by idx at the owner, -1 dropped: B4, or
+    torch's scatter."""
+    if b4:
+        return offload.segment_sum_rows(idx, rows, n)
+    out = rows.new_zeros((n,) + tuple(rows.shape[1:]), dtype=torch.float32)
+    return offload.dma_scatter_add(out, idx, rows)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, gidx, att, mesh, capacity, b4):
+        route, _ = offload.dgas_requests(gidx, att, mesh, capacity=capacity)
+        ctx.route, ctx.mesh, ctx.n, ctx.b4 = route, mesh, table.shape[0], b4
+        ctx.dtype = table.dtype
+        rows = offload.dma_gather(table, route.local)
+        return offload.reply_along(rows, route, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        at_owner = offload.send_along(grad.contiguous(), ctx.route, ctx.mesh)
+        g = _owner_sum(ctx.route.local, at_owner, ctx.n, ctx.b4)
+        return g.to(ctx.dtype), None, None, None, None, None
+
+
+class _ScatterAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, gidx, att, mesh, capacity, n):
+        route, (rows,) = offload.dgas_requests(gidx, att, mesh,
+                                               capacity=capacity,
+                                               payload=(vals,))
+        ctx.route, ctx.mesh, ctx.dtype = route, mesh, vals.dtype
+        return offload.segment_sum_rows(route.local, rows, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        at_owner = offload.dma_gather(grad.contiguous(), ctx.route.local)
+        g = offload.reply_along(at_owner, ctx.route, ctx.mesh)
+        return g.to(ctx.dtype), None, None, None, None, None
+
+
+def gather(table: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
+           capacity: int, b4: bool = True) -> torch.Tensor:
+    """The rows of the global table at the global ids ``gidx`` (0 for an
+    id outside it or a request past ``capacity``), this rank holding
+    ``table``, its rows by ``att`` (``offload.dgas_gather``).  Backward:
+    the gradient's rows return to the owners along the request slots and
+    are summed there into the table's gradient, by B4 (``b4``) or torch's
+    ``index_add_``."""
+    return _Gather.apply(table, gidx, att, mesh, capacity, b4)
+
+
+def scatter_add(vals: torch.Tensor, gidx: torch.Tensor, att, mesh, *,
+                capacity: int, n: int) -> torch.Tensor:
+    """This rank's (n, ...) float32 block of the global sums of ``vals``'
+    rows by global id ``gidx`` (ids outside the global range, and requests
+    past ``capacity``, dropped): the rows route to the owners, which sum
+    them with B4 (``offload.segment_sum_rows``).  Backward: a routed
+    gather of the gradient's rows at the same slots."""
+    return _ScatterAdd.apply(vals, gidx, att, mesh, capacity, n)
+
+
+def global_mean(total: torch.Tensor, metric: torch.Tensor, count,
+                mesh) -> tuple:
+    """(loss, metric) over every rank: ``total`` (differentiable) and
+    ``metric`` summed over this rank's rows, ``count`` its rows.  Both are
+    divided by the count of every rank's rows (at least 1), so the ranks'
+    shares add up to the mean also where every rank holds every row.  The
+    loss has the global mean's value and the gradient of this rank's
+    share: the ranks' gradients add up to the mean's."""
+    count = torch.as_tensor(count, dtype=torch.float32, device=total.device)
+    count = torch.clamp(mesh.all_reduce(count.reshape(1), "sum")[0], min=1)
+    share = total / count
+    both = mesh.all_reduce(torch.stack([share.detach(), metric / count]),
+                           "sum")
+    return share + (both[0] - share).detach(), both[1]

@@ -30,6 +30,9 @@ so its host seconds include that work; the card seconds start when the
 stream reaches the call, and so hold the transport alone.  The events
 are read without a synchronize: each collective and :meth:`Mesh.counts`
 add those the card has passed, :meth:`Mesh.settle` waits for the rest.
+The Mesh also counts the routed requests that overflowed a peer's
+capacity and were dropped (``core.offload``'s routes add them, on the
+device, with no read back).
 """
 from __future__ import annotations
 
@@ -115,6 +118,8 @@ class Mesh:
       (:data:`KINDS`), the calls made, the bytes handed to the backend
       (each input buffer once), the host seconds inside the backend's calls
       and the card seconds between events around them (CUDA tensors only).
+    dgas: {'dropped': the routed requests this rank sent that overflowed
+      a peer's capacity (an int, or a 0-d tensor on the mesh's device)}.
     """
 
     group: Any
@@ -127,6 +132,7 @@ class Mesh:
     bytes: dict = _zeros(0)
     seconds: dict = _zeros(0.0)
     card_seconds: dict = _zeros(0.0)
+    dgas: dict = dataclasses.field(default_factory=lambda: {"dropped": 0})
     shape: tuple = ()
     axis_names: tuple = ()
     # sub-meshes by axis (a name or a tuple of names); each shares the
@@ -181,7 +187,8 @@ class Mesh:
     def counts(self) -> dict:
         """A snapshot: {'collectives': total calls, 'calls': {...},
         'bytes': {...}, 'seconds': {...}, 'card_seconds': {...}}; the card
-        seconds of the events the card has passed (no wait)."""
+        seconds of the events the card has passed (no wait; the drop count
+        is :meth:`dropped`'s, which reads back)."""
         self._drain()
         return {"collectives": self.collectives, "calls": dict(self.calls),
                 "bytes": dict(self.bytes), "seconds": dict(self.seconds),
@@ -192,6 +199,33 @@ class Mesh:
         for k in KINDS:
             self.calls[k] = self.bytes[k] = 0
             self.seconds[k] = self.card_seconds[k] = 0.0
+        self.dgas["dropped"] = 0
+
+    def add_dropped(self, n) -> None:
+        """Count ``n`` (an int or a 0-d tensor) dropped requests."""
+        self.dgas["dropped"] = self.dgas["dropped"] + n
+
+    def dropped(self) -> int:
+        """The requests dropped since the last reset (read back)."""
+        return int(self.dgas["dropped"])
+
+    def coord(self, axes) -> tuple:
+        """(this rank's block index, the number of blocks) along ``axes``:
+        a name or a tuple of names in grid order, flattened row-major as
+        :meth:`over` orders its ranks; None is (0, 1)."""
+        if axes is None:
+            return 0, 1
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        dims = [self.axis_names.index(a) for a in names]
+        if dims != sorted(set(dims)):
+            raise ValueError(f"axes {names} are not in the grid order of "
+                             f"{self.axis_names}")
+        at = np.unravel_index(self.rank, self.shape)
+        index, count = 0, 1
+        for a in dims:
+            index = index * self.shape[a] + int(at[a])
+            count *= self.shape[a]
+        return index, count
 
     def over(self, axis=None) -> "Mesh":
         """The 1-D mesh a call runs on: ``axis`` None is the first axis
@@ -276,51 +310,63 @@ def make_cores_mesh(device=None, name: str = "cores") -> Mesh:
     return Mesh(None, rank, size, dev, dist.get_backend(), name)
 
 
-def make_mesh(shape, axis_names, device=None) -> Mesh:
+def make_mesh(shape, axis_names, device=None, ranks=None):
     """A mesh over the initialized default process group laid out as the
     rank grid ``shape`` (row-major: rank = the flattened coordinate) with
     one name per axis.  Builds one process group per axis line and per
     tuple of axes in grid order (``torch.distributed.new_group``; every
     rank builds every group, as the call requires), so :meth:`Mesh.over`
     gives each axis, or each flattened tuple of axes, its own collectives.
-    The sub-meshes share the mesh's counters."""
+    The sub-meshes share the mesh's counters.  ``ranks``: the world ranks
+    the grid spans, in its order (default: all of them); every rank of
+    the world must call, and one outside them gets None."""
     import itertools
     world = make_cores_mesh(device)
+    members = list(range(world.size)) if ranks is None else \
+        [int(r) for r in ranks]
     shape = tuple(int(s) for s in shape)
     names = tuple(axis_names)
-    if len(shape) != len(names) or int(np.prod(shape)) != world.size:
+    if len(shape) != len(names) or int(np.prod(shape)) != len(members):
         raise ValueError(f"grid {shape} over axes {names} does not hold "
-                         f"{world.size} ranks")
-    world.shape, world.axis_names = shape, names
-    world.axis_name = names if len(names) > 1 else names[0]
-    coords = np.array(np.unravel_index(np.arange(world.size), shape)).T
-    me = coords[world.rank]
+                         f"{len(members)} ranks")
+    inside = world.rank in members
+    mesh = world
+    if ranks is not None:
+        grp = dist.new_group(members)
+        mesh = dataclasses.replace(
+            world, group=grp, size=len(members),
+            rank=members.index(world.rank) if inside else -1)
+    mesh.shape, mesh.axis_names = shape, names
+    mesh.axis_name = names if len(names) > 1 else names[0]
+    coords = np.array(np.unravel_index(np.arange(len(members)), shape)).T
+    me = coords[mesh.rank] if inside else None
     for k in range(1, len(names) + 1):
         for axes in itertools.combinations(range(len(names)), k):
             key = tuple(names[a] for a in axes)
             key = key[0] if k == 1 else key
             if k == len(names):
-                if k > 1:
-                    world.subs[key] = dataclasses.replace(
-                        world, axis_name=key, subs={}, shape=(world.size,),
+                if k > 1 and inside:
+                    mesh.subs[key] = dataclasses.replace(
+                        mesh, axis_name=key, subs={}, shape=(mesh.size,),
                         axis_names=("+".join(names),))
                 continue
             rest = [a for a in range(len(names)) if a not in axes]
             mine = None
             for fixed in itertools.product(*(range(shape[a]) for a in rest)):
-                ranks = [int(r) for r in range(world.size)
-                         if all(coords[r][a] == f
-                                for a, f in zip(rest, fixed))]
-                grp = dist.new_group(ranks)
-                if all(me[a] == f for a, f in zip(rest, fixed)):
-                    mine = (grp, ranks)
-            grp, ranks = mine
-            world.subs[key] = dataclasses.replace(
-                world, group=grp, rank=ranks.index(world.rank),
-                size=len(ranks), axis_name=key, subs={},
-                shape=(len(ranks),),
-                axis_names=(key if k == 1 else "+".join(key),))
-    return world
+                line = [members[r] for r in range(len(members))
+                        if all(coords[r][a] == f
+                               for a, f in zip(rest, fixed))]
+                grp = dist.new_group(line)
+                if inside and all(me[a] == f for a, f in zip(rest, fixed)):
+                    mine = (grp, line)
+            if inside:
+                grp, line = mine
+                mesh.subs[key] = dataclasses.replace(
+                    mesh, group=grp, rank=line.index(world.rank),
+                    size=len(line), axis_name=key, subs={},
+                    shape=(len(line),),
+                    axis_names=(key if k == 1 else "+".join(key),))
+    return mesh if inside else None
 
 
 def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, grid,

@@ -1,5 +1,5 @@
 """End-to-end training driver (counterpart of ``repro.launch.train``), on
-one device: the card unless ``--device`` says otherwise.
+the card unless ``--device`` says otherwise.
 
 Composes the config registry -> synthetic data pipeline -> the train step
 (``configs.make_step``: loss forward and backward, AdamW in place) -> the
@@ -11,8 +11,17 @@ straggler log) -> per-step JSON metric records and a ``done:`` line.
 
 A run resumes from the newest checkpoint in ``--ckpt-dir`` (default
 ``build/train_ckpt`` under the repository root); give a fresh directory
-for a fresh run.  Several devices (the reference's data-parallel mesh)
-wait for rules over a mesh.
+for a fresh run.
+
+Several processes (``WORLD_SIZE`` > 1, as ``torch.distributed.run`` sets
+it, or a process group already initialized) train one model over a
+``("data", "model")`` mesh of (world, 1) ranks, as the reference meshes
+its devices; every rank draws the same global batches and the models
+take its block of each.  Rank 0 prints and writes the checkpoints:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch gin-tu --smoke --steps 3 \
+      --device cpu --ckpt-dir build/ck4
 """
 from __future__ import annotations
 
@@ -23,15 +32,20 @@ import time
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.ckpt import CheckpointManager
 from ..configs import get_config
-from ..configs.common import SpecBundle, init_params, make_step
+from ..configs.common import (SpecBundle, init_params, make_step,
+                              param_logical_axes, param_shardings,
+                              state_shardings)
 from ..core.graph import resolve_device, uniform_random_graph
 from ..data import synthetic
-from ..distributed.fault_tolerance import FTConfig, run_training
+from ..distributed.fault_tolerance import (FTConfig, reshard_state,
+                                           run_training)
 from ..distributed.sharding import make_rules
 from ..optim import adamw
+from .mesh import backend_for, make_mesh
 
 __all__ = ["build_batch_iter", "main"]
 
@@ -91,7 +105,26 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dev = resolve_device(args.device)
     ac = get_config(args.arch)
     model_cfg = ac.smoke if args.smoke else ac.model
-    rules = make_rules(None)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh, own_group = None, False
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group(backend_for(dev, world),
+                                init_method="env://")
+        own_group = True
+    if dist.is_initialized():
+        mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"),
+                         device=dev)
+        dev = mesh.device
+    try:
+        return _train(args, ac, model_cfg, mesh, dev)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, ac, model_cfg, mesh, dev) -> dict:
+    rules = make_rules(mesh)
+    lead = mesh is None or mesh.rank == 0
     bundle = SpecBundle("train", model_cfg, {}, {})
     opt = adamw.AdamWConfig(lr=args.lr,
                             warmup_steps=min(100, args.steps // 10 + 1),
@@ -100,10 +133,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     step = make_step(ac, bundle, rules, opt)
 
     params = init_params(ac, model_cfg, args.seed, device=dev)
-    state = adamw.init_state_with_dtype(params, ac.moment_dtype)
     n_params = sum(p.numel() for p in adamw.named_params(params).values())
-    print(f"arch={args.arch} params={n_params / 1e6:.1f}M devices=1 "
-          f"({dev})")
+    shardings = param_shardings(rules, params,
+                                param_logical_axes(ac, model_cfg, params))
+    if mesh is not None:
+        params = reshard_state(params, shardings)
+    state = adamw.init_state_with_dtype(params, ac.moment_dtype)
+    if lead:
+        print(f"arch={args.arch} params={n_params / 1e6:.1f}M "
+              f"devices={1 if mesh is None else mesh.size} ({dev})")
 
     batches = build_batch_iter(ac, model_cfg, args)
     ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, keep=3)
@@ -113,21 +151,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if i % args.log_every == 0 or i == args.steps:
             rec = {"step": i, **{k: float(v) for k, v in m.items()}}
             logs.append(rec)
-            print(json.dumps(rec), flush=True)
+            if lead:
+                print(json.dumps(rec), flush=True)
 
     t0 = time.time()
-    state, report = run_training(step, state, batches, ckpt, args.steps,
-                                 FTConfig(ckpt_every=args.ckpt_every),
-                                 on_metrics=on_metrics)
+    state, report = run_training(
+        step, state, batches, ckpt, args.steps,
+        FTConfig(ckpt_every=args.ckpt_every), on_metrics=on_metrics,
+        shardings=None if mesh is None else state_shardings(shardings))
     dt = time.time() - t0
-    print(f"done: {report['steps_run']} steps in {dt:.1f}s "
-          f"({dt / max(report['steps_run'], 1):.3f}s/step), "
-          f"restarts={report['restarts']}, "
-          f"stragglers={len(report['straggler_events'])}")
+    if lead:
+        print(f"done: {report['steps_run']} steps in {dt:.1f}s "
+              f"({dt / max(report['steps_run'], 1):.3f}s/step), "
+              f"restarts={report['restarts']}, "
+              f"stragglers={len(report['straggler_events'])}")
     summary = {"logs": logs,
                "report": {k: v for k, v in report.items()
                           if k != "straggler_events"}}
-    if args.metrics_out:
+    if args.metrics_out and lead:
         with open(args.metrics_out, "w") as f:
             json.dump(summary, f)
     return summary

@@ -24,8 +24,26 @@ where the reference stacks identical layers (``layers``, ``blocks``) for
 ``lax.scan``, the port keeps a list, one entry a layer
 (:func:`params_from_reference` unstacks).  ``jax.checkpoint`` becomes
 ``torch.utils.checkpoint`` and a scan over edge or triplet chunks a loop
-over the same chunks.  One device: gathers and scatters over a mesh (the
-reference's DGAS exchange) wait for rules over a mesh and raise.
+over the same chunks.
+
+Over a process mesh (``rules`` from ``make_rules(mesh)``) every rank runs
+the same forward on its blocks: the functions take the *global* batch
+(the same on every rank) and slice it by its logical axes
+(:func:`batch_axes`: nodes and edges over the flat axes; with
+``edge_chunk`` / ``triplet_chunk`` rank r's share of chunk c is chunk c's
+r-th block, as the reference's ``shard_map`` of each chunk gives it), and
+the parameters are whole on every rank.  Above ``dgas_threshold`` a
+node (or edge) table's gathers and scatters are the reference's DGAS
+exchanges under autograd (``distributed.routed``): each request routes
+to the row's owner and only the requested rows return; every owner-side
+sum, forward and backward, is B4.  Below it, or where the flat size does
+not divide the table, the table is all-gathered (or held whole) and the
+local path runs.  The loss and its metrics are global; each rank's loss
+carries the gradient of its share (:func:`loss_fn`), so a replicated
+parameter's gradient is the sum of the ranks' (``configs.make_step``
+all-reduces it).  A rank's owner sums its arrivals by source rank, then
+in each sender's order, so a meshed result equals the local one to f32
+rounding, not bit for bit.
 
 Batch schema (numpy arrays or tensors; moved to the parameters' device):
 
@@ -38,25 +56,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import dgas
 from ..core.graph import resolve_device
+from ..distributed import routed
 from ..distributed.sharding import MeshRules, make_rules
 from ..kernels import ops
 from ..kernels.segment_sum import SegmentPlan
 
 __all__ = ["GNNConfig", "init_params", "forward", "loss_fn", "segment_sum",
            "gather_rows", "gather_segment_sum", "EdgePlan", "gather_nodes",
-           "scatter_add_nodes", "params_from_reference", "batch_to"]
-
-_MESH = ("gathers and scatters over a mesh (the DGAS exchange) are not "
-         "ported yet: they wait for rules over a mesh (ROADMAP §A.9, "
-         "slice 14)")
+           "scatter_add_nodes", "params_from_reference", "batch_to",
+           "batch_axes", "place_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +100,11 @@ class GNNConfig:
     # are streamed in chunks so per-edge intermediates stay bounded
     edge_chunk: Optional[int] = None
     triplet_chunk: Optional[int] = None
+    # PIUMA fine-grained remote access: over a mesh, above this table size
+    # (elements) gathers / scatters are DGAS exchanges instead of an
+    # all-gather of the table (the paper's central optimization)
+    dgas_threshold: int = 4_000_000
+    dgas_cap_factor: int = 4
     dtype: torch.dtype = torch.float32
 
     @property
@@ -227,26 +249,97 @@ def gather_segment_sum(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return _GatherSegmentSum.apply(x.to(torch.float32), plan)
 
 
+# ---------------------------------------------------------------------------
+# PIUMA fine-grained node access over a mesh (DGAS) — the paper's technique
+# ---------------------------------------------------------------------------
+
+def _use_dgas(cfg, rules, shape) -> bool:
+    """The reference's rule on a table's *global* shape: a mesh, at least
+    ``dgas_threshold`` elements, rows that the flat axes divide."""
+    return (rules.mesh is not None
+            and int(np.prod(shape)) >= cfg.dgas_threshold
+            and shape[0] % rules._axis_size(rules.flat) == 0)
+
+
+def _dgas_capacity(cfg, local_n, S):
+    return int(min(local_n, cfg.dgas_cap_factor * (-(-local_n // S))))
+
+
+def _flat_mesh(rules):
+    return rules.mesh.over(rules.flat)
+
+
+def _global_rows(x: torch.Tensor, n, S: int) -> int:
+    """The global row count of a table over a mesh of S flat ranks: ``x``
+    is this rank's block when S divides ``n``, else the whole table."""
+    if n is None:
+        raise ValueError("over a mesh, pass n=: the table's global rows")
+    if x.shape[0] != (n // S if n % S == 0 else n):
+        raise ValueError(f"a table of {n} global rows over {S} ranks has "
+                         f"{n // S if n % S == 0 else n} rows here, not "
+                         f"{x.shape[0]}")
+    return n
+
+
 def gather_nodes(cfg: GNNConfig, x: torch.Tensor, idx: torch.Tensor,
-                 rules: MeshRules,
-                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
-    """x[idx] with padding (-1 -> 0 rows); plan: see :func:`gather_rows`."""
-    if rules.mesh is not None:
-        raise NotImplementedError(_MESH)
-    return gather_rows(x, idx, plan)
+                 rules: MeshRules, plan: Optional[SegmentPlan] = None, *,
+                 n: Optional[int] = None) -> torch.Tensor:
+    """x[idx] with padding (-1 -> 0 rows); plan: see :func:`gather_rows`.
+
+    Over a mesh, ``x`` is this rank's block of a table of ``n`` global rows
+    (the whole table where the flat size does not divide n) and ``idx``
+    this rank's requests, by global id.  Above the threshold each request
+    routes to its row's owner and only the requested rows return (never a
+    replica of x); the backward sends the gradient's rows back along the
+    same slots, and the owner sums them with B4.  Below it the table is
+    all-gathered and the local gather runs (``plan`` over the n rows)."""
+    if rules.mesh is None:
+        return gather_rows(x, idx, plan)
+    mesh = _flat_mesh(rules)
+    S = mesh.size
+    n = _global_rows(x, n, S)
+    if n % S:
+        return gather_rows(x, idx, plan)
+    if _use_dgas(cfg, rules, (n,) + tuple(x.shape[1:])):
+        return routed.gather(x, idx, dgas.block_rule(n, S), mesh,
+                             capacity=_dgas_capacity(cfg, idx.shape[0], S))
+    return gather_rows(routed.all_gather_rows(x, mesh), idx, plan)
 
 
 def scatter_add_nodes(cfg: GNNConfig, dest, idx: torch.Tensor,
                       vals: torch.Tensor, rules: MeshRules,
-                      plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+                      plan: Optional[SegmentPlan] = None, *,
+                      n: Optional[int] = None) -> torch.Tensor:
     """dest + the segment sum of vals by idx (idx < 0 dropped); dest an
     int n for a fresh zero buffer.  Out of place, so autograd sees it.
-    plan: see :func:`segment_sum`."""
-    if rules.mesh is not None:
-        raise NotImplementedError(_MESH)
-    if isinstance(dest, int):
-        return segment_sum(vals, idx, dest, plan)
-    return dest + segment_sum(vals, idx, dest.shape[0], plan)
+    plan: see :func:`segment_sum`.
+
+    Over a mesh, ``dest`` is this rank's block of a table of ``n`` global
+    rows (or the int n) and the result this rank's block of the global
+    sums.  Above the threshold the (id, row) pairs route to the owners,
+    which sum them with B4 (PIUMA's remote atomic add); the backward is a
+    routed gather of the gradient at the same slots.  Below it each rank
+    sums its rows into the whole table (``plan`` over the n rows) and the
+    ranks' sums are reduced to each rank's block."""
+    base = None if isinstance(dest, int) else dest
+    if rules.mesh is None:
+        out = segment_sum(vals, idx, dest if base is None else base.shape[0],
+                          plan)
+        return out if base is None else base + out
+    mesh = _flat_mesh(rules)
+    S = mesh.size
+    n = dest if base is None else _global_rows(base, n, S)
+    shape = (n,) + tuple(vals.shape[1:])
+    if n % S:
+        out = routed.all_reduce_sum(segment_sum(vals, idx, n, plan), mesh)
+    elif _use_dgas(cfg, rules, shape):
+        out = routed.scatter_add(
+            vals.to(torch.float32), idx, dgas.block_rule(n, S), mesh,
+            capacity=_dgas_capacity(cfg, idx.shape[0], S), n=n // S)
+    else:
+        out = routed.reduce_scatter_rows(segment_sum(vals, idx, n, plan),
+                                         mesh)
+    return out if base is None else base + out
 
 
 # ---------------------------------------------------------------------------
@@ -299,14 +392,21 @@ def _segment_max(scores, seg, n):
                                "amax", include_self=True)
 
 
-def _edge_head_softmax(alpha, valid, dst, n, n_heads, plan=None):
+def _edge_head_softmax(alpha, valid, dst, n, n_heads, plan=None,
+                       mesh=None):
     """plan: ``SegmentPlan(where(valid, dst, n), n + 1)``, built here when
-    None."""
+    None.  Over a mesh (the flat ranks, each with its edges) the maxima and
+    sums per destination are the ranks' together: each rank's whole (n +
+    1, heads) partials, reduced."""
     safe = torch.where(valid, dst, n)
     smax = _segment_max(torch.where(valid[:, None], alpha, -1e30), safe,
                         n + 1)
+    if mesh is not None:
+        smax = mesh.all_reduce(smax, "max")
     ex = torch.exp(alpha - smax[safe.long()]) * valid[:, None]
     den = segment_sum(ex, safe, n + 1, plan)
+    if mesh is not None:
+        den = routed.all_reduce_sum(den, mesh)
     return ex / torch.clamp(den[safe.long()], min=1e-20)
 
 
@@ -330,20 +430,31 @@ def _gin_init(cfg, ini):
             "readout": ini.mlp([cfg.d_hidden, cfg.n_classes])}
 
 
-def _gin_forward(cfg, params, batch, rules):
+def _gin_forward(cfg, params, batch, rules, lay):
     x = batch["x"].to(torch.float32)
     src, dst = batch["src"], batch["dst"]
-    n = x.shape[0]
-    if rules.mesh is not None:
-        raise NotImplementedError(_MESH)
-    # one sort of the edges for every layer, its recompute and backward
-    plan = EdgePlan(src, dst, n, n)
+    n = lay.n
+    if rules.mesh is None:
+        # one sort of the edges for every layer, its recompute and backward
+        plan = EdgePlan(src, dst, n, n)
+
+        def aggregate(x):
+            # the reference's scatter_add(where(src >= 0, dst, -1),
+            # gather(x, src) * valid) in one B4 launch
+            return gather_segment_sum(x, src, dst, n, plan)
+    else:
+        # over a mesh, the reference's gather and scatter (routed above
+        # the threshold)
+        valid = (src >= 0)[:, None]
+        mdst = torch.where(src >= 0, dst, -1)
+        p_src, p_mdst = SegmentPlan(src, n), SegmentPlan(mdst, n)
+
+        def aggregate(x):
+            msg = gather_nodes(cfg, x, src, rules, p_src, n=n) * valid
+            return scatter_add_nodes(cfg, n, mdst, msg, rules, p_mdst, n=n)
 
     def layer(lyr, x):
-        # the reference's scatter_add(where(src >= 0, dst, -1),
-        # gather(x, src) * valid) in one B4 launch
-        agg = gather_segment_sum(x, src, dst, n, plan)
-        x = _mlp(lyr["mlp"], (1.0 + lyr["eps"]) * x + agg)
+        x = _mlp(lyr["mlp"], (1.0 + lyr["eps"]) * x + aggregate(x))
         return rules.constrain(_rmsnorm(x, lyr["ln"]), "nodes", None)
 
     for lyr in [params["layer0"]] + list(params["layers"]):
@@ -365,9 +476,9 @@ def _gatedgcn_init(cfg, ini):
             "layers": layers, "readout": ini.mlp([d, cfg.n_classes])}
 
 
-def _gatedgcn_forward(cfg, params, batch, rules):
+def _gatedgcn_forward(cfg, params, batch, rules, lay):
     src, dst = batch["src"], batch["dst"]
-    n = batch["x"].shape[0]
+    n = lay.n
     d = cfg.d_hidden
     h = batch["x"].to(torch.float32) @ params["embed"]
     e = params["edge_embed"].expand(src.shape[0], d)
@@ -376,8 +487,8 @@ def _gatedgcn_forward(cfg, params, batch, rules):
     p_src, p_dst, p_mdst = (SegmentPlan(ids, n) for ids in (src, dst, mdst))
 
     def layer(lyr, h, e):
-        hs = gather_nodes(cfg, h, src, rules, p_src)
-        hd = gather_nodes(cfg, h, dst, rules, p_dst)
+        hs = gather_nodes(cfg, h, src, rules, p_src, n=n)
+        hd = gather_nodes(cfg, h, dst, rules, p_dst, n=n)
         e_new = e + F.relu(_rmsnorm(e @ lyr["C"] + hd @ lyr["D"]
                                     + hs @ lyr["E"], lyr["ln_e"]))
         eta = torch.sigmoid(e_new)
@@ -385,7 +496,7 @@ def _gatedgcn_forward(cfg, params, batch, rules):
         # numerator and denominator in one segment sum (columns apart)
         both = scatter_add_nodes(cfg, n, mdst,
                                  torch.cat([msg, eta * valid], -1), rules,
-                                 p_mdst)
+                                 p_mdst, n=n)
         agg = both[:, :d] / (both[:, d:] + 1e-6)
         h = h + F.relu(_rmsnorm(h @ lyr["A"] + agg, lyr["ln_h"]))
         return (rules.constrain(h, "nodes", None),
@@ -443,27 +554,28 @@ def _chunks(chunk: int, total: int, *cols):
     return list(zip(*out))
 
 
-def _dimenet_forward(cfg, params, batch, rules):
+def _dimenet_forward(cfg, params, batch, rules, lay):
     src, dst, pos = batch["src"], batch["dst"], batch["pos"]
     x = batch["x"].to(torch.float32)
-    n, E, d = x.shape[0], src.shape[0], cfg.d_hidden
+    n, E, d = lay.n, lay.E, cfg.d_hidden
     valid_e = src >= 0
-    d_vec = (gather_nodes(cfg, pos, dst, rules)
-             - gather_nodes(cfg, pos, src, rules))
+    d_vec = (gather_nodes(cfg, pos, dst, rules, n=n)
+             - gather_nodes(cfg, pos, src, rules, n=n))
     dist = torch.sqrt(torch.sum(d_vec ** 2, -1) + 1e-9)
     rbf = _rbf(dist, cfg.n_radial, cfg.cutoff) * valid_e[:, None]
     m = _mlp(params["embed"], torch.cat(
-        [gather_nodes(cfg, x, src, rules), gather_nodes(cfg, x, dst, rules),
-         rbf], -1))
+        [gather_nodes(cfg, x, src, rules, n=n),
+         gather_nodes(cfg, x, dst, rules, n=n), rbf], -1))
     m = m * valid_e[:, None]
 
     t_kj, t_ji, angle = batch["triplet_kj"], batch["triplet_ji"], batch["angle"]
     T = t_kj.shape[0]
-    # per chunk: ji masked to the valid triplets, and the plans of kj (the
-    # gather's backward) and of masked ji (the scatter), kept for every block
+    # per chunk (this rank's block of each over a mesh): ji masked to the
+    # valid triplets, and the plans of kj (the gather's backward) and of
+    # masked ji (the scatter), kept for every block
+    chunk = (cfg.triplet_chunk or lay.T) // lay.S
     tri_chunks = [(kj, torch.where(kj >= 0, ji, -1), ang)
-                  for kj, ji, ang in _chunks(cfg.triplet_chunk or T, T, t_kj,
-                                             t_ji, angle)]
+                  for kj, ji, ang in _chunks(chunk, T, t_kj, t_ji, angle)]
     tri_plans = [(SegmentPlan(kj, E), SegmentPlan(mji, E))
                  for kj, mji, _ in tri_chunks]
     out_dst = torch.where(valid_e, dst, -1)
@@ -475,21 +587,21 @@ def _dimenet_forward(cfg, params, batch, rules):
         agg = None
         for (kj, mji, ang), (p_kj, p_ji) in zip(tri_chunks, tri_plans):
             vt = kj >= 0
-            sbf = _sbf(gather_nodes(cfg, dist, kj, rules), ang, cfg.n_radial,
-                       cfg.n_spherical, cfg.cutoff) * vt[:, None]
-            m_kj = gather_nodes(cfg, m, kj, rules, p_kj)
+            sbf = _sbf(gather_nodes(cfg, dist, kj, rules, n=E), ang,
+                       cfg.n_radial, cfg.n_spherical, cfg.cutoff) * vt[:, None]
+            m_kj = gather_nodes(cfg, m, kj, rules, p_kj, n=E)
             tri = (m_kj @ blk["w_kj"]) * (sbf @ blk["w_sbf"])
             tri = (tri @ blk["w_bil"]) * vt[:, None]
             agg = scatter_add_nodes(cfg, E if agg is None else agg, mji, tri,
-                                    rules, p_ji)
+                                    rules, p_ji, n=E)
         m = m + _mlp(blk["mlp"], m * (rbf @ blk["w_rbf"]) + agg)
         m = rules.constrain(m * valid_e[:, None], "edges", None)
         # per-block output: edges -> dst nodes
         node_out = node_out + scatter_add_nodes(
-            cfg, n, out_dst, _mlp(blk["out"], m), rules, p_out)
+            cfg, n, out_dst, _mlp(blk["out"], m), rules, p_out, n=n)
         return m, node_out
 
-    node_out = x.new_zeros((n, d))
+    node_out = x.new_zeros((x.shape[0], d))
     for blk in params["blocks"]:
         m, node_out = _remat(block, blk, m, node_out)
     return node_out
@@ -551,22 +663,27 @@ def _so2_conv(x_rot, so2_params, idx_sets, C):
     return out
 
 
-def _equiformer_forward(cfg, params, batch, rules):
+def _equiformer_forward(cfg, params, batch, rules, lay):
     src, dst = batch["src"], batch["dst"]
     wig = batch["wigner"].to(torch.float32)      # (E, ncoef, ncoef)
-    n, E = batch["x"].shape[0], src.shape[0]
+    # this rank's edges (over a mesh its block of every chunk, padding
+    # included) and the global node count
+    n, E = lay.n, src.shape[0]
+    n_rows = batch["x"].shape[0]
     C, ncoef = cfg.d_hidden, cfg.n_coef
     valid = src >= 0
     idx_sets = _so2_index_sets(cfg.l_max, cfg.m_max)
+    mesh = None if rules.mesh is None else _flat_mesh(rules)
 
     # invariant features in l = 0; higher l start at 0
     x0 = batch["x"].to(torch.float32) @ params["embed"]
-    X = torch.cat([x0[:, None, :], x0.new_zeros((n, ncoef - 1, C))], 1)
+    X = torch.cat([x0[:, None, :], x0.new_zeros((n_rows, ncoef - 1, C))],
+                  1)
     l_ids = torch.tensor(np.concatenate(
         [[l] * (2 * l + 1) for l in range(cfg.l_max + 1)]),
         device=X.device)
 
-    chunk = cfg.edge_chunk or E
+    chunk = (cfg.edge_chunk or lay.E) // lay.S
     pad = -(-E // chunk) * chunk - E
     edge_chunks = _chunks(chunk, E, src, dst, wig)   # padding: src -1
     # per chunk the plans of s and d (the gathers' backward) and of d masked
@@ -579,10 +696,11 @@ def _equiformer_forward(cfg, params, batch, rules):
     def layer_fn(X, lyr):
         # pass A: attention logits from the invariant (l = 0) features
         alpha = torch.cat([_mlp(lyr["alpha"], torch.cat(
-            [gather_nodes(cfg, X[:, 0, :], d, rules, pd),
-             gather_nodes(cfg, X[:, 0, :], s, rules, ps)], -1))
+            [gather_nodes(cfg, X[:, 0, :], d, rules, pd, n=n),
+             gather_nodes(cfg, X[:, 0, :], s, rules, ps, n=n)], -1))
             for (s, d, _), (ps, pd, _) in zip(edge_chunks, chunk_plans)])[:E]
-        alpha = _edge_head_softmax(alpha, valid, dst, n, cfg.n_heads, p_soft)
+        alpha = _edge_head_softmax(alpha, valid, dst, n, cfg.n_heads, p_soft,
+                                   mesh)
         a_mean = alpha.mean(-1)
         if pad:
             a_mean = torch.cat([a_mean, a_mean.new_zeros(pad)])
@@ -592,8 +710,8 @@ def _equiformer_forward(cfg, params, batch, rules):
         def msg_body(X, s, d, w, a, plans):
             ps, pd, pm = plans
             vmask = s >= 0
-            Xi = gather_nodes(cfg, X, d, rules, pd)
-            Xj = gather_nodes(cfg, X, s, rules, ps)
+            Xi = gather_nodes(cfg, X, d, rules, pd, n=n)
+            Xj = gather_nodes(cfg, X, s, rules, ps, n=n)
             msg = _so2_conv(torch.bmm(w, Xi) + torch.bmm(w, Xj), lyr["so2"],
                             idx_sets, C)             # rotated to edge frame
             gate = _mlp(lyr["gate"], msg[:, 0, :]).reshape(-1, cfg.l_max + 1,
@@ -602,7 +720,7 @@ def _equiformer_forward(cfg, params, batch, rules):
             msg = msg * a[:, None, None]
             back = torch.bmm(w.transpose(1, 2), msg)  # rotate back (D^T)
             back = back * vmask[:, None, None]
-            return scatter_add_nodes(cfg, n, pm.seg, back, rules, pm)
+            return scatter_add_nodes(cfg, n, pm.seg, back, rules, pm, n=n)
 
         agg = None
         for (s, d, w), a, plans in zip(edge_chunks, alpha_c, chunk_plans):
@@ -612,7 +730,7 @@ def _equiformer_forward(cfg, params, batch, rules):
         X = X + agg @ lyr["proj"]
         # equivariant FFN: per-l gated by a scalar MLP
         g = _mlp(lyr["ffn_gate"], _rmsnorm(X[:, 0, :], lyr["ln"]))
-        g = torch.sigmoid(g.reshape(n, cfg.l_max + 1, C))[:, l_ids, :]
+        g = torch.sigmoid(g.reshape(n_rows, cfg.l_max + 1, C))[:, l_ids, :]
         X = X + (X @ lyr["ffn"]) * g
         return rules.constrain(X, "nodes", None, None)
 
@@ -695,34 +813,143 @@ def batch_to(batch: dict, device) -> dict:
     return {k: _tensor(v).to(device) for k, v in batch.items()}
 
 
-def forward(cfg: GNNConfig, params, batch, rules: Optional[MeshRules] = None):
-    """Per-node hidden -> logits / outputs after the readout (per graph
-    for a graph or regression task with ``graph_id``)."""
-    rules = rules or make_rules(None)
-    batch = batch_to(batch, _device(params))
-    h = _FWD[cfg.arch](cfg, params, batch, rules)
+class _Layout(NamedTuple):
+    """The global sizes a forward needs: nodes, edges, triplets, and the
+    flat ranks S (1 without a mesh)."""
+
+    n: int
+    E: int
+    T: int
+    S: int
+
+
+def batch_axes(cfg: GNNConfig) -> dict:
+    """The logical axes of each batch key (``configs``' ``_gnn_specs``
+    takes its batch's from here)."""
+    node = ("nodes",)
+    return {"x": ("nodes", None), "src": ("edges",), "dst": ("edges",),
+            "labels": node if cfg.task == "node" else (None,),
+            "label_mask": node, "graph_id": node, "node_mask": node,
+            "pos": ("nodes", None), "triplet_kj": ("edges",),
+            "triplet_ji": ("edges",), "angle": ("edges",),
+            "wigner": ("edges", None, None)}
+
+
+def _chunk_of(cfg: GNNConfig, key: str, E: int, T: int) -> Optional[int]:
+    """The chunk a key's array is streamed in (a forward's loop over
+    chunks), None for an array taken whole."""
+    if cfg.arch == "equiformer_v2" and key in ("src", "dst", "wigner"):
+        return cfg.edge_chunk or E
+    if cfg.arch == "dimenet" and key in ("triplet_kj", "triplet_ji",
+                                         "angle"):
+        return cfg.triplet_chunk or T
+    return None
+
+
+def place_batch(cfg: GNNConfig, batch: dict, rules: MeshRules):
+    """(this rank's batch as tensors, its layout) from the global batch.
+    Without a mesh the batch itself.  Over a mesh each array is sliced by
+    its logical axes (:func:`batch_axes`; a dim the flat size does not
+    divide stays whole); an array streamed in chunks is padded to whole
+    chunks as the reference pads it (ids with -1, the rest with 0) and
+    this rank takes its block of every chunk.  Edges the flat size does
+    not divide are padded first (src and dst -1, the rest 0), as
+    ``input_specs`` pads them to 512: a padding edge adds nothing."""
+    batch = {k: _tensor(v) for k, v in batch.items()}
+    n, E = batch["x"].shape[0], batch["src"].shape[0]
+    T = batch["triplet_kj"].shape[0] if "triplet_kj" in batch else 0
+    if rules.mesh is None:
+        return batch, _Layout(n, E, T, 1)
+    mesh = _flat_mesh(rules)
+    S, r = mesh.size, mesh.rank
+    pad = -(-E // S) * S - E
+    if pad:
+        for k in ("src", "dst", "wigner"):
+            if k in batch:
+                v = batch[k]
+                batch[k] = torch.cat([v, v.new_full(
+                    (pad,) + tuple(v.shape[1:]), -1 if k != "wigner" else 0)])
+        E += pad
+    axes = batch_axes(cfg)
+    out = {}
+    for k, v in batch.items():
+        chunk = _chunk_of(cfg, k, E, T)
+        if chunk is None:
+            out[k] = rules.input_sharding(v.shape, *axes[k]).block(v)
+            continue
+        if chunk % S:
+            raise ValueError(f"{k}'s chunk of {chunk} does not split over "
+                             f"{S} ranks")
+        pad = -(-v.shape[0] // chunk) * chunk - v.shape[0]
+        if pad:
+            fill = -1 if k in ("src", "dst", "triplet_kj") else 0
+            v = torch.cat([v, v.new_full((pad,) + tuple(v.shape[1:]), fill)])
+        per = chunk // S
+        v = v.reshape((-1, chunk) + tuple(v.shape[1:]))[:, r * per:
+                                                         (r + 1) * per]
+        out[k] = v.reshape((-1,) + tuple(v.shape[2:])).clone()
+    return out, _Layout(n, E, T, S)
+
+
+def _forward(cfg, params, batch, rules, lay):
+    h = _FWD[cfg.arch](cfg, params, batch, rules, lay)
     gid = batch.get("graph_id")
     if gid is not None and cfg.task in ("graph", "regression"):
         nm = batch.get("node_mask")
         if nm is not None:   # padded nodes contribute nothing to the readout
             h = h * nm[:, None].to(h.dtype)
         h = segment_sum(h, gid, int(batch["labels"].shape[0]))
+        if rules.mesh is not None and lay.n % lay.S == 0:
+            # each rank summed its nodes: the graphs' sums are the ranks'
+            h = routed.all_reduce_sum(h, _flat_mesh(rules))
     return _mlp(params["readout"], h)
+
+
+def forward(cfg: GNNConfig, params, batch, rules: Optional[MeshRules] = None):
+    """Per-node hidden -> logits / outputs after the readout (per graph
+    for a graph or regression task with ``graph_id``).  Over a mesh: this
+    rank's nodes' outputs (every node's where the flat size does not
+    divide them), or every graph's."""
+    rules = rules or make_rules(None)
+    batch, lay = place_batch(cfg, batch, rules)
+    return _forward(cfg, params, batch_to(batch, _device(params)), rules,
+                    lay)
 
 
 def loss_fn(cfg: GNNConfig, params, batch, rules: Optional[MeshRules] = None):
     """(loss, metrics): mean squared error for regression, masked
-    cross-entropy and accuracy otherwise."""
+    cross-entropy and accuracy otherwise.
+
+    Over a mesh the loss and the metrics are the global ones, on every
+    rank.  Each rank's sum over its own rows, over the count of every
+    rank's rows, is its share of the loss (the shares add up to the loss
+    also where every rank holds every row); the returned loss carries the
+    gradient of that share, so the ranks' gradients add up to the loss's
+    gradient."""
+    rules = rules or make_rules(None)
+    batch, lay = place_batch(cfg, batch, rules)
     batch = batch_to(batch, _device(params))
-    out = forward(cfg, params, batch, rules)
+    out = _forward(cfg, params, batch, rules, lay)
     labels = batch["labels"]
     if cfg.task == "regression":
-        loss = torch.mean((out[..., 0] - labels.to(torch.float32)) ** 2)
+        err = (out[..., 0] - labels.to(torch.float32)) ** 2
+        if rules.mesh is None:
+            loss = torch.mean(err)
+            return loss, {"loss": loss}
+        loss, _ = routed.global_mean(err.sum(), err.new_zeros(()),
+                                     err.numel(), _flat_mesh(rules))
         return loss, {"loss": loss}
     logp = F.log_softmax(out.to(torch.float32), -1)
     nll = -logp.gather(1, labels[:, None].long())[:, 0]
     mask = batch.get("label_mask")
     hit = (out.argmax(-1) == labels).to(torch.float32)
+    if rules.mesh is not None:
+        if mask is not None:
+            nll, hit = torch.where(mask, nll, 0.0), torch.where(mask, hit, 0.0)
+        cnt = nll.numel() if mask is None else mask.sum()
+        loss, acc = routed.global_mean(nll.sum(), hit.sum(), cnt,
+                                       _flat_mesh(rules))
+        return loss, {"loss": loss, "acc": acc}
     if mask is not None:
         cnt = torch.clamp(mask.sum(), min=1)
         loss = torch.where(mask, nll, 0.0).sum() / cnt
@@ -730,3 +957,4 @@ def loss_fn(cfg: GNNConfig, params, batch, rules: Optional[MeshRules] = None):
     else:
         loss, acc = nll.mean(), hit.mean()
     return loss, {"loss": loss, "acc": acc}
+

@@ -14,6 +14,12 @@ of tensors (GNN, FM).  :func:`named_params` names them: a module by
 ``step`` is a 0-d int32 tensor on the parameters' device, so a step reads
 nothing back to the host.  :func:`apply_update` updates everything in
 place from each parameter's ``.grad``.
+
+Over a process mesh each rank updates its block of every parameter from
+its block of the gradient (``configs.make_step`` has summed the
+replicated parameters' gradients over the ranks).  The clipping norm is
+the whole gradient's: the squares of a sharded parameter's blocks are
+summed over the ranks that split it, a replicated parameter counts once.
 """
 from __future__ import annotations
 
@@ -106,19 +112,40 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
-    tensors = list(tensors.values() if isinstance(tensors, dict) else tensors)
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tensors))
+def global_norm(tensors, shardings: Optional[dict] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32.  Over a
+    mesh ``tensors`` is a dict of this rank's blocks and ``shardings``
+    their ``Placement`` by name (None: replicated): each sharded block's
+    squares are summed over the ranks that split it (one all-reduce per
+    set of mesh axes), so every rank gets the whole tensors' norm."""
+    if shardings is None:
+        tensors = list(tensors.values() if isinstance(tensors, dict)
+                       else tensors)
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tensors))
+    total, split = None, {}
+    for k, x in tensors.items():
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        pl = shardings.get(k)
+        if pl is None or pl.replicated:
+            total = sq if total is None else total + sq
+        else:
+            key = (id(pl.mesh), pl.axes)
+            split.setdefault(key, [pl.mesh.over(pl.axes), []])[1].append(sq)
+    for mesh, parts in split.values():
+        sq = mesh.all_reduce(torch.stack(parts).sum().reshape(1), "sum")[0]
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_update(cfg: AdamWConfig, state: TrainState) -> TrainState:
+def apply_update(cfg: AdamWConfig, state: TrainState,
+                 shardings: Optional[dict] = None) -> TrainState:
     """One AdamW step from each parameter's ``.grad``, in place:
     parameters, moments and ``step``.  A parameter that requires grad and
     has no gradient raises (the backward lost it: no silent skip).
-    Returns ``state``."""
+    ``shardings``: over a mesh, each parameter's ``Placement`` by name,
+    for the clipping norm (:func:`global_norm`).  Returns ``state``."""
     named = named_params(state.params)
     missing = [k for k, p in named.items()
                if p.requires_grad and p.grad is None]
@@ -131,7 +158,7 @@ def apply_update(cfg: AdamWConfig, state: TrainState) -> TrainState:
     state.step.add_(1)
     step = state.step
     lr = cosine_schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads, shardings)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
              if cfg.clip_norm else 1.0)
     b1, b2 = cfg.beta1, cfg.beta2

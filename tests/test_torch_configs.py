@@ -1,11 +1,10 @@
-"""Port parity for the config registry and the one-device sharding rules:
+"""Port parity for the config registry and the sharding rules:
 ``repro_torch.configs`` and ``repro_torch.distributed.sharding`` against
 ``repro.configs`` / ``repro.distributed.sharding``.
 
 The registry names the reference's architectures, each full and smoke
 config equal field for field over the port's fields (the reference's
-``q_chunk``, which its attention ignores, is not ported, nor the GNNs'
-DGAS fields, which only a mesh reads), every
+``q_chunk``, which its attention ignores, is not ported), every
 ``input_specs`` shape and dtype equal to the reference's (the decode cache
 per layer, (B, Kv, Smax, hd) against the reference's stacked (G, P, B,
 Smax, Kv, hd)), ``make_step``'s prefill / decode / serve / retrieval steps
@@ -29,6 +28,7 @@ import repro_torch.configs as TC
 from repro_torch.configs import common as TCOM
 from repro_torch.configs import piuma_graph as TPG
 from repro_torch.distributed import sharding as TSH
+from repro_torch.launch import mesh as TM
 from repro_torch.models import gnn as TG
 from repro_torch.models import recsys as TRS
 from repro_torch.models import transformer as T
@@ -39,9 +39,16 @@ PORTED = list(RC.ARCH_NAMES)
 
 # the reference LMConfig's field that no code of it reads
 TRAIN_ONLY = {"q_chunk"}
-# the reference GNNConfig's fields that only its DGAS exchange over a mesh
-# reads (slice 14)
-MESH_ONLY = {"dgas_threshold", "dgas_cap_factor"}
+# the reference GNNConfig's fields the port lacks: none since the meshed
+# DGAS branch, which reads dgas_threshold and dgas_cap_factor
+MESH_ONLY = set()
+
+
+def _grid_mesh():
+    """Rank 0's view of a (2, 2) ('data', 'model') mesh: the rules read
+    its axes alone, so no process group is made."""
+    return TM.Mesh(None, 0, 4, torch.device("cpu"), "gloo", shape=(2, 2),
+                   axis_names=("data", "model"))
 
 
 def _plain(x, like=None):
@@ -142,8 +149,9 @@ def test_mixtral_long500k_uses_ring_cache():
 
 def test_apply_variant_and_training_parts_raise():
     """The name is kept from when the training parts raised: the train
-    step, the state's shapes and axes and the GNN specs now work, and only
-    parameter shardings over a mesh still raise (slice 14)."""
+    step, the state's shapes and axes, the GNN specs and parameter
+    shardings over a mesh now work; an LM's step over a mesh still raises
+    (ROADMAP §A.9's multi-card LM slice)."""
     tac = TC.get_config("qwen3-14b")
     b = TCOM.apply_variant(TC.input_specs(tac, "prefill_32k"), "fused_qkv")
     assert b.model.fused_qkv
@@ -160,8 +168,19 @@ def test_apply_variant_and_training_parts_raise():
     pax = TCOM.param_logical_axes(tac, tac.smoke, params)
     assert TC.param_shardings(TSH.make_rules(None), params, pax) == {
         k: None for k in pax}
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        TC.param_shardings(TSH.MeshRules(mesh=object()), params, pax)
+    rules = TSH.make_rules(_grid_mesh())
+    sh = TC.param_shardings(rules, params, pax)
+    assert set(sh) == set(pax)
+    for k, ax in pax.items():
+        shape = tuple(dict(params.named_parameters())[k].shape)
+        assert sh[k] == rules.input_sharding(shape, *ax)
+    fac = TC.get_config("fm")
+    fpax = TCOM.param_logical_axes(fac, fac.model, None)
+    fsh = TC.param_shardings(rules, TC.state_shapes(fac, fac.model)[0], fpax)
+    assert fsh["table"].entries == (("data", "model"), None)
+    assert fsh["w0"].replicated
+    with pytest.raises(NotImplementedError, match="multi-card LM slice"):
+        TC.make_step(tac, train, rules)
     assert TCOM._gnn_specs(gac, "molecule").kind == "train"
 
 
@@ -217,8 +236,10 @@ def test_one_device_rules():
                                                                 "heads", None))
     with pytest.raises(KeyError):
         rules.constrain(x, "nonsense")
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        TSH.make_rules(object())
+    # over a mesh the rules need its ('data', 'model') axes
+    with pytest.raises(ValueError, match="'data', 'model'"):
+        TSH.make_rules(TM.Mesh(None, 0, 4, torch.device("cpu"), "gloo"))
+    assert TSH.make_rules(_grid_mesh()).dp_size() == 2
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):

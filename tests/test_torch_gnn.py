@@ -15,7 +15,8 @@ read as rounding noise, 1e-10, on both sides.
 Also: the B4 autograd Functions (``gnn.segment_sum``, ``gnn.gather_rows``)
 against ``jax.ops.segment_sum`` and ``offload.dma_gather`` and their VJPs,
 with ids unsorted and out of range; the initialisers' shapes and moments;
-the meshed DGAS branch, which raises until rules over a mesh exist."""
+the meshed DGAS branch on a 1-rank mesh against the local one
+(``tests/test_torch_mesh_train.py`` holds it on 4 ranks)."""
 import dataclasses
 
 import jax
@@ -30,7 +31,7 @@ from repro.core.graph import uniform_random_graph
 from repro.data import synthetic as RSYN
 from repro.models import gnn as RGNN
 from repro_torch.configs import get_config
-from repro_torch.distributed.sharding import MeshRules
+from repro_torch.distributed.sharding import make_rules
 from repro_torch.models import gnn as G
 from repro_torch.optim import adamw
 
@@ -168,10 +169,33 @@ def test_edge_head_softmax_matches_reference():
 
 
 def test_mesh_gather_and_scatter_raise():
-    cfg = get_config("gin-tu").smoke
-    rules = MeshRules(mesh=object())
-    x, idx = torch.ones(4, 2), torch.tensor([0, 1])
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        G.gather_nodes(cfg, x, idx, rules)
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        G.scatter_add_nodes(cfg, 4, idx, x[:2], rules)
+    """The name is kept from when the meshed branch raised.  Over a 1-rank
+    (1, 1) mesh with DGAS forced, ``gather_nodes`` and
+    ``scatter_add_nodes`` route through the mesh and equal the local ones,
+    forward and backward; over a mesh a table's global rows must be
+    given."""
+    import _torch_mesh_cases as MC
+    cfg = dataclasses.replace(get_config("gin-tu").smoke, dgas_threshold=1)
+    rng = np.random.default_rng(5)
+    x0 = rng.standard_normal((6, 3)).astype(np.float32)
+    vals0 = rng.standard_normal((5, 3)).astype(np.float32)
+    idx = torch.tensor([0, 5, -1, 2, 2])
+    cot = torch.from_numpy(rng.standard_normal((5, 3)).astype(np.float32))
+    cot_n = torch.from_numpy(rng.standard_normal((6, 3)).astype(np.float32))
+
+    def run(rules, **kw):
+        x = torch.from_numpy(x0).requires_grad_(True)
+        vals = torch.from_numpy(vals0).requires_grad_(True)
+        g = G.gather_nodes(cfg, x, idx, rules, **kw)
+        s = G.scatter_add_nodes(cfg, 6, idx, vals, rules, **kw)
+        ((g * cot).sum() + (s * cot_n).sum()).backward()
+        return [t.detach().numpy() for t in (g, s, x.grad, vals.grad)]
+
+    want = run(make_rules(None))
+    with MC.one_rank_mesh() as mesh:
+        got = run(make_rules(mesh), n=6)
+        assert mesh.calls["all_to_all"] > 0
+        with pytest.raises(ValueError, match="n="):
+            G.gather_nodes(cfg, torch.from_numpy(x0), idx, make_rules(mesh))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)

@@ -1343,3 +1343,54 @@ def test_lm_smoke_gradients_on_the_card_match_cpu(cuda, arch):
         assert bool(torch.isfinite(g).all()), k
         torch.testing.assert_close(g, gw, rtol=1e-4, atol=1e-4 * scale)
         torch.testing.assert_close(p, pw, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [16, 64, 100])
+@pytest.mark.parametrize("n,cap,share", [(4000, 5000, 0.3),
+                                         (16384, 409600, 0.75)],
+                         ids=["small", "meshed"])
+def test_owner_side_b4_update_matches_plain(cuda, n, cap, share, d):
+    """The owner-side sum of a meshed GNN step (``offload.segment_sum_rows``)
+    on the card, on a routed arrival buffer: 4 source ranks' slots of
+    capacity ``cap``, each a local id or -1 (an empty slot, a ``share`` of
+    them), grouped by source rank, into ``n`` owner rows ("meshed": the
+    shape of a meshed gin-tu step's owner sums).  One B4 launch, within an
+    f32 sum's error bound of the float64 plain version; a planted fault
+    (one arrival's slot emptied) fails the same check."""
+    from repro_torch.core import offload
+    from repro_torch.kernels import segment_sum as SS
+    gen = torch.Generator().manual_seed(d)
+    slots = 4 * cap
+    local = torch.randint(0, n, (slots,), generator=gen, dtype=torch.int32)
+    local[:3000] = 17                               # a hub destination
+    empty = torch.rand(slots, generator=gen) < share
+    empty[:3000] = False
+    local[empty] = -1
+    rows = torch.randn(slots, d, generator=gen)
+    rows[empty] = 0.0
+
+    def plain(ids):
+        ok = ids >= 0
+        return torch.zeros(n, d, dtype=torch.float64).index_add_(
+            0, ids[ok].long(), rows[ok].double())
+
+    def within(got, ids):
+        ok = ids >= 0
+        count = torch.zeros(n).index_add_(0, ids[ok].long(),
+                                          torch.ones(int(ok.sum())))
+        mass = torch.zeros(n, d).index_add_(0, ids[ok].long(),
+                                            rows[ok].abs())
+        return bool(((got.double() - plain(ids)).abs()
+                     <= count[:, None] * 2.0 ** -24 * mass * 1.01
+                     + 1e-6).all())
+
+    SS.reset_launches()
+    got = offload.segment_sum_rows(local.to(cuda), rows.to(cuda), n)
+    torch.cuda.synchronize()
+    assert SS.LAUNCHES["segment_sum"] == 1
+    assert within(got.cpu(), local)
+    planted = local.clone()
+    planted[5] = -1                                 # a hub arrival lost
+    bad = offload.segment_sum_rows(planted.to(cuda), rows.to(cuda), n)
+    assert not within(bad.cpu(), local)
+

@@ -467,12 +467,32 @@ def test_fm_retrieval_matches_reference(fm_case):
 
 
 def test_fm_dgas_with_a_mesh_raises(fm_case):
+    """The name is kept from when the DGAS lookup raised.  Over a 1-rank
+    (1, 1) mesh it routes each lookup through the mesh and gives the local
+    scores, loss and gradients; rules need a ('data', 'model') mesh."""
+    import _torch_mesh_cases as MC
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch.mesh import Mesh
     _, cfg, _, params, batch = fm_case
-    from repro_torch.distributed.sharding import MeshRules
-    rules = MeshRules(mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        TRS.fm_scores(dataclasses.replace(cfg, use_dgas=True), params,
-                      batch["ids"], rules)
+    cfg = dataclasses.replace(cfg, use_dgas=True)
+
+    def run(rules):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        scores = TRS.fm_scores(cfg, p, batch["ids"], rules)
+        loss, _ = TRS.loss_fn(cfg, p, batch, rules)
+        loss.backward()
+        return [t.detach().numpy() for t in (scores, loss, p["table"].grad,
+                                             p["w0"].grad)]
+
+    want = run(None)
+    with MC.one_rank_mesh() as mesh:
+        got = run(make_rules(mesh))
+        assert mesh.calls["all_to_all"] > 0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="'data', 'model'"):
+        make_rules(Mesh(None, 0, 1, torch.device("cpu"), "gloo"))
 
 
 # ---------------------------------------------------------------------------
