@@ -176,8 +176,8 @@ Phases, each of which exits non-zero on failure:
    write: GIN gathers its rows inside B4); the
    four GNNs at their published widths on the ``molecule`` cell (a cold
    step, then a warm one); minicpm3-4b
-   (4.26 B parameters) at ``train_4k``'s sequence, batch 2, 4 steps in
-   bf16 and 4 with f32 weights (every parameter gets a finite nonzero
+   (4.26 B parameters) at ``train_4k``'s sequence, batch 2, 3 steps in
+   bf16 and 3 with f32 weights (every parameter gets a finite nonzero
    gradient, step 1 changes at least half the weights, the loss of the f32
    run falls); an async checkpoint restored into a fresh state bit for bit
    and ``run_training`` through two injected failures, step for step equal
@@ -202,7 +202,28 @@ Phases, each of which exits non-zero on failure:
    arithmetic, bytes halved and quartered); fm at its published widths
    with ``fm_dgas``: serve_bulk scoring and a train_batch step held to
    the local ones (1e-5); the phase fails past 120 s.  The B4 entry's
-   launches add the owners' sums, in a case of their own.
+   launches add the owners' sums, in a case of their own;
+10. the LM over a process mesh (``[lmmesh]`` and ``[check] lmmesh``
+   lines): 4 ranks sharing the card over gloo.  On a (2, 2) ('data',
+   'model') grid: one train step of each smoke LM (qwen3, minicpm3,
+   mixtral, llama4; qwen3 also sequence parallel) held to the CPU step
+   from the same parameters and batch by phase 8's rule; minicpm3-4b at
+   its published widths, batch 2 x 4096, for 2 steps from each rank's
+   blocks of phase 8's draw (FSDP over data, tensor parallel over model;
+   each rank and step: the wall around a barrier plus synchronize, calls,
+   bytes, host and card seconds per collective kind, peak memory), step
+   1's loss held to phase 8's one-card bf16 step 1 within 1.5 x the
+   rounding floor phase 8 measures (its bf16 step 1 against its
+   f32-weight step 1), every block's gradient finite and nonzero, step 1
+   changing at least half the weights.  On a (1, 4) grid: qwen3-14b
+   served through ``serve_lm``, prefill 4 x 512 and 32 greedy decode
+   steps, B6 on each rank's 10 q and 2 kv heads (40 wgmma launches on
+   prefill and 40 split launches a decode step, per rank); each B6 call
+   of prefill and 4 decode steps fed phase 7's ids held to its plain
+   version, and the logits of those steps and of every greedy step whose
+   ids so far are phase 7's held to phase 7's one-card logits within
+   MODEL_FLOOR_FACTOR x phase 7's floor; the phase fails past 240 s.  The
+   B6 entry's launches add the meshed ones, in a case of their own.
 
 Prints one JSON line ``{"kernels": [...]}`` (eight kernels) and, last, the
 device line.
@@ -1015,6 +1036,13 @@ def model_phase(args, smi: str) -> dict:
     del p_fwd
     limit = min(MODEL_LOGIT_TOL, MODEL_FLOOR_FACTOR * floor)
     out.update(logit_floor=floor, logit_limit=limit)
+    # the one-card logits and ids phase 10's meshed serving is held to
+    os.makedirs(LMMESH_DIR, exist_ok=True)
+    torch.save(dict(prompts=torch.from_numpy(prompts),
+                    tokens=torch.from_numpy(run["tokens"]),
+                    prefill_logits=run["prefill_logits"].cpu(),
+                    step_logits=steps.cpu(), floor=floor, limit=limit),
+               LMMESH_SERVE_REF)
     log(f"[check] model rounding floor: plain route's prefill and decode "
         f"steps 0-{G - 1} vs its own forward, per row max ||a - b|| / ||b|| "
         f"= {floor!r}; the logits below are held to {MODEL_FLOOR_FACTOR} x "
@@ -2752,7 +2780,9 @@ GNN_ARCHS = ("gin-tu", "gatedgcn", "dimenet", "equiformer-v2")
 MOL_GRAPHS, MOL_NODES, MOL_EDGES = 128, 30, 64     # molecule: per graph
 LM_TRAIN_ARCH = "minicpm3-4b"      # the one LM whose training fits a card
 LM_TRAIN_BATCH = 2                 # train_4k's batch 256, cut for memory
-LM_TRAIN_STEPS = 4
+# 3 steps a run, the fewest that time two warm steps and see the loss fall
+# past step 1, so the script keeps its time with phase 10
+LM_TRAIN_STEPS = 3
 # Adam's first step moves each weight by about its lr (lr g / (|g| + eps)).
 # A bf16 weight |w| ~ 0.02 (std 1 / sqrt(2560)) has a spacing of 1.2e-4,
 # so a smaller step rounds back to the old value: in bf16, step 1 at
@@ -4153,6 +4183,426 @@ def mesh_phase(smi: str) -> dict:
             "resume1_loss": one}
 
 
+# -- the LM-over-a-mesh phase ------------------------------------------------
+
+LMMESH_RANKS = 4                   # ranks sharing the card (gloo)
+LMMESH_GRID = (2, 2)               # training: FSDP over data, TP over model
+# serving: TP over model alone (FSDP would all-gather every weight on
+# every decode step, staged through host memory by gloo)
+LMMESH_SERVE_GRID = (1, 4)
+LMMESH_SMOKE = ("qwen3-14b", "minicpm3-4b", "mixtral-8x7b",
+                "llama4-maverick-400b-a17b")
+LMMESH_SP = "qwen3-14b"            # the dense config also run seq-parallel
+LMMESH_SMOKE_BATCH = (4, 16)       # data and model both divide it
+LMMESH_STEPS = 2
+LMMESH_DIR = os.path.join(ROOT, "build", "lmmesh")
+LMMESH_SERVE_REF = os.path.join(LMMESH_DIR, "serve_ref.pt")
+LMMESH_BUDGET_S = 240.0
+
+
+def _row_err(got, want) -> float:
+    """Largest per-row ||got - want|| / ||want|| over the last dim."""
+    got, want = got.float(), want.float()
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def lmmesh_rank(mesh, spec):
+    """One rank of the LM-over-a-mesh phase on a LMMESH_GRID ('data',
+    'model') grid: the smoke LMs' meshed train steps held to the CPU's;
+    minicpm3-4b at its published widths for LMMESH_STEPS steps from its
+    blocks of the one-card draw (each step measured: the wall, collectives
+    per kind, peak memory); then, on a LMMESH_SERVE_GRID mesh of the same
+    ranks, qwen3-14b served through ``serve_lm`` with B6 on this rank's
+    heads, each B6 call of prefill and MODEL_PLAIN_STEPS decode steps held
+    to its plain version, the logits to phase 7's one-card logits where
+    they read phase 7's ids.  Returns this rank's numbers and checks."""
+    import dataclasses
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.common import (SpecBundle, init_params,
+                                            make_step, param_logical_axes,
+                                            param_shardings)
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import fault_tolerance as FT
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import adamw
+
+    dev = mesh.device
+    rules = make_rules(mesh)
+    checks, out = [], {"rank": mesh.rank, "device": str(dev),
+                       "backend": mesh.backend, "smoke": {}, "steps": []}
+
+    def check(name, ok, detail=""):
+        checks.append((name, bool(ok), detail))
+
+    def blocks(ac, cfg, r):
+        shapes = init_params(ac, cfg, 0, device="meta")
+        return param_shardings(r, shapes, param_logical_axes(ac, cfg,
+                                                             shapes))
+
+    def measured(m, fn):
+        """fn() between a barrier plus synchronize and a synchronize: its
+        result and record (wall, collectives per kind, peak memory)."""
+        m.barrier()
+        torch.cuda.synchronize()
+        m.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m.settle()
+        c = m.counts()
+        return res, dict(wall_s=wall, calls=c["calls"], bytes=c["bytes"],
+                         seconds=c["seconds"],
+                         card_seconds=c["card_seconds"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    # -- the smoke LMs, card over the grid vs the CPU step --------------------
+    t0 = time.perf_counter()
+    runs = [(a, False) for a in LMMESH_SMOKE] + [(LMMESH_SP, True)]
+    for arch, sp in runs:
+        ac = get_config(arch)
+        cfg = ac.smoke
+        want = torch.load(os.path.join(spec["dir"], f"smoke_{arch}.pt"))
+        r = make_rules(mesh, seq_parallel=sp)
+        model = TF.Transformer(cfg, device=dev)
+        model.load_state_dict(want["state"])
+        FT.reshard_state(model, blocks(ac, cfg, r))
+        step = make_step(ac, SpecBundle("train", cfg, {}, {}), r,
+                         adamw.AdamWConfig(**SMOKE_OPT))
+        mesh.reset_counts()
+        st, m = step(adamw.init_state_with_dtype(model, ac.moment_dtype),
+                     {"tokens": want["tokens"]})
+        calls = dict(mesh.calls)
+        pl = model.placements
+        got_g = {k: pl[k].whole(p.grad).float().cpu()
+                 for k, p in model.named_parameters()}
+        got_p = {k: pl[k].whole(p.detach()).float().cpu()
+                 for k, p in model.named_parameters()}
+        rel = abs(float(m["loss"]) - want["loss"]) / max(abs(want["loss"]),
+                                                         1e-12)
+        res = _grad_param_check(got_g, want["grads"], got_p, want["params"],
+                                SMOKE_OPT["lr"])
+        tag = f"{arch}{' seq-parallel' if sp else ''}"
+        out["smoke"][tag] = dict(loss=float(m["loss"]), cpu=want["loss"],
+                                 rel=rel, calls=calls, **res)
+        check(f"smoke {tag} over {LMMESH_GRID}: loss vs the CPU step, rel "
+              f"<= {TRAIN_LOSS_RTOL}", rel <= TRAIN_LOSS_RTOL,
+              f"{float(m['loss'])!r} vs {want['loss']!r} (rel {rel!r})")
+        check(f"smoke {tag}: gradients and parameters by phase 8's rule",
+              res["ok"], f"{res}")
+        del model, st, step
+    out["smoke_s"] = time.perf_counter() - t0
+
+    # -- minicpm3-4b at its published widths over the grid ------------------
+    ac = get_config(LM_TRAIN_ARCH)
+    bundle = input_specs(ac, "train_4k")
+    cfg = bundle.model
+    seq = spec["seq"]
+    tokens = torch.from_numpy(next(synthetic.lm_batches(
+        LM_TRAIN_BATCH, seq, cfg.vocab, seed=0))["tokens"]).to(dev)
+    t0 = time.perf_counter()
+    sh = blocks(ac, cfg, rules)
+    model = init_params(ac, cfg, 0, device=dev, shardings=sh)
+    state = adamw.init_state_with_dtype(model, ac.moment_dtype)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    named = dict(model.named_parameters())
+    out["block_params"] = sum(p.numel() for p in named.values())
+    out["state_gb"] = sum(t.numel() * t.element_size() for t in
+                          list(named.values()) + list(state.m.values())
+                          + list(state.v.values())) / 1e9
+    step = make_step(ac, dataclasses.replace(bundle, model=cfg), rules,
+                     adamw.AdamWConfig(lr=LM_TRAIN_LR, warmup_steps=0,
+                                       total_steps=30, weight_decay=0.0))
+    before = {k: p.detach().to("cpu", copy=True) for k, p in named.items()}
+    for i in range(1, LMMESH_STEPS + 1):
+        FA.reset_launches()
+        (state, m), rec = measured(mesh, lambda: step(state,
+                                                      {"tokens": tokens}))
+        rec.update(loss=float(m["loss"]), b6=FA.LAUNCHES["flash_attention"])
+        out["steps"].append(rec)
+        if i > 1:
+            continue
+        bad = [k for k, p in named.items() if p.grad is None
+               or not bool(torch.isfinite(p.grad).all())
+               or not bool((p.grad != 0).any())]
+        check(f"{LM_TRAIN_ARCH} step 1: every block of this rank has a "
+              f"finite nonzero gradient", not bad,
+              f"{len(named) - len(bad)} of {len(named)}; {bad[:4]}")
+        moved = sum(int((named[k].detach() != w.to(dev)).sum())
+                    for k, w in before.items())
+        out["moved"] = moved
+        del before
+    losses = [s["loss"] for s in out["steps"]]
+    check(f"{LM_TRAIN_ARCH} losses finite", all(np.isfinite(losses)),
+          f"{losses}")
+    check(f"{LM_TRAIN_ARCH} steps launched no B6",
+          not any(s["b6"] for s in out["steps"]),
+          f"{[s['b6'] for s in out['steps']]}")
+    del state, model, named, step, tokens
+    torch.cuda.empty_cache()
+
+    # -- qwen3-14b served over the serving grid, B6 on each rank's heads ----
+    smesh = M.make_mesh(LMMESH_SERVE_GRID, ("data", "model"), device=dev)
+    srules = make_rules(smesh)
+    ac = get_config(MODEL_ARCH)
+    cfg = ac.model
+    L, G, P, Bm = cfg.n_layers, MODEL_GEN, MODEL_PROMPT, MODEL_BATCH
+    want = torch.load(LMMESH_SERVE_REF)
+    t0 = time.perf_counter()
+    model = init_params(ac, cfg, 0, device=dev,
+                        shardings=blocks(ac, cfg, srules)
+                        ).requires_grad_(False)
+    torch.cuda.synchronize()
+    out["serve_init_s"] = time.perf_counter() - t0
+    wq = model.layers[0].attn["wq"]
+    wk = model.layers[0].attn["wk"]
+    out["heads"] = (wq.shape[1] // cfg.head_dim, wk.shape[1] // cfg.head_dim)
+    prompts = want["prompts"]
+    FA.reset_launches()
+    run, rec = measured(smesh, lambda: serve_lm(cfg, model, prompts, G,
+                                                rules=srules,
+                                                keep_logits=True))
+    out["serve"] = dict(rec, b6=dict(FA.LAUNCHES),
+                        prefill_s=run["prefill_s"], decode_s=run["decode_s"],
+                        decode_ms_per_step=1e3 * run["decode_s"] / G,
+                        tokens_per_s=run["tok_per_s"],
+                        ids=run["tokens"].tolist(),
+                        same_ids=bool(np.array_equal(
+                            run["tokens"], want["tokens"].numpy())))
+    b6 = out["serve"]["b6"]
+    expect = {"flash_attention": L * (1 + G), "flash_attention_wgmma": L,
+              "flash_attention_split": L * G}
+    check(f"serve: B6 launches on this rank's heads {out['heads']}",
+          all(b6[k] == v for k, v in expect.items()),
+          f"{b6} (want {expect}: {L} wgmma on prefill, {L} split a decode "
+          f"step)")
+
+    # the logits against phase 7's one-card logits: the greedy run's,
+    # prefill and every (row, step) whose ids so far are phase 7's (a
+    # step's logits read them all), then those of phase 7's ids fed again
+    # through prefill and MODEL_PLAIN_STEPS decode steps, each B6 call of
+    # which is held to its plain version; the collectives of prefill and
+    # of a decode step counted
+    same = np.cumprod(run["tokens"] == want["tokens"].numpy(), axis=1)
+    steps = run["step_logits"].cpu()
+    errs = [_row_err(run["prefill_logits"].cpu(), want["prefill_logits"])]
+    errs += [_row_err(steps[t, b], want["step_logits"][t, b])
+             for b, t in zip(*np.nonzero(same))]
+    out["greedy_rows_compared"] = int(same.sum())
+    del run, steps
+    real, readings = ops.flash_attention, []
+
+    def checked(q, k, v, *, causal=True, window=None):
+        got = real(q, k, v, causal=causal, window=window)
+        w = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        reading = attention_reading(got, w)
+        if not readings or q.shape[2] != readings[-1][0]:
+            faulty = masked_attention(q, k, v, own_block_left_out(
+                q.shape[2], k.shape[2], causal, window, q.device))
+            reading += attention_reading(faulty, w)
+        readings.append((q.shape[2],) + reading)
+        return got
+
+    toks = want["tokens"].to(dev)
+    logits = []
+    with torch.inference_mode():
+        smesh.reset_counts()
+        with mock.patch.object(ops, "flash_attention", checked):
+            lg, cache = TF.prefill(cfg, model, prompts, srules)
+        out["prefill_calls"] = dict(smesh.calls)
+        out["prefill_bytes"] = dict(smesh.bytes)
+        logits.append(lg.cpu())
+        cache = TF.grow_cache(cache, P + G)
+        for t in range(MODEL_PLAIN_STEPS):
+            smesh.reset_counts()
+            with mock.patch.object(ops, "flash_attention", checked):
+                lg, cache = TF.decode_step(cfg, model, cache,
+                                           toks[:, t:t + 1], srules)
+            logits.append(lg.cpu())
+        out["step_calls"] = dict(smesh.calls)
+        out["step_bytes"] = dict(smesh.bytes)
+    del cache
+    kernel_row = max(r[1] for r in readings)
+    kernel_el = max(r[2] for r in readings)
+    faults = [r[3:] for r in readings if len(r) > 3]
+    out["b6_checked"] = dict(calls=len(readings), row_err=kernel_row,
+                             el_err=kernel_el, faults=faults)
+    check(f"serve: B6 calls of prefill and {MODEL_PLAIN_STEPS} decode steps "
+          f"vs the plain version, per call",
+          len(readings) == L * (1 + MODEL_PLAIN_STEPS)
+          and kernel_row <= ATTN_ROW_TOL and kernel_el <= 1.0,
+          f"{len(readings)} calls, per row max {kernel_row!r} (limit "
+          f"{ATTN_ROW_TOL}), element max {kernel_el!r} of its limit")
+    check("serve: a planted fault fails the B6 check",
+          len(faults) == 2 and all(f[0] > ATTN_ROW_TOL or f[1] > 1.0
+                                   for f in faults), f"{faults}")
+    errs += [_row_err(logits[0], want["prefill_logits"])]
+    errs += [_row_err(logits[t + 1], want["step_logits"][t])
+             for t in range(MODEL_PLAIN_STEPS)]
+    err = max(errs)
+    out["logit_err"] = err
+    check(f"serve: logits vs phase 7's one-card logits (the greedy run's "
+          f"prefill and {out['greedy_rows_compared']} of its {Bm * G} "
+          f"(row, step) pairs on phase 7's ids; phase 7's ids fed through "
+          f"prefill and {MODEL_PLAIN_STEPS} steps)", err <= want["limit"],
+          f"per row max ||a - b|| / ||b|| {err!r} (limit {want['limit']!r} "
+          f"= {MODEL_FLOOR_FACTOR} x phase 7's floor {want['floor']!r})")
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["checks"] = checks
+    return out
+
+
+def lmmesh_phase(smi: str, lm_losses: dict) -> dict:
+    """The LM over a process mesh: LMMESH_RANKS ranks sharing the card over
+    gloo (CUDA tensors; every exchange staged through host memory) run the
+    smoke LMs' train steps over a LMMESH_GRID grid, held to the CPU's from
+    the same parameters and batch; minicpm3-4b at its published widths for
+    LMMESH_STEPS steps, step 1's loss held to phase 8's one-card bf16 step
+    1 on the same weights and batch; qwen3-14b served over a
+    LMMESH_SERVE_GRID grid, held to phase 7.  ``lm_losses``: phase 8's
+    step-1 losses in bf16 and with f32 weights.  Returns the phase's
+    numbers; fails on any check or past LMMESH_BUDGET_S."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.common import SpecBundle, init_params, make_step
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    log(f"[lmmesh] card: {smi}")
+    for name in os.listdir(LMMESH_DIR):
+        if name != os.path.basename(LMMESH_SERVE_REF):
+            os.unlink(os.path.join(LMMESH_DIR, name))
+    rng = np.random.default_rng(5)
+    for arch in LMMESH_SMOKE:
+        ac = get_config(arch)
+        cfg = ac.smoke
+        model = init_params(ac, cfg, 1, device="cpu")
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, LMMESH_SMOKE_BATCH).astype(np.int32))
+        step = make_step(ac, SpecBundle("train", cfg, {}, {}),
+                         make_rules(None), adamw.AdamWConfig(**SMOKE_OPT))
+        st, m = step(adamw.init_state_with_dtype(model, ac.moment_dtype),
+                     {"tokens": tokens})
+        torch.save(dict(state=state, tokens=tokens, loss=float(m["loss"]),
+                        grads={k: p.grad.float() for k, p in
+                               model.named_parameters()},
+                        params={k: p.detach().float() for k, p in
+                                model.named_parameters()}),
+                   os.path.join(LMMESH_DIR, f"smoke_{arch}.pt"))
+    seq = input_specs(get_config(LM_TRAIN_ARCH), "train_4k").batch[
+        "tokens"].shape[1]
+    spec = dict(dir=LMMESH_DIR, seq=seq)
+    prep_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    ranks = M.spawn(lmmesh_rank, LMMESH_RANKS, device="cuda",
+                    init_file=os.path.join(LMMESH_DIR, "init4"),
+                    grid=(LMMESH_GRID, ("data", "model")), args=(spec,),
+                    timeout=600)
+    ranks_s = time.perf_counter() - t0
+    rep = ranks[0]
+    log(f"[lmmesh] {LMMESH_RANKS} ranks on {[r['device'] for r in ranks]}, "
+        f"backend {rep['backend']} (gloo over CUDA tensors: the ranks share "
+        f"one card, every exchange staged through host memory); the CPU "
+        f"steps of the smoke configs {prep_s!r} s; spawn to exit "
+        f"{ranks_s!r} s")
+    for tag, s in rep["smoke"].items():
+        log(f"[lmmesh] smoke {tag} over {LMMESH_GRID}: loss {s['loss']!r} "
+            f"(CPU {s['cpu']!r}, rel {s['rel']!r}); gradients "
+            f"{s['grad_err']!r} of the largest, parameters {s['param_err']!r}"
+            f" where decided ({s['param_share']!r} of them); collectives "
+            f"{s['calls']}")
+    params = sum(r["block_params"] for r in ranks)
+    log(f"[lmmesh] {LM_TRAIN_ARCH} at its published widths over "
+        f"{LMMESH_GRID}: {params} parameters in the ranks' blocks (a "
+        f"block split over one axis counted on each rank that holds it), "
+        f"{[round(r['state_gb'], 3) for r in ranks]} GB of state a rank "
+        f"(bf16 weights, moments {get_config(LM_TRAIN_ARCH).moment_dtype}),"
+        f" blocks drawn in {[round(r['init_s'], 3) for r in ranks]} s; "
+        f"batch {LM_TRAIN_BATCH} x {seq}")
+    for r in ranks:
+        for i, s in enumerate(r["steps"], 1):
+            log(f"[lmmesh] rank {r['rank']} {LM_TRAIN_ARCH} step {i}: wall "
+                f"{s['wall_s']!r} s, loss {s['loss']!r}; calls {s['calls']}"
+                f", bytes {s['bytes']}, host s {s['seconds']}, card s "
+                f"{s['card_seconds']}; peak {s['peak_gib']:.3f} GiB ({smi})")
+    moved = sum(r["moved"] for r in ranks) / params
+    bf16, f32 = lm_losses["bf16"], lm_losses["f32"]
+    floor = abs(bf16 - f32)
+    got = rep["steps"][0]["loss"]
+    limit = MODEL_FLOOR_FACTOR * floor
+    checks = [(f"rank {r['rank']} {name}", ok, detail)
+              for r in ranks for name, ok, detail in r["checks"]]
+    checks.append((f"{LM_TRAIN_ARCH} step 1 changed at least "
+                   f"{LM_MOVED_MIN} of the weights", moved >= LM_MOVED_MIN,
+                   f"{moved!r}"))
+    checks.append((f"{LM_TRAIN_ARCH} step 1's loss vs phase 8's one-card "
+                   f"bf16 step 1 (same weights and batch)",
+                   abs(got - bf16) <= limit,
+                   f"{got!r} vs {bf16!r}: |diff| {abs(got - bf16)!r}, limit "
+                   f"{limit!r} = {MODEL_FLOOR_FACTOR} x the rounding floor "
+                   f"{floor!r} (phase 8's step 1 in bf16 vs with f32 "
+                   f"weights, {f32!r})"))
+    checks.append(("every rank's losses equal",
+                   all(r["steps"][i]["loss"] == rep["steps"][i]["loss"]
+                       for r in ranks for i in range(LMMESH_STEPS)),
+                   f"{[[s['loss'] for s in r['steps']] for r in ranks]}"))
+    for r in ranks:
+        s = r["serve"]
+        log(f"[lmmesh] rank {r['rank']} {MODEL_ARCH} served over "
+            f"{LMMESH_SERVE_GRID}: {r['heads'][0]} q heads, {r['heads'][1]} "
+            f"kv heads; blocks drawn in {r['serve_init_s']!r} s; prefill "
+            f"{MODEL_BATCH} x {MODEL_PROMPT} {s['prefill_s']!r} s, decode "
+            f"{s['decode_ms_per_step']!r} ms a step, {s['tokens_per_s']!r} "
+            f"tokens/s; B6 {s['b6']}; main path calls {s['calls']}, bytes "
+            f"{s['bytes']}, host s {s['seconds']}, card s "
+            f"{s['card_seconds']}; prefill collectives {r['prefill_calls']}"
+            f" ({r['prefill_bytes']} bytes), a decode step's "
+            f"{r['step_calls']} ({r['step_bytes']} bytes); logits vs phase "
+            f"7 {r['logit_err']!r}; greedy ids equal to phase 7's "
+            f"{s['same_ids']} ({r['greedy_rows_compared']} of "
+            f"{MODEL_BATCH * MODEL_GEN} (row, step) pairs on them); peak "
+            f"{r['serve_peak_gib']:.3f} GiB ({smi})")
+    checks.append(("every rank decoded the same ids",
+                   all(r["serve"]["ids"] == rep["serve"]["ids"]
+                       for r in ranks), f"{MODEL_BATCH} x {MODEL_GEN}"))
+    phase_s = time.perf_counter() - t_phase
+    checks.append((f"the phase within its {LMMESH_BUDGET_S} s budget",
+                   phase_s <= LMMESH_BUDGET_S, f"{phase_s!r} s"))
+    for name, ok, detail in checks:
+        log(f"[check] lmmesh {name}: {'ok' if ok else 'FAILED'}; {detail}")
+    log(f"[lmmesh] phase wall {phase_s!r} s ("
+        f"{'within' if phase_s <= LMMESH_BUDGET_S else 'OVER'} the "
+        f"{LMMESH_BUDGET_S} s budget); cuts: {LM_TRAIN_ARCH} at batch "
+        f"{LM_TRAIN_BATCH} (train_4k's 256) for {LMMESH_STEPS} steps")
+    failed = [c[0] for c in checks if not c[1]]
+    if failed:
+        fail(f"the LM-over-a-mesh phase failed: {failed}")
+    shutil.rmtree(LMMESH_DIR, ignore_errors=True)
+    return {"phase_s": phase_s, "prep_s": prep_s, "ranks_s": ranks_s,
+            "moved": moved, "loss_floor": floor, "loss_limit": limit,
+            "b6_launches": sum(r["serve"]["b6"]["flash_attention"]
+                               for r in ranks),
+            "ranks": [{k: v for k, v in r.items() if k != "checks"}
+                      for r in ranks]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -4583,6 +5033,20 @@ def main() -> int:
         ms_per_rank_per_step=[[st["b4_ms"] for st in r["steps"]]
                               for r in meshed["ranks"]]))
 
+    # -- 10. the LM over a process mesh: B6 on each rank's heads ----------
+    torch.cuda.empty_cache()
+    lmmesh = lmmesh_phase(smi, {"bf16": train["lm"]["losses"][0],
+                                "f32": train["lm"]["f32"]["losses"][0]})
+    launches["flash_attention"] += lmmesh["b6_launches"]
+    timed["flash_attention"]["cases"].append(dict(
+        shape=f"{MODEL_ARCH} served over {LMMESH_SERVE_GRID} ranks (gloo, "
+              f"one card), {MODEL_BATCH} x {MODEL_PROMPT} + {MODEL_GEN} "
+              f"(mesh path: each rank's heads)",
+        launches=lmmesh["b6_launches"],
+        launches_per_rank=[r["serve"]["b6"] for r in lmmesh["ranks"]],
+        max_abs_err_row=max(r["b6_checked"]["row_err"]
+                            for r in lmmesh["ranks"])))
+
     kernels = [dict(name=k, route="cuda", source=SOURCE[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=err[k], ms=timed[k]["ms"],
@@ -4600,7 +5064,7 @@ def main() -> int:
                    "kernels": kernels, "walls_s": walls,
                    "service": service, "structured": structured,
                    "dist": dist, "dist2": dist2, "model": model,
-                   "train": train, "mesh": meshed,
+                   "train": train, "mesh": meshed, "lmmesh": lmmesh,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)

@@ -82,7 +82,9 @@ def placements(tree, shardings) -> dict:
     if shardings is None:
         return {}
     if not isinstance(shardings, TrainState):
-        return {k: v for k, v in shardings.items() if v is not None}
+        module = isinstance(tree, nn.Module)
+        return {(k.replace(".", _SEP) if module else k): v
+                for k, v in shardings.items() if v is not None}
     module = isinstance(tree, TrainState) and isinstance(tree.params,
                                                          nn.Module)
     out = {}
@@ -100,7 +102,8 @@ def _mesh_of(places: dict):
 
 def map_leaves(tree, fn):
     """The tree with each tensor leaf replaced by ``fn(key, leaf)`` (keys
-    as :func:`save` writes them); a module is not rebuilt."""
+    as :func:`save` writes them); a module is not rebuilt: each of its
+    parameters takes the new tensor in place (``.data``)."""
     def build(node, prefix):
         if isinstance(node, TrainState):
             return TrainState(*(build(c, prefix + (str(i),)) for i, c in
@@ -112,7 +115,10 @@ def map_leaves(tree, fn):
             return type(node)(build(v, prefix + (str(i),))
                               for i, v in enumerate(node))
         if isinstance(node, nn.Module):
-            raise TypeError("map_leaves does not rebuild a module")
+            for k, p in node.named_parameters():
+                p.data = fn(_SEP.join(prefix + (k.replace(".", _SEP),)),
+                            p.detach())
+            return node
         return fn(_SEP.join(prefix), node)
     return build(tree, ())
 

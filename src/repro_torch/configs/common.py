@@ -15,10 +15,11 @@ Smax, Kv, hd).  Logical axes are keyed by parameter name (the names of
 Over a process mesh (``rules`` from ``make_rules(mesh)``),
 :func:`param_shardings` gives each parameter the ``Placement`` its
 logical axes give it: a GNN's parameters are whole on every rank, FM's
-table is row-sharded over the flat axes.  The GNN and FM train steps run
-on every rank from the global batch (the models slice it) and sum each
-replicated parameter's gradient over the ranks; an LM over a mesh raises
-(ROADMAP §A.9: the multi-card LM slice).
+table is row-sharded over the flat axes, an LM's weights are FSDP over
+the batch axes and tensor or expert parallel over ``model`` by the
+reference's table (``transformer.param_logical_axes``).  Every train step
+runs on every rank from the global batch (the models slice it) and sums
+each gradient over the axes its parameter is not split over.
 """
 from __future__ import annotations
 
@@ -220,12 +221,16 @@ def apply_variant(bundle: SpecBundle, variant: Optional[str]) -> SpecBundle:
 # params / state
 # ---------------------------------------------------------------------------
 
-def init_params(ac: ArchConfig, model_cfg, seed: int = 0, *, device=None):
+def init_params(ac: ArchConfig, model_cfg, seed: int = 0, *, device=None,
+                shardings: Optional[dict] = None):
     """An LM's :class:`~repro_torch.models.transformer.Transformer`, or a
     GNN's or FM's parameter tree, drawn from ``seed`` on ``device`` (CUDA
-    by default; ``meta`` for the shapes alone)."""
+    by default; ``meta`` for the shapes alone).  An LM over a mesh keeps
+    only this rank's blocks of its draws (``shardings``, as
+    :func:`param_shardings` gives them)."""
     if ac.family == "lm":
-        return TF.init_params(model_cfg, seed, device=device)
+        return TF.init_params(model_cfg, seed, device=device,
+                              shardings=shardings)
     if ac.family == "gnn":
         return GNN.init_params(model_cfg, seed, device=device)
     return RS.init_params(model_cfg, seed, device=device)
@@ -313,23 +318,23 @@ def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
     trains), runs the loss forward and backward and applies AdamW in
     place; metrics are detached tensors on the device.
 
-    Over a mesh (gnn and recsys) every rank calls the step with the global
-    batch and its blocks of the state (``fault_tolerance.reshard_state``
-    of the whole parameters); the loss carries each rank's share, so each replicated
-    parameter's gradient is summed over the ranks (one all-reduce of them
-    all) before the update, and a sharded one keeps its owner's."""
+    Over a mesh every rank calls the step with the global batch and its
+    blocks of the state (``fault_tolerance.reshard_state`` of the whole
+    parameters; an LM's :class:`~repro_torch.models.transformer.Transformer`
+    drawn or placed with its placements); the loss carries each rank's
+    share, so each parameter's gradient is summed over the mesh axes its
+    placement does not split (:func:`reduce_grads`; an FSDP block's sum
+    over the batch axes is its gather's backward) before the update.
+    Prefill and decode run on every rank with the whole batch and give
+    the whole logits."""
     cfg = bundle.model
-    if rules is not None and rules.mesh is not None and ac.family == "lm":
-        raise NotImplementedError(
-            "an LM over a mesh is not ported: FSDP, tensor, expert "
-            "parallelism and the per-data-shard MoE are ROADMAP §A.9's "
-            "multi-card LM slice; pass make_rules(None)")
     if bundle.kind == "train":
         opt = opt or adamw.AdamWConfig()
         loss_fn = {"lm": TF.loss_fn, "gnn": GNN.loss_fn,
                    "recsys": RS.loss_fn}[ac.family]
+        meshed = rules is not None and rules.mesh is not None
         shardings = None
-        if rules is not None and rules.mesh is not None:
+        if meshed and ac.family != "lm":
             params_shape, _ = state_shapes(ac, cfg)
             shardings = param_shardings(
                 rules, params_shape,
@@ -342,9 +347,12 @@ def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
             with torch.enable_grad():
                 loss, metrics = loss_fn(cfg, state.params, batch, rules)
                 loss.backward()
-            if shardings is not None:
-                reduce_grads(named, shardings, rules.mesh)
-            adamw.apply_update(opt, state, shardings)
+            # an LM's blocks lie as its own placements say
+            sh = state.params.placements if meshed and ac.family == "lm" \
+                else shardings
+            if sh is not None:
+                reduce_grads(named, sh, rules.mesh)
+            adamw.apply_update(opt, state, sh)
             return state, {k: v.detach() for k, v in metrics.items()}
         return step
     if bundle.kind == "prefill":

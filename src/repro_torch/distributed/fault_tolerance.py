@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.ckpt import CheckpointManager, map_leaves, placements
+from ..optim.adamw import TrainState
 
 __all__ = ["FTConfig", "SimulatedFailure", "run_training", "reshard_state"]
 
@@ -133,7 +134,8 @@ def reshard_state(state: Any, shardings: Any, *, old: Any = None) -> Any:
     tree of parameters; None: whole on every rank): each leaf gathered
     whole from its old placement, then this rank's block of its new one
     taken.  Every rank of the old placements' meshes must call.  A leaf
-    that required grad still does."""
+    that required grad still does.  A module (an LM's parameters) is moved
+    in place and keeps its new placements (``placements``)."""
     new_pl, old_pl = placements(state, shardings), placements(state, old)
 
     @torch.no_grad()
@@ -143,4 +145,9 @@ def reshard_state(state: Any, shardings: Any, *, old: Any = None) -> Any:
         pl = new_pl.get(key)
         y = y if pl is None else pl.block(y)
         return y.requires_grad_(x.requires_grad) if y is not x else x
-    return map_leaves(state, move)
+    out = map_leaves(state, move)
+    params = out.params if isinstance(out, TrainState) else out
+    if hasattr(params, "placements"):
+        params.placements = (shardings.params if isinstance(
+            shardings, TrainState) else shardings)
+    return out

@@ -8,10 +8,13 @@ caller picks it with ``Mesh.over(axes)``), on the owner-routed primitives
 of ``core.offload``:
 
 * :func:`all_reduce_sum` — forward and backward a sum over the ranks;
-* :func:`all_gather_rows` — the rows of every rank's block, in rank
-  order; backward, the summed gradient's rows of this rank's block;
-* :func:`reduce_scatter_rows` — this rank's block of the sum over the
-  ranks; backward, the all-gathered gradient;
+* :func:`all_gather_rows` — the blocks of every rank along a dim, in rank
+  order; backward, the summed gradient's part at this rank's block (a
+  reduce-scatter);
+* :func:`reduce_scatter_rows` — this rank's block along a dim of the sum
+  over the ranks; backward, the all-gathered gradient;
+* :func:`all_to_all` — chunk p of every rank's tensor to rank p; backward,
+  the same exchange of the gradient;
 * :func:`gather` — the DGAS gather: each request routes to the row's
   owner and only the requested rows return; backward, the gradient rows
   travel back along the same slots and the owner sums them into its block
@@ -22,7 +25,27 @@ of ``core.offload``:
 * :func:`global_mean` — a loss's mean over every rank's rows, carrying
   the gradient of this rank's share.
 
-A routed exchange keeps its slot bookkeeping (``offload.Route``: index
+Each rank's gradient is its *share*: the gradient of the whole is the sum
+of the ranks' gradients, as a loss from :func:`global_mean` gives it.  So
+the LM's parallel layouts (``models/transformer.py``) need one collective
+a region, and ``configs.common.reduce_grads`` sums every parameter's
+gradient over the axes its placement does not split, whatever the layout:
+
+* FSDP: a weight's ``embed`` dim is gathered over the batch axes
+  (:func:`all_gather_rows`); its backward reduce-scatters the gradient,
+  which is then whole over those axes;
+* tensor parallel: a replicated activation enters a ``heads`` / ``ff`` /
+  ``vocab`` region with no collective (its shares' sum is its gradient),
+  and the region's partial sums leave it through :func:`all_reduce_sum`,
+  whose backward sums the shares: the psum / psum transpose pair of the
+  reference's ``shard_map``;
+* sequence parallel: the residual stream's sequence is gathered over
+  ``model`` entering a region (:func:`all_gather_rows`) and leaves it by
+  :func:`reduce_scatter_rows`; an expert-parallel MoE sends each of its
+  sequence block's tokens to its expert's rank and back
+  (:func:`all_to_all`).
+
+A collective over one rank is skipped.  A routed exchange keeps its slot bookkeeping (``offload.Route``: index
 tensors, never rows) for its backward.  Every rank issues the same
 collectives in the same order in the forward, the backward and the
 recompute of ``torch.utils.checkpoint`` (which routes again, to the same
@@ -36,7 +59,7 @@ import torch
 from ..core import offload
 
 __all__ = ["all_reduce_sum", "all_gather_rows", "reduce_scatter_rows",
-           "gather", "scatter_add", "global_mean"]
+           "all_to_all", "gather", "scatter_add", "global_mean"]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -50,54 +73,77 @@ class _AllReduceSum(torch.autograd.Function):
         return ctx.mesh.all_reduce(grad, "sum"), None
 
 
-def _block(x: torch.Tensor, mesh) -> torch.Tensor:
-    per = x.shape[0] // mesh.size
-    return x.narrow(0, mesh.rank * per, per).clone()
+def _block(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    per = x.shape[dim] // mesh.size
+    return x.narrow(dim, mesh.rank * per, per).clone()
+
+
+def _gather_dim(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    g = mesh.all_gather(x.contiguous())
+    return torch.cat(list(g.unbind(0)), dim=dim)
 
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        g = mesh.all_gather(x)
-        return g.reshape((-1,) + tuple(x.shape[1:]))
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _gather_dim(x, mesh, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return _block(ctx.mesh.all_reduce(grad, "sum"), ctx.mesh), None
+        return _block(ctx.mesh.all_reduce(grad, "sum"), ctx.mesh,
+                      ctx.dim), None, None
 
 
 class _ReduceScatterRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _block(mesh.all_reduce(x, "sum"), mesh)
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _block(mesh.all_reduce(x, "sum"), mesh, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        g = ctx.mesh.all_gather(grad.contiguous())
-        return g.reshape((-1,) + tuple(grad.shape[1:])), None
+        return _gather_dim(grad, ctx.mesh, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_to_all(grad.contiguous()), None
+
+
+def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Chunk p of ``x`` (its leading dim split into ``mesh.size`` chunks)
+    goes to rank p; chunk q of the result came from rank q.  Its gradient
+    makes the same exchange back."""
+    return x if mesh.size == 1 else _AllToAll.apply(x, mesh)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``x`` over the ranks; its gradient is the sum of the
     ranks' gradients."""
-    return _AllReduceSum.apply(x, mesh)
+    return x if mesh.size == 1 else _AllReduceSum.apply(x, mesh)
 
 
-def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's block ``x`` stacked along dim 0 in rank order (the
-    whole table of a row-sharded one)."""
-    return _AllGatherRows.apply(x, mesh)
+def all_gather_rows(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's block ``x`` concatenated along ``dim`` in rank order
+    (the whole of a tensor split along ``dim``: a row-sharded table, an
+    FSDP weight, a sequence-parallel activation)."""
+    return x if mesh.size == 1 else _AllGatherRows.apply(x, mesh, dim)
 
 
-def reduce_scatter_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's block of rows of the sum of ``x`` over the ranks (x's
-    rows divide into ``mesh.size`` blocks)."""
-    if x.shape[0] % mesh.size:
-        raise ValueError(f"{x.shape[0]} rows do not split into "
+def reduce_scatter_rows(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    (``dim`` divides into ``mesh.size`` blocks)."""
+    if x.shape[dim] % mesh.size:
+        raise ValueError(f"{x.shape[dim]} rows do not split into "
                          f"{mesh.size} blocks")
-    return _ReduceScatterRows.apply(x, mesh)
+    return x if mesh.size == 1 else _ReduceScatterRows.apply(x, mesh, dim)
 
 
 def _owner_sum(idx, rows, n, b4):

@@ -37,7 +37,9 @@ device, with no read back).
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import os
+import signal
 import time
 import traceback
 from typing import Any, Callable, Optional
@@ -369,13 +371,26 @@ def make_mesh(shape, axis_names, device=None, ranks=None):
     return mesh if inside else None
 
 
+# the signal on which a rank writes every thread's stack to its stacks
+# file (``spawn`` sends it to the ranks that outlive their timeout)
+STACK_SIGNAL = signal.SIGUSR1
+
+
+def _stacks_file(init_file: str, rank: int) -> str:
+    return f"{init_file}.stacks{rank}"
+
+
 def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, grid,
                conn):
+    stacks = open(_stacks_file(init_file, rank), "w")
+    faulthandler.register(STACK_SIGNAL, file=stacks, all_threads=True)
     try:
         if torch.device(device).type == "cpu":
-            # the ranks share the host's cores: a rank's intra-op threads
-            # beyond its share only contend with its peers'
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+            # one thread: the ranks share the host's cores with each other
+            # and with whatever else runs there, and an intra-op pool
+            # spins and starves the peer that a collective waits for
+            torch.set_num_threads(1)
+            torch.set_num_interop_threads(1)
         dist.init_process_group(backend, init_method=f"file://{init_file}",
                                 world_size=n_ranks, rank=rank)
         try:
@@ -389,6 +404,35 @@ def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, grid,
         raise
     finally:
         conn.close()
+        faulthandler.unregister(STACK_SIGNAL)
+        stacks.close()
+
+
+def _dump_stacks(procs, init_file: str) -> str:
+    """Ask every live rank for its threads' stacks (:data:`STACK_SIGNAL`)
+    and return them, by rank, once each rank's file has stopped growing
+    (within a few seconds)."""
+    live = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in live:
+        try:
+            os.kill(procs[r].pid, STACK_SIGNAL)
+        except ProcessLookupError:
+            pass
+    sizes, deadline = None, time.monotonic() + 5.0
+    while time.monotonic() < deadline:
+        time.sleep(0.2)
+        now = [os.path.getsize(_stacks_file(init_file, r))
+               if os.path.exists(_stacks_file(init_file, r)) else 0
+               for r in live]
+        if all(now) and now == sizes:
+            break
+        sizes = now
+    parts = []
+    for r in live:
+        path = _stacks_file(init_file, r)
+        text = open(path).read() if os.path.exists(path) else ""
+        parts.append(f"rank {r} stacks:\n" + (text or "(none written)\n"))
+    return "".join(parts)
 
 
 def _reap(procs) -> None:
@@ -431,12 +475,14 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
     Returns the ranks' results, by rank.  A rank that raises, dies or
     outlives ``timeout`` seconds fails the call: the other ranks are
     terminated (one waiting in a collective would never return) and a
-    RuntimeError carries every failed rank's traceback.  The call leaves no process
+    RuntimeError carries every failed rank's traceback, or, past the
+    timeout, every live rank's stacks (each rank writes them on
+    :data:`STACK_SIGNAL`).  The call leaves no process
     behind: every rank is joined (or killed), and the start method's
     resource tracker, when this call started it, is stopped.  The backend
     is :func:`backend_for` the device and rank count.  ``grid`` = (shape,
     axis names) lays the ranks out as :func:`make_mesh` does; None gives
-    the 1-D mesh."""
+    the 1-D mesh.  A CPU rank runs torch on one thread."""
     import multiprocessing as mp
     from multiprocessing import connection, resource_tracker
     dev = torch.device("cuda" if device is None else device)
@@ -469,7 +515,9 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
             left = deadline - time.monotonic()
             if left <= 0:
                 raise RuntimeError(f"the ranks did not finish within "
-                                   f"{timeout} s")
+                                   f"{timeout} s; where each live rank "
+                                   f"was:\n"
+                                   + _dump_stacks(procs, init_file))
             _take(connection.wait(list(pending), timeout=left), pending,
                   procs, out, failed)
         if failed:
@@ -493,6 +541,8 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
                 r.close()
             if own_tracker:
                 tracker._stop()
-            if os.path.exists(init_file):
-                os.unlink(init_file)
+            for path in [init_file] + [_stacks_file(init_file, r)
+                                       for r in range(n_ranks)]:
+                if os.path.exists(path):
+                    os.unlink(path)
     return [out[r] for r in range(n_ranks)]

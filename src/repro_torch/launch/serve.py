@@ -9,22 +9,35 @@ Parameters are drawn from ``--seed`` by a ``torch.Generator`` on the
 device.  :func:`serve_lm` and :func:`score_fm` take the parameters, so a
 caller can serve weights of its own.  Prints the prefill seconds, decode
 tokens per second and the peak device memory.
+
+Several processes (``WORLD_SIZE`` > 1, as ``torch.distributed.run`` sets
+it) serve an LM over a ``("data", "model")`` mesh of ``--grid D,M`` ranks
+(default (1, world): tensor parallel, no FSDP gather a step): each rank
+draws its blocks of the weights, every rank runs every step on the whole
+prompts, and rank 0 prints:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch qwen3-14b --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
+from ..configs.common import param_logical_axes, param_shardings
 from ..core.graph import resolve_device
 from ..distributed.sharding import make_rules
 from ..models import recsys as RS
 from ..models import transformer as TF
 from ..data import synthetic
+from .mesh import backend_for, make_mesh
 
 __all__ = ["serve_lm", "score_fm", "cache_len_for", "main"]
 
@@ -46,13 +59,15 @@ def cache_len_for(cfg: TF.LMConfig, prompt_len: int, gen: int) -> int:
 
 @torch.inference_mode()
 def serve_lm(cfg: TF.LMConfig, model: TF.Transformer, prompts,
-             gen: int, *, keep_logits: bool = False) -> dict:
+             gen: int, *, keep_logits: bool = False, rules=None) -> dict:
     """Prefill ``prompts`` (B, P) and decode ``gen`` tokens greedily.
     Returns the generated ids (B, gen) as numpy, the last logits, and the
     host seconds of prefill and decode (each ending in a synchronize);
     with ``keep_logits`` also the prefill's logits and each decode step's,
-    stacked (gen, B, vocab)."""
-    rules = make_rules(None)
+    stacked (gen, B, vocab).  Over a mesh (``rules``) every rank calls
+    with the whole prompts and its blocks of the weights, and every rank
+    gets the whole logits, so all pick the same ids."""
+    rules = rules or make_rules(None)
     dev = model.device
     prompts = torch.as_tensor(np.asarray(prompts), device=dev)
     _sync(dev)
@@ -113,11 +128,28 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--grid", default=None,
+                    help="D,M: the ('data', 'model') grid of a process "
+                         "world (default: 1,world)")
     args = ap.parse_args(argv)
 
     ac = get_config(args.arch)
     cfg = ac.smoke if args.smoke else ac.model
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 or args.grid is not None:
+        if ac.family != "lm" or world < 2:
+            raise ValueError("--grid and a process world serve an LM")
+        dist.init_process_group(backend_for(dev, world),
+                                init_method="env://")
+        try:
+            grid = ((1, world) if args.grid is None else
+                    tuple(int(n) for n in args.grid.split(",")))
+            _serve_meshed(args, cfg, make_mesh(grid, ("data", "model"),
+                                               device=dev))
+        finally:
+            dist.destroy_process_group()
+        return
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -139,6 +171,29 @@ def main(argv: Optional[list] = None) -> None:
           f"decoded {args.gen} tokens in {r['decode_s']:.3f}s "
           f"({r['tok_per_s']:.1f} tok/s); {_peak(dev)}")
     print("sample generation ids:", r["tokens"][0][:12].tolist())
+
+
+def _serve_meshed(args, cfg, mesh) -> None:
+    """The LM served over ``mesh``: this rank's blocks drawn from the seed,
+    every rank stepping, rank 0 printing."""
+    rules = make_rules(mesh)
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    shapes = TF.init_params(cfg, args.seed, device="meta")
+    sh = param_shardings(rules, shapes, param_logical_axes(
+        get_config(args.arch), cfg, shapes))
+    model = TF.init_params(cfg, args.seed, device=dev, shardings=sh)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)
+                           ).astype(np.int32)
+    r = serve_lm(cfg, model, prompts, args.gen, rules=rules)
+    if mesh.rank == 0:
+        print(f"grid {mesh.shape}: prefill {args.batch}x{args.prompt_len} "
+              f"in {r['prefill_s']:.3f}s; decoded {args.gen} tokens in "
+              f"{r['decode_s']:.3f}s ({r['tok_per_s']:.1f} tok/s); "
+              f"{mesh.collectives} collectives; rank 0's {_peak(dev)}")
+        print("sample generation ids:", r["tokens"][0][:12].tolist())
 
 
 if __name__ == "__main__":

@@ -15,13 +15,15 @@ for a fresh run.
 
 Several processes (``WORLD_SIZE`` > 1, as ``torch.distributed.run`` sets
 it, or a process group already initialized) train one model over a
-``("data", "model")`` mesh of (world, 1) ranks, as the reference meshes
-its devices; every rank draws the same global batches and the models
-take its block of each.  Rank 0 prints and writes the checkpoints:
+``("data", "model")`` mesh of ``--grid D,M`` ranks (default (world, 1)),
+as the reference meshes its devices; every rank draws the same global
+batches and the models take its block of each.  An LM's parameters are
+drawn as its blocks (FSDP over ``data``, tensor / expert parallel over
+``model``).  Rank 0 prints and writes the checkpoints:
 
   PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
-      -m repro_torch.launch.train --arch gin-tu --smoke --steps 3 \
-      --device cpu --ckpt-dir build/ck4
+      -m repro_torch.launch.train --arch qwen3-14b --smoke --steps 3 \
+      --grid 2,2 --device cpu --ckpt-dir build/ck4
 """
 from __future__ import annotations
 
@@ -100,6 +102,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--grid", default=None,
+                    help="D,M: the ('data', 'model') grid of a process "
+                         "world (default: world,1)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -112,9 +117,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 init_method="env://")
         own_group = True
     if dist.is_initialized():
-        mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"),
-                         device=dev)
+        grid = ((dist.get_world_size(), 1) if args.grid is None else
+                tuple(int(n) for n in args.grid.split(",")))
+        mesh = make_mesh(grid, ("data", "model"), device=dev)
         dev = mesh.device
+    elif args.grid is not None:
+        raise ValueError("--grid needs a process world (WORLD_SIZE > 1)")
     try:
         return _train(args, ac, model_cfg, mesh, dev)
     finally:
@@ -132,12 +140,17 @@ def _train(args, ac, model_cfg, mesh, dev) -> dict:
                             moment_dtype=ac.moment_dtype)
     step = make_step(ac, bundle, rules, opt)
 
-    params = init_params(ac, model_cfg, args.seed, device=dev)
-    n_params = sum(p.numel() for p in adamw.named_params(params).values())
-    shardings = param_shardings(rules, params,
-                                param_logical_axes(ac, model_cfg, params))
-    if mesh is not None:
-        params = reshard_state(params, shardings)
+    shapes = init_params(ac, model_cfg, args.seed, device="meta")
+    n_params = sum(p.numel() for p in adamw.named_params(shapes).values())
+    shardings = param_shardings(rules, shapes,
+                                param_logical_axes(ac, model_cfg, shapes))
+    if mesh is not None and ac.family == "lm":
+        params = init_params(ac, model_cfg, args.seed, device=dev,
+                             shardings=shardings)
+    else:
+        params = init_params(ac, model_cfg, args.seed, device=dev)
+        if mesh is not None:
+            params = reshard_state(params, shardings)
     state = adamw.init_state_with_dtype(params, ac.moment_dtype)
     if lead:
         print(f"arch={args.arch} params={n_params / 1e6:.1f}M "

@@ -30,6 +30,16 @@ Decode keeps one KV cache per layer, (B, Kv, Smax, hd), so a step's B6
 call reads the cache's first slots in place, with no transpose or copy;
 ``cache["len"]`` is one Python int shared by the batch.  The cache is
 updated in place.
+
+Over a process mesh (``rules`` from ``make_rules(mesh)``) every rank runs
+the same call on the whole batch with its blocks of the parameters, as
+their placements lie (``Transformer.placements``, from the reference's
+:func:`param_logical_axes`): :class:`_Lay` takes the rows of the rank's
+data shard, gathers each weight's FSDP dim, keeps the rank's heads, ff
+columns, experts and vocab columns, and reduces each region's partial
+sums over ``model``; the MoE dispatches per data shard.  The loss has the
+global value and the gradient of the rank's share; prefill and decode
+give every rank the whole logits.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import resolve_device
+from ..distributed import routed
 from ..distributed.sharding import MeshRules, make_rules
 from ..kernels import ops
 from ..kernels.ref import flash_attention_ref
@@ -170,58 +181,91 @@ def _ffn_shapes(cfg: LMConfig, is_moe: bool) -> dict:
             "w2": ((cfg.d_ff, d), cfg.d_ff)}
 
 
-def _init(shape, fan_in, dtype, gen, device) -> nn.Parameter:
+def _init(shape, fan_in, dtype, gen, device) -> torch.Tensor:
     """N(0, 1 / fan_in) drawn in f32 and cast (fan_in None: a norm, ones
     in f32).  gen None on the meta device (shapes only)."""
     if fan_in is None:
-        return nn.Parameter(torch.ones(shape, dtype=torch.float32,
-                                       device=device))
+        return torch.ones(shape, dtype=torch.float32, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return nn.Parameter(w.div_(math.sqrt(fan_in)).to(dtype))
+    return w.div_(math.sqrt(fan_in)).to(dtype)
+
+
+def _whole(name, w):
+    return w
 
 
 class Block(nn.Module):
-    """One sublayer: ln1, attention, ln2, and a dense MLP or an MoE."""
+    """One sublayer: ln1, attention, ln2, and a dense MLP or an MoE.
+    ``keep(name, tensor)`` (names relative to the block) keeps a drawn
+    tensor or this rank's block of it."""
 
-    def __init__(self, cfg: LMConfig, is_moe: bool, gen, device):
+    def __init__(self, cfg: LMConfig, is_moe: bool, gen, device,
+                 keep=_whole):
         super().__init__()
-        self.ln1 = _init((cfg.d_model,), None, None, gen, device)
-        self.ln2 = _init((cfg.d_model,), None, None, gen, device)
+        ffn_name = "moe" if is_moe else "mlp"
+
+        def make(name, shape, fan_in, dtype):
+            return nn.Parameter(keep(name, _init(shape, fan_in, dtype, gen,
+                                                 device)))
+        self.ln1 = make("ln1", (cfg.d_model,), None, None)
+        self.ln2 = make("ln2", (cfg.d_model,), None, None)
         self.attn = nn.ParameterDict({
-            k: _init(s, f, cfg.dtype, gen, device)
+            k: make("attn." + k, s, f, cfg.dtype)
             for k, (s, f) in _attn_shapes(cfg).items()})
         ffn = nn.ParameterDict({
-            k: _init(s, f, torch.float32 if k == "router" else cfg.dtype,
-                     gen, device)
+            k: make(f"{ffn_name}.{k}", s, f,
+                    torch.float32 if k == "router" else cfg.dtype)
             for k, (s, f) in _ffn_shapes(cfg, is_moe).items()})
-        if is_moe:
-            self.moe = ffn
-        else:
-            self.mlp = ffn
+        setattr(self, ffn_name, ffn)
 
 
 class Transformer(nn.Module):
     """The LM stack with its parameters, drawn from ``seed`` by a
     ``torch.Generator`` on ``device`` (CUDA unless ``device`` says
     otherwise; a CUDA request without a card raises; ``meta`` gives the
-    shapes alone)."""
+    shapes alone).
 
-    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None):
+    ``shardings`` ({parameter name: ``Placement``}, as
+    ``configs.common.param_shardings`` gives them over a mesh): each
+    parameter is drawn whole, as on one device, and only this rank's block
+    of it is kept, so the blocks are those of the one-device draw and the
+    whole model is never held.  The placements stay on the model
+    (``placements``): its meshed forward reads its layout from them."""
+
+    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
+                 shardings: Optional[dict] = None):
         super().__init__()
         dev = resolve_device(device)
         gen = (None if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
         self.cfg = cfg
+        self.placements = None
+
+        def keeper(prefix):
+            if not shardings:
+                return _whole
+
+            def keep(name, w):
+                pl = shardings.get(prefix + name)
+                return w if pl is None else pl.block(w)
+            return keep
         P = cfg.moe_period
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.moe is not None and i % P == P - 1, gen, dev)
+            Block(cfg, cfg.moe is not None and i % P == P - 1, gen, dev,
+                  keeper(f"layers.{i}."))
             for i in range(cfg.n_layers))
-        self.embed = _init((cfg.vocab_padded, cfg.d_model), cfg.d_model,
-                           cfg.dtype, gen, dev)
-        self.final_norm = _init((cfg.d_model,), None, None, gen, dev)
+        keep = keeper("")
+        self.embed = nn.Parameter(keep("embed", _init(
+            (cfg.vocab_padded, cfg.d_model), cfg.d_model, cfg.dtype, gen,
+            dev)))
+        self.final_norm = nn.Parameter(_init((cfg.d_model,), None, None, gen,
+                                             dev))
         if not cfg.tie_embeddings:
-            self.lm_head = _init((cfg.d_model, cfg.vocab_padded), cfg.d_model,
-                                 cfg.dtype, gen, dev)
+            self.lm_head = nn.Parameter(keep("lm_head", _init(
+                (cfg.d_model, cfg.vocab_padded), cfg.d_model, cfg.dtype, gen,
+                dev)))
+        if shardings:
+            self.placements = dict(shardings)
 
     @property
     def device(self) -> torch.device:
@@ -234,10 +278,12 @@ class Transformer(nn.Module):
         return forward(self.cfg, self, tokens, rules)
 
 
-def init_params(cfg: LMConfig, seed: int = 0, *, device=None) -> Transformer:
+def init_params(cfg: LMConfig, seed: int = 0, *, device=None,
+                shardings: Optional[dict] = None) -> Transformer:
     """The reference's ``init_params``: a :class:`Transformer` whose
-    parameters are drawn from ``seed``."""
-    return Transformer(cfg, seed=seed, device=device)
+    parameters are drawn from ``seed`` (over a mesh: this rank's blocks of
+    them, by ``shardings``)."""
+    return Transformer(cfg, seed=seed, device=device, shardings=shardings)
 
 
 def count_params(model: nn.Module) -> int:
@@ -489,24 +535,25 @@ def _project(cfg: LMConfig, p, x, rot):
     """q, k, v (B, S, heads, dim), and the latent (c_kv, k_rope) of MLA
     (None for GQA); rot: :func:`rope_tables` of the positions."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     if cfg.mla is None:
-        Kv, hd = cfg.n_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         if cfg.fused_qkv:
+            H, Kv = cfg.n_heads, cfg.n_kv_heads
             qkv = x @ p["wqkv"]
             q = qkv[..., :H * hd].reshape(B, S, H, hd)
             k = qkv[..., H * hd:(H + Kv) * hd].reshape(B, S, Kv, hd)
             v = qkv[..., (H + Kv) * hd:].reshape(B, S, Kv, hd)
-        else:
-            q = (x @ p["wq"]).reshape(B, S, H, hd)
-            k = (x @ p["wk"]).reshape(B, S, Kv, hd)
-            v = (x @ p["wv"]).reshape(B, S, Kv, hd)
+        else:                           # this rank's heads over a mesh
+            q = (x @ p["wq"]).reshape(B, S, -1, hd)
+            k = (x @ p["wk"]).reshape(B, S, -1, hd)
+            v = (x @ p["wv"]).reshape(B, S, -1, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"])
             k = rmsnorm(k, p["k_norm"])
         return _rotate(q, rot), _rotate(k, rot), v, None
     m = cfg.mla
     r, nope = m.kv_lora_rank, m.nope_head_dim
+    H = p["wq_b"].shape[1] // (nope + m.rope_head_dim)
     cq = rmsnorm(x @ p["wq_a"], p["q_a_norm"])
     q = (cq @ p["wq_b"]).reshape(B, S, H, nope + m.rope_head_dim)
     kv_a = x @ p["wkv_a"]
@@ -575,7 +622,7 @@ def _mla_decode_attention(cfg: LMConfig, p, x, L: int, rot, ckv, krope):
     slot L is written while L < Smax, as the reference does."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = p["wq_b"].shape[1] // (m.nope_head_dim + m.rope_head_dim)
     cq = rmsnorm(x @ p["wq_a"], p["q_a_norm"])
     q = (cq @ p["wq_b"]).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
     q_nope = q[..., :m.nope_head_dim]
@@ -612,16 +659,29 @@ def _mlp(p, x):
     return (h @ p["w2"]).to(x.dtype)
 
 
-def _moe_ffn(cfg: LMConfig, p, x, rules: MeshRules):
+def _moe_ffn(cfg: LMConfig, p, x, rules: MeshRules, lay=None, e0: int = 0):
     """Sort-based capacity MoE: tokens sorted (stably) by expert fill a
     fixed capacity C per expert (rounded up to 128), overflow goes to a
-    sink slot E * C and is dropped.  x (B, S, d) -> (out, aux loss)."""
+    sink slot E * C and is dropped.  x (B, S, d) -> (out, aux loss).
+
+    Over a mesh (``lay``) ``x`` is this rank's data shard, one group, as
+    the reference groups tokens by data shard; ``p`` holds this rank's
+    experts from ``e0`` on (expert parallel) or its ``ff`` columns of
+    every expert (tensor parallel within each): the output is this rank's
+    partial sum.  The aux loss is the global one (its sums reduced over
+    the data shards)."""
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
-    G = rules.dp_size() if B % rules.dp_size() == 0 else 1
+    meshed = lay is not None and lay.mesh is not None
+    if meshed:
+        G, n_all = 1, lay.tokens
+    else:
+        G = rules.dp_size() if B % rules.dp_size() == 0 else 1
+        n_all = N
     Ng = N // G
     k, E = m.top_k, m.n_experts
+    El = p["w1"].shape[0]
     C = int(np.ceil(Ng * k / E * m.capacity_factor / 128)) * 128
     dev = x.device
 
@@ -642,41 +702,312 @@ def _moe_ffn(cfg: LMConfig, p, x, rules: MeshRules):
     starts = torch.searchsorted(se, torch.arange(E, device=dev).expand(G, E))
     pos = torch.arange(Ng * k, device=dev)[None] - starts.gather(1, se)
     keep = pos < C
-    slot = torch.where(keep, se * C + pos, E * C)                  # overflow sink
+    if El < E:                      # this rank's experts only
+        keep = keep & (se >= e0) & (se < e0 + El)
+    slot = torch.where(keep, (se - e0) * C + pos, El * C)          # overflow sink
 
     xsel = xg.gather(1, st[..., None].expand(-1, -1, d))
-    buf = torch.zeros((G, E * C + 1, d), dtype=cfg.dtype, device=dev)
+    buf = torch.zeros((G, El * C + 1, d), dtype=cfg.dtype, device=dev)
     buf.scatter_(1, slot[..., None].expand(-1, -1, d),
                  torch.where(keep[..., None], xsel, 0).to(cfg.dtype))
-    xe = buf[:, :-1].reshape(G, E, C, d)
+    xe = buf[:, :-1].reshape(G, El, C, d)
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["w1"])) * torch.einsum(
         "gecd,edf->gecf", xe, p["w3"])
     ye = torch.einsum("gecf,efd->gecd", h, p["w2"])
-    yf = torch.cat([ye.reshape(G, E * C, d), ye.new_zeros((G, 1, d))], dim=1)
+    yf = torch.cat([ye.reshape(G, El * C, d), ye.new_zeros((G, 1, d))], dim=1)
     contrib = yf.gather(1, slot[..., None].expand(-1, -1, d))
     contrib = contrib * (sg * keep)[..., None].to(ye.dtype)
     out = ye.new_zeros((G, Ng, d)).scatter_add_(
         1, st[..., None].expand(-1, -1, d), contrib)
 
-    # aux losses (GShard load balance + router z-loss)
-    me = torch.softmax(logits, dim=-1).mean(dim=(0, 1))            # (E,)
-    ce = torch.zeros(E, device=dev).index_add_(
-        0, fe.reshape(-1), torch.ones(N * k, device=dev)) / (N * k)
-    aux = m.aux_coef * E * torch.sum(me * ce) + m.router_z_coef * torch.mean(
-        torch.logsumexp(logits, dim=-1) ** 2)
+    aux = _aux_loss(m, logits, fe, lay.dp if meshed else None, n_all)
     return out.reshape(B, S, d).to(x.dtype), aux
 
 
-def _ffn(cfg: LMConfig, layer: Block, x, rules: MeshRules):
-    hin = rmsnorm(x, layer.ln2)
+def _aux_loss(m: MoEConfig, logits, fe, over, n_all: int):
+    """GShard's load-balance loss and the router z-loss over every token:
+    this rank's sums over its tokens' router logits (..., E) and expert
+    choices ``fe``, summed over the mesh ``over`` (None: they are all of
+    them), divided by the ``n_all`` tokens."""
+    E = m.n_experts
+    dev = logits.device
+    sums = torch.cat([
+        torch.softmax(logits, dim=-1).reshape(-1, E).sum(dim=0),
+        (torch.logsumexp(logits, dim=-1) ** 2).sum().reshape(1),
+        torch.zeros(E, device=dev).index_add_(
+            0, fe.reshape(-1), torch.ones(fe.numel(), device=dev))])
+    if over is not None:
+        sums = routed.all_reduce_sum(sums, over)
+    me, ce = sums[:E] / n_all, sums[E + 1:] / (n_all * m.top_k)
+    return m.aux_coef * E * torch.sum(me * ce) + m.router_z_coef * \
+        sums[E] / n_all
+
+
+# ---------------------------------------------------------------------------
+# the layout over a mesh
+# ---------------------------------------------------------------------------
+
+def _axes(e) -> tuple:
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+class _Lay:
+    """Where one call's tensors lie (without a mesh: whole, and every
+    method the identity).
+
+    Over a mesh, from the model's placements (``Transformer.placements``)
+    and the rules: the batch rows of this rank's data block (the batch's
+    ``input_sharding``: whole where the data axes do not divide it), and
+    the residual stream whole over ``model``, or split over it by its
+    sequence where the rules put ``seq_sp`` on it and it divides the
+    length.  A weight's ``embed`` dim is gathered over the batch axes
+    (FSDP, :meth:`weight`); its ``heads`` / ``kv_heads`` / ``ff`` /
+    ``expert`` / ``vocab`` dim keeps this rank's block where that block is
+    whole heads (:meth:`span`), else it is gathered and every rank computes
+    every head.  A region that sums over a split dim gives partial sums,
+    which :meth:`leave` reduces over ``model``.  Each rank's gradients are
+    shares (``distributed.routed``)."""
+
+    def __init__(self, cfg: LMConfig, model, rules: MeshRules, shape):
+        B, S = shape
+        self.cfg, self.rules, self.mesh = cfg, rules, rules.mesh
+        self.rows, self.tp, self.dp, self.sp = slice(0, B), None, None, False
+        self.tokens, self.world, self.dup = B * S, 1, 1
+        if self.mesh is None:
+            return
+        if model.placements is None:
+            raise ValueError("an LM over a mesh needs its parameters' "
+                             "placements: build it with shardings= "
+                             "(Transformer, init_params) or move it with "
+                             "fault_tolerance.reshard_state")
+        if cfg.fused_qkv:
+            raise NotImplementedError("fused_qkv over a mesh: its fused "
+                                      "columns do not split by heads")
+        self.pl = model.placements
+        self.tp = self.mesh.over(rules.tp)
+        bpl = rules.input_sharding((B, S), "batch", None).entries[0]
+        if bpl is not None:
+            i, n = self.mesh.coord(bpl)
+            self.rows = slice(i * B // n, (i + 1) * B // n)
+            self.dp = self.mesh.over(bpl)
+        self.world = self.mesh.size
+        self.dup = self.world // (1 if self.dp is None else self.dp.size)
+        self.sp = (rules.seq_sp is not None and self.tp.size > 1
+                   and S % self.tp.size == 0)
+
+    def weight(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """``w`` with its FSDP dims gathered over the batch axes."""
+        if self.mesh is None:
+            return w
+        for k, e in enumerate(self.pl[name].entries):
+            if e is not None and _axes(e) == _axes(self.rules.fsdp):
+                w = routed.all_gather_rows(w, self.mesh.over(e), dim=k)
+        return w
+
+    def _split(self, name: str, dim: int) -> bool:
+        if self.mesh is None:
+            return False
+        entries = self.pl[name].entries
+        return dim < len(entries) and entries[dim] is not None and \
+            _axes(entries[dim]) == _axes(self.rules.tp)
+
+    def span(self, name: str, w: torch.Tensor, dim: int, unit: int):
+        """(w, u0, n): ``w`` holding units [u0, u0 + n) of ``unit`` along
+        ``dim``: this rank's block where it is whole units, else ``w``
+        gathered whole."""
+        if self._split(name, dim):
+            if w.shape[dim] % unit == 0:
+                n = w.shape[dim] // unit
+                return w, self.tp.rank * n, n
+            w = routed.all_gather_rows(w, self.tp, dim=dim)
+        return w, 0, w.shape[dim] // unit
+
+    def take(self, name: str, w: torch.Tensor, dim: int, unit: int,
+             u0: int, n: int) -> torch.Tensor:
+        """``w``'s units [u0, u0 + n) along ``dim`` (gathered whole first
+        where this rank's block is not them)."""
+        got, a, m = self.span(name, w, dim, unit)
+        if (a, m) == (u0, n):
+            return got
+        if got is w and self._split(name, dim):
+            got = routed.all_gather_rows(w, self.tp, dim=dim)
+        return got.narrow(dim, u0 * unit, n * unit)
+
+    def seq_block(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[1] // self.tp.size
+        return x.narrow(1, self.tp.rank * n, n)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream as a region reads it: whole over ``model``
+        (sequence parallel: gathered by its sequence)."""
+        return routed.all_gather_rows(x, self.tp, dim=1) if self.sp else x
+
+    def leave(self, h: torch.Tensor, partial: bool) -> torch.Tensor:
+        """A region's output in the residual's layout: partial sums reduced
+        over ``model`` (sequence parallel: reduce-scattered by the
+        sequence)."""
+        if self.sp:
+            return (routed.reduce_scatter_rows(h, self.tp, dim=1) if partial
+                    else self.seq_block(h))
+        return routed.all_reduce_sum(h, self.tp) if partial else h
+
+
+def _attn_weights(cfg: LMConfig, lay: _Lay, pre: str, p):
+    """(this rank's attention weights, whether its output is partial): its
+    q heads, the kv heads they read, and wo's rows of those heads."""
+    if lay.mesh is None:
+        return p, False
+    w = {k: lay.weight(pre + k, v) for k, v in p.items()}
+    if cfg.mla is None:
+        hd, G = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+        w["wq"], h0, nh = lay.span(pre + "wq", w["wq"], 1, hd)
+        k0, k1 = h0 // G, (h0 + nh - 1) // G + 1
+        if nh % (k1 - k0) or (nh // (k1 - k0) != G and k1 - k0 != 1):
+            raise ValueError(f"q heads [{h0}, {h0 + nh}) do not read whole "
+                             f"kv heads (group {G})")
+        for k in ("wk", "wv"):
+            w[k] = lay.take(pre + k, w[k], 1, hd, k0, k1 - k0)
+        hv = hd
+    else:
+        m = cfg.mla
+        w["wq_b"], h0, nh = lay.span(pre + "wq_b", w["wq_b"], 1,
+                                     m.nope_head_dim + m.rope_head_dim)
+        w["wk_b"] = lay.take(pre + "wk_b", w["wk_b"], 1, m.nope_head_dim,
+                             h0, nh)
+        w["wv_b"] = lay.take(pre + "wv_b", w["wv_b"], 1, m.v_head_dim, h0, nh)
+        hv = m.v_head_dim
+    w["wo"] = lay.take(pre + "wo", w["wo"], 0, hv, h0, nh)
+    return w, nh < cfg.n_heads
+
+
+def _mlp_weights(cfg: LMConfig, lay: _Lay, pre: str, p):
+    """(this rank's MLP weights: its ff columns, whether partial)."""
+    if lay.mesh is None:
+        return p, False
+    w = {k: lay.weight(pre + k, v) for k, v in p.items()}
+    w["w1"], f0, nf = lay.span(pre + "w1", w["w1"], 1, 1)
+    w["w3"] = lay.take(pre + "w3", w["w3"], 1, 1, f0, nf)
+    w["w2"] = lay.take(pre + "w2", w["w2"], 0, 1, f0, nf)
+    return w, nf < cfg.d_ff
+
+
+def _moe_weights(cfg: LMConfig, lay: _Lay, pre: str, p):
+    """(this rank's MoE weights, its first expert, whether partial): its
+    experts (expert parallel) or its ff columns of every expert."""
+    if lay.mesh is None:
+        return p, 0, False
+    w = {k: lay.weight(pre + k, v) for k, v in p.items()}
+    w["w1"], e0, ne = lay.span(pre + "w1", w["w1"], 0, 1)
+    w["w1"], f0, nf = lay.span(pre + "w1", w["w1"], 2, 1)
+    w["w3"] = lay.take(pre + "w3", lay.take(pre + "w3", w["w3"], 0, 1, e0,
+                                            ne), 2, 1, f0, nf)
+    w["w2"] = lay.take(pre + "w2", lay.take(pre + "w2", w["w2"], 0, 1, e0,
+                                            ne), 1, 1, f0, nf)
+    return w, e0, ne < cfg.moe.n_experts or nf < cfg.moe.d_ff
+
+
+def _moe_exchange(cfg: LMConfig, p, x, lay: _Lay, e0: int):
+    """Expert-parallel MoE on this rank's sequence block ``x`` (B, S / M,
+    d) of its data shard: (its output, complete, and the aux loss).
+
+    The data shard is one dispatch group, as on the whole sequence: an
+    assignment's place in its expert's queue counts the assignments before
+    it in (row, position, choice) order, those of the rows before and of
+    the lower model ranks' blocks of its row from an all-gather of each
+    rank's (row, expert) counts.  Kept assignments travel to their
+    expert's rank in one all-to-all of fixed-size slot buffers (a slot per
+    (expert, place): each is filled by one rank at most), and the experts'
+    outputs travel back in another."""
+    m = cfg.moe
+    B, Sl, d = x.shape
+    M, r = lay.tp.size, lay.tp.rank
+    k, E, El = m.top_k, m.n_experts, p["w1"].shape[0]
+    C = int(np.ceil(B * Sl * M * k / E * m.capacity_factor / 128)) * 128
+    dev = x.device
+    logits = x.reshape(B, Sl, d).float() @ p["router"]              # (B, Sl, E)
+    if k == 1:
+        gate = torch.softmax(logits, dim=-1).amax(dim=-1, keepdim=True)
+        eidx = logits.argmax(dim=-1, keepdim=True)
+    else:
+        vals, eidx = torch.topk(logits, k, dim=-1)
+        gate = torch.softmax(vals, dim=-1)
+    fe = eidx.reshape(B, Sl * k)
+    counts = torch.zeros((B, E), dtype=torch.long, device=dev).scatter_add_(
+        1, fe, torch.ones_like(fe))
+    every = lay.tp.all_gather(counts)                               # (M, B, E)
+    per_row = every.sum(0)
+    offset = per_row.cumsum(0) - per_row + every[:r].sum(0)         # (B, E)
+    order = torch.sort(fe, dim=-1, stable=True).indices
+    se = fe.gather(1, order)
+    st = torch.arange(Sl, device=dev).repeat_interleave(k)[order]  # position
+    sg = gate.reshape(B, Sl * k).gather(1, order)
+    starts = torch.searchsorted(
+        se, torch.arange(E, device=dev).expand(B, E).contiguous())
+    pos = torch.arange(Sl * k, device=dev)[None] - starts.gather(1, se) + \
+        offset.gather(1, se)
+    keep = pos < C
+    sink = M * El * C
+    dest = torch.where(keep, (se // El) * (El * C) + (se % El) * C + pos,
+                       sink)
+    tok = (torch.arange(B, device=dev)[:, None] * Sl + st).reshape(-1)
+    dest = dest.reshape(-1)
+    rows = x.reshape(B * Sl, d)[tok]
+    buf = torch.zeros((sink + 1, d), dtype=cfg.dtype, device=dev)
+    buf = buf.scatter(0, dest[:, None].expand(-1, d),
+                      torch.where(keep.reshape(-1, 1), rows, 0).to(cfg.dtype))
+    xe = routed.all_to_all(buf[:-1].reshape(M, El * C, d), lay.tp)
+    xe = xe.sum(dim=0).reshape(El, C, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["w1"])) * torch.einsum(
+        "ecd,edf->ecf", xe, p["w3"])
+    ye = torch.einsum("ecf,efd->ecd", h, p["w2"]).reshape(1, El * C, d)
+    back = routed.all_to_all(ye.expand(M, -1, -1).contiguous(), lay.tp)
+    yf = torch.cat([back.reshape(sink, d), back.new_zeros((1, d))])
+    contrib = yf[dest] * (sg * keep).reshape(-1, 1).to(yf.dtype)
+    out = yf.new_zeros((B * Sl, d)).index_add_(0, tok, contrib)
+    # the ranks that hold distinct tokens: every rank where the batch is
+    # split over the data axes, else (the rows whole on every data rank)
+    # the model ranks' sequence blocks
+    over = lay.tp if lay.dp is None else lay.mesh.over(lay.rules.flat)
+    aux = _aux_loss(m, logits, fe, over, lay.tokens)
+    return out.reshape(B, Sl, d).to(x.dtype), aux
+
+
+def _ffn(cfg: LMConfig, lay: _Lay, pre: str, layer: Block, x):
+    """The MLP or MoE sublayer's output in the residual's layout, and its
+    aux loss (None for an MLP)."""
     if hasattr(layer, "moe"):
-        return _moe_ffn(cfg, layer.moe, hin, rules)
-    return _mlp(layer.mlp, hin), None
+        p, e0, partial = _moe_weights(cfg, lay, pre + "moe.", layer.moe)
+        if lay.sp and p["w1"].shape[0] < cfg.moe.n_experts:
+            # expert parallel on sequence-split tokens: an all-to-all
+            return _moe_exchange(cfg, p, rmsnorm(x, layer.ln2), lay, e0)
+        h, a = _moe_ffn(cfg, p, lay.enter(rmsnorm(x, layer.ln2)), lay.rules,
+                        lay, e0)
+    else:
+        p, partial = _mlp_weights(cfg, lay, pre + "mlp.", layer.mlp)
+        h, a = _mlp(p, lay.enter(rmsnorm(x, layer.ln2))), None
+    return lay.leave(h, partial), a
 
 
-def _logits(model: Transformer, x):
+def _head(model: Transformer, lay: _Lay):
+    """(this rank's vocab columns of the output head (d, n), the first)."""
+    if model.cfg.tie_embeddings:
+        w, v0, _ = lay.span("embed", lay.weight("embed", model.embed), 0, 1)
+        return w.T, v0
+    w, v0, _ = lay.span("lm_head", lay.weight("lm_head", model.lm_head), 1, 1)
+    return w, v0
+
+
+def _logits(model: Transformer, lay: _Lay, x):
+    """Logits (..., vocab) of the residual ``x`` (whole over ``model``),
+    gathered over the vocab and data shards over a mesh."""
     cfg = model.cfg
-    logits = rmsnorm(x, model.final_norm) @ model.head().to(x.dtype)
+    head, _ = _head(model, lay)
+    logits = rmsnorm(x, model.final_norm) @ head.to(x.dtype)
+    if lay.mesh is not None:
+        if logits.shape[-1] < cfg.vocab_padded:
+            logits = routed.all_gather_rows(logits, lay.tp, dim=-1)
+        if lay.dp is not None:
+            logits = routed.all_gather_rows(logits, lay.dp, dim=0)
     return logits[..., :cfg.vocab] if cfg.vocab_padded != cfg.vocab else logits
 
 
@@ -684,36 +1015,66 @@ def _logits(model: Transformer, x):
 # forward / loss / decode
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: LMConfig, model: Transformer, tokens):
-    tokens = torch.as_tensor(tokens, device=model.device).long()
-    return tokens, model.embed[tokens].to(cfg.dtype)
+def _embed(cfg: LMConfig, model: Transformer, lay: _Lay, tokens):
+    """The residual stream of this rank's rows of ``tokens`` (B, S): over
+    a mesh each rank looks up the ids in its vocab block and the ranks'
+    rows are summed."""
+    tokens = tokens[lay.rows]
+    if lay.mesh is None:
+        return model.embed[tokens].to(cfg.dtype)
+    table, v0, nv = lay.span("embed", lay.weight("embed", model.embed), 0, 1)
+    if nv == cfg.vocab_padded:
+        x = table[tokens].to(cfg.dtype)
+        return lay.seq_block(x) if lay.sp else x
+    loc = tokens - v0
+    inside = (loc >= 0) & (loc < nv)
+    x = table[loc.clamp(0, nv - 1)] * inside[..., None].to(table.dtype)
+    return lay.leave(x.to(cfg.dtype), True)
+
+
+def _tokens(model: Transformer, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=model.device).long()
+
+
+def _positions(x, S: int):
+    """Positions 0..S-1, (rows of x, S)."""
+    return torch.arange(S, device=x.device)[None].expand(x.shape[0], S)
+
+
+def _trunk(cfg: LMConfig, model: Transformer, lay: _Lay, tokens):
+    """(the last layer's residual stream, the summed aux loss)."""
+    x = _embed(cfg, model, lay, tokens)
+    S = tokens.shape[1]
+    rot = rope_tables(_positions(x, S), _rope_dim(cfg), cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, layer in enumerate(model.layers):
+        if remat:
+            x, a = checkpoint(_layer, cfg, lay, i, layer, x, rot,
+                              use_reentrant=False)
+        else:
+            x, a = _layer(cfg, lay, i, layer, x, rot)
+        aux = aux if a is None else aux + a
+    return x, aux
 
 
 def forward(cfg: LMConfig, model: Transformer, tokens,
             rules: Optional[MeshRules] = None):
-    """tokens (B, S) int -> (logits (B, S, vocab) in cfg.dtype, aux)."""
+    """tokens (B, S) int -> (logits (B, S, vocab) in cfg.dtype, aux).  Over
+    a mesh every rank passes the whole batch and gets the whole logits."""
     rules = rules or make_rules(None)
-    tokens, x = _embed(cfg, model, tokens)
-    B, S = tokens.shape
-    rot = rope_tables(torch.arange(S, device=x.device)[None].expand(B, S),
-                      _rope_dim(cfg), cfg.rope_theta)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for layer in model.layers:
-        if remat:
-            x, a = checkpoint(_layer, cfg, layer, x, rot, rules,
-                              use_reentrant=False)
-        else:
-            x, a = _layer(cfg, layer, x, rot, rules)
-        aux = aux if a is None else aux + a
-    return _logits(model, x), aux
+    tokens = _tokens(model, tokens)
+    lay = _Lay(cfg, model, rules, tokens.shape)
+    x, aux = _trunk(cfg, model, lay, tokens)
+    return _logits(model, lay, lay.enter(x)), aux
 
 
-def _layer(cfg: LMConfig, layer: Block, x, rot, rules: MeshRules):
+def _layer(cfg: LMConfig, lay: _Lay, i: int, layer: Block, x, rot):
     """One sublayer of the forward: (x, aux or None)."""
-    h, _ = _attention(cfg, layer.attn, rmsnorm(x, layer.ln1), rot)
-    x = x + h
-    h, a = _ffn(cfg, layer, x, rules)
+    p, partial = _attn_weights(cfg, lay, f"layers.{i}.attn.", layer.attn)
+    h, _ = _attention(cfg, p, lay.enter(rmsnorm(x, layer.ln1)), rot)
+    x = x + lay.leave(h, partial)
+    h, a = _ffn(cfg, lay, f"layers.{i}.", layer, x)
     return x + h, a
 
 
@@ -722,22 +1083,26 @@ def prefill(cfg: LMConfig, model: Transformer, tokens,
             rules: Optional[MeshRules] = None):
     """Inference prefill: forward pass + KV-cache materialization.
     Returns (last-position logits (B, vocab) f32, cache ready for
-    :func:`decode_step`, with Smax = S)."""
+    :func:`decode_step`, with Smax = S).  Over a mesh the cache holds this
+    rank's rows and the kv heads its q heads read (MLA's latent: whole
+    over ``model``), and every rank gets the whole logits."""
     rules = rules or make_rules(None)
-    tokens, x = _embed(cfg, model, tokens)
-    B, S = tokens.shape
-    rot = rope_tables(torch.arange(S, device=x.device)[None].expand(B, S),
-                      _rope_dim(cfg), cfg.rope_theta)
+    tokens = _tokens(model, tokens)
+    lay = _Lay(cfg, model, rules, tokens.shape)
+    x = _embed(cfg, model, lay, tokens)
+    S = tokens.shape[1]
+    rot = rope_tables(_positions(x, S), _rope_dim(cfg), cfg.rope_theta)
     cache: dict = {}
-    for layer in model.layers:
-        h, kv = _attention(cfg, layer.attn, rmsnorm(x, layer.ln1), rot,
+    for i, layer in enumerate(model.layers):
+        p, partial = _attn_weights(cfg, lay, f"layers.{i}.attn.", layer.attn)
+        h, kv = _attention(cfg, p, lay.enter(rmsnorm(x, layer.ln1)), rot,
                            return_kv=True)
         for name, t in kv.items():
             cache.setdefault(name, []).append(t.to(cfg.dtype).contiguous())
-        x = x + h
-        x = x + _ffn(cfg, layer, x, rules)[0]
+        x = x + lay.leave(h, partial)
+        x = x + _ffn(cfg, lay, f"layers.{i}.", layer, x)[0]
     cache["len"] = S
-    return _logits(model, x[:, -1]).float(), cache
+    return _logits(model, lay, lay.enter(x)[:, -1]).float(), cache
 
 
 def loss_fn(cfg: LMConfig, model: Transformer, batch: dict,
@@ -745,23 +1110,52 @@ def loss_fn(cfg: LMConfig, model: Transformer, batch: dict,
     """batch = {tokens (B, S), labels? (B, S)}; next-token cross-entropy +
     z-loss + aux.  Returns (objective, metrics); differentiable when grad
     is enabled (the training attention, layers checkpointed with
-    ``remat``)."""
-    tokens = torch.as_tensor(batch["tokens"], device=model.device).long()
+    ``remat``).
+
+    Over a mesh every rank passes the whole batch and holds its vocab
+    columns of the logits: each shard's log-sum-exp (padded columns left
+    out) and gold logit are combined over the vocab shards.  Each token's
+    terms are on ``lay.dup`` ranks and the aux loss on every rank, so the
+    objective has the global value and the gradient of this rank's share:
+    its tokens' sum over (global tokens x dup) plus aux / ranks (without a
+    mesh: the whole objective)."""
+    rules = rules or make_rules(None)
+    tokens = _tokens(model, batch["tokens"])
     labels = batch.get("labels")
     if labels is None:
         labels = F.pad(tokens[:, 1:], (0, 1), value=-1)
     labels = torch.as_tensor(labels, device=model.device).long()
-    logits, aux = forward(cfg, model, tokens, rules)
-    logits = logits.float()
-    valid = labels >= 0
-    safe = torch.where(valid, labels, 0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, safe[..., None])[..., 0]
-    nll = torch.where(valid, logz - gold, 0.0)
-    ntok = valid.sum().clamp(min=1)
-    loss = nll.sum() / ntok
-    zloss = 1e-4 * torch.where(valid, logz ** 2, 0.0).sum() / ntok
-    return loss + zloss + aux, {"loss": loss, "aux": aux, "ntok": ntok}
+    lay = _Lay(cfg, model, rules, tokens.shape)
+    x, aux = _trunk(cfg, model, lay, tokens)
+    head, v0 = _head(model, lay)
+    xf = lay.enter(rmsnorm(x, model.final_norm))
+    logits = (xf @ head.to(xf.dtype)).float()
+    nv = logits.shape[-1]
+    lse = torch.logsumexp(logits[..., :min(nv, max(cfg.vocab - v0, 0))],
+                          dim=-1)
+    rows = labels[lay.rows]
+    valid = rows >= 0
+    loc = torch.where(valid, rows, 0) - v0
+    inside = (loc >= 0) & (loc < nv)
+    gold = torch.where(inside, logits.gather(
+        -1, loc.clamp(0, nv - 1)[..., None])[..., 0], 0.0)
+    if nv < cfg.vocab_padded:                  # the vocab split over model
+        top = lay.tp.all_reduce(lse.detach(), "max")
+        both = routed.all_reduce_sum(
+            torch.stack([torch.exp(lse - top), gold]), lay.tp)
+        lse, gold = top + torch.log(both[0]), both[1]
+    sums = torch.stack([torch.where(valid, lse - gold, 0.0).sum(),
+                        torch.where(valid, lse ** 2, 0.0).sum()])
+    ntok = (labels >= 0).sum().clamp(min=1)
+    share = (sums[0] + 1e-4 * sums[1]) / (ntok * lay.dup) + aux / lay.world
+    tot = sums.detach()
+    if lay.dp is not None:
+        tot = lay.dp.all_reduce(tot, "sum")
+    loss, zloss = tot[0] / ntok, 1e-4 * tot[1] / ntok
+    value = loss + zloss + aux.detach()
+    return share + (value - share).detach(), {"loss": loss,
+                                              "aux": aux.detach(),
+                                              "ntok": ntok}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, *,
@@ -811,24 +1205,29 @@ def grow_cache(cache: dict, max_len: int) -> dict:
 def decode_step(cfg: LMConfig, model: Transformer, cache: dict, tokens,
                 rules: Optional[MeshRules] = None):
     """One decode step. tokens (B, 1) -> (logits (B, vocab) f32, cache).
-    The cache is updated in place and returned, its len one more."""
+    The cache is updated in place and returned, its len one more.  Over a
+    mesh every rank passes the whole tokens and its block of the cache
+    (as :func:`prefill` gives it) and gets the whole logits."""
     rules = rules or make_rules(None)
-    tokens, x = _embed(cfg, model, tokens)
+    tokens = _tokens(model, tokens)
+    lay = _Lay(cfg, model, rules, tokens.shape)
+    x = _embed(cfg, model, lay, tokens)
     L = int(cache["len"])
-    rot = rope_tables(torch.full(tokens.shape, L, device=x.device),
+    rot = rope_tables(torch.full(x.shape[:2], L, device=x.device),
                       _rope_dim(cfg), cfg.rope_theta)
     for i, layer in enumerate(model.layers):
+        p, partial = _attn_weights(cfg, lay, f"layers.{i}.attn.", layer.attn)
         hin = rmsnorm(x, layer.ln1)
         if cfg.mla is not None:
-            h = _mla_decode_attention(cfg, layer.attn, hin, L, rot,
+            h = _mla_decode_attention(cfg, p, hin, L, rot,
                                       cache["ckv"][i], cache["krope"][i])
         else:
-            h = _decode_attention(cfg, layer.attn, hin, L, rot,
+            h = _decode_attention(cfg, p, hin, L, rot,
                                   cache["k"][i], cache["v"][i])
-        x = x + h
-        x = x + _ffn(cfg, layer, x, rules)[0]
+        x = x + lay.leave(h, partial)
+        x = x + _ffn(cfg, lay, f"layers.{i}.", layer, x)[0]
     cache["len"] = L + 1
-    return _logits(model, x)[:, 0].float(), cache
+    return _logits(model, lay, x)[:, 0].float(), cache
 
 
 # ---------------------------------------------------------------------------

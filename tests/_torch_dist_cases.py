@@ -250,6 +250,21 @@ def rank_or_fail(mesh, bad: int) -> int:
     return mesh.rank
 
 
+def wait_in_sleep(seconds: float) -> None:
+    """A frame of its own to block in, for a stack dump to name."""
+    import time
+    time.sleep(seconds)
+
+
+def block_past_timeout(mesh, seconds: float) -> int:
+    """Rank 0 sleeps ``seconds`` in :func:`wait_in_sleep`; the others wait
+    for it in a barrier."""
+    if mesh.rank == 0:
+        wait_in_sleep(seconds)
+    mesh.barrier()
+    return mesh.rank
+
+
 # ---------------------------------------------------------------------------
 # The second half of the distributed placement (tests/test_torch_dist_more.py)
 # ---------------------------------------------------------------------------

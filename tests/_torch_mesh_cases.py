@@ -46,6 +46,19 @@ RESUME_ARCH = "gin"
 
 
 @contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` inside: a test process that
+    computes its side beside a pool of ranks (and JAX's own threads) only
+    spins against them with more."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+@contextlib.contextmanager
 def one_rank_mesh():
     """A (1, 1) ('data', 'model') mesh over a 1-rank gloo world on the CPU
     in this process."""
@@ -325,21 +338,22 @@ def run_cases(mesh, ref: dict, work: str) -> dict:
         fail_at=1)
     out["resume/losses"], out["resume/restarts"] = losses, restarts
     # the elastic resume from its step-1 checkpoint on a (2, 1) mesh of
-    # ranks 0 and 1 (the test process resumes it on one device)
+    # ranks 0 and 1 (the test process resumes it on one device), and a
+    # (2, 1) mesh over ranks 1 and 3.  Every rank builds both meshes'
+    # groups together first (``new_group`` waits for every rank of the
+    # world), then ranks 0 and 1 resume while the others go on.
     if mesh.rank == 0:
         for d in ("resume2", "resume1"):
             shutil.copytree(os.path.join(work, "resume", "step_00000001"),
                             os.path.join(work, d, "step_00000001"))
     mesh.barrier()
     pair = TM.make_mesh((2, 1), ("data", "model"), device="cpu", ranks=[0, 1])
+    sub = TM.make_mesh((2, 1), ("data", "model"), device="cpu", ranks=[1, 3])
     if pair is not None:
         two = run_resume(pair, ref, work)
         if two is not None:
             out["resume2/losses"], out["fm_restored2"] = two["losses"], \
                 two["fm"]
-
-    # a (2, 1) mesh over ranks 1 and 3 of the world
-    sub = TM.make_mesh((2, 1), ("data", "model"), device="cpu", ranks=[1, 3])
     got = [-1.0, -1.0]
     if sub is not None:
         flat = sub.over(("data", "model"))

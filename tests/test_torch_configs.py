@@ -150,8 +150,9 @@ def test_mixtral_long500k_uses_ring_cache():
 def test_apply_variant_and_training_parts_raise():
     """The name is kept from when the training parts raised: the train
     step, the state's shapes and axes, the GNN specs and parameter
-    shardings over a mesh now work; an LM's step over a mesh still raises
-    (ROADMAP §A.9's multi-card LM slice)."""
+    shardings over a mesh now work, and so do an LM's train, prefill and
+    decode steps over a mesh (``tests/test_torch_mesh_lm.py`` runs
+    them)."""
     tac = TC.get_config("qwen3-14b")
     b = TCOM.apply_variant(TC.input_specs(tac, "prefill_32k"), "fused_qkv")
     assert b.model.fused_qkv
@@ -179,8 +180,9 @@ def test_apply_variant_and_training_parts_raise():
     fsh = TC.param_shardings(rules, TC.state_shapes(fac, fac.model)[0], fpax)
     assert fsh["table"].entries == (("data", "model"), None)
     assert fsh["w0"].replicated
-    with pytest.raises(NotImplementedError, match="multi-card LM slice"):
-        TC.make_step(tac, train, rules)
+    for kind in ("train", "prefill", "decode"):
+        assert callable(TC.make_step(
+            tac, TCOM.SpecBundle(kind, tac.smoke, {}, {}), rules))
     assert TCOM._gnn_specs(gac, "molecule").kind == "train"
 
 

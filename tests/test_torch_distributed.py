@@ -290,3 +290,23 @@ def test_spawn_leaves_no_process(tmp_path, bad):
                      timeout=120)
     assert _live_children() <= before
     assert not (tmp_path / "init").exists()
+
+
+def test_spawn_timeout_shows_every_rank_stack(tmp_path):
+    """Past its timeout ``spawn`` raises with every live rank's stacks:
+    rank 0 in the frame it blocks in, the others in the barrier that waits
+    for it; and it leaves no process behind."""
+    before = _live_children()
+    with pytest.raises(RuntimeError, match="did not finish") as err:
+        TM.spawn(C.block_past_timeout, S, device="cpu",
+                 init_file=str(tmp_path / "init"), args=(600.0,),
+                 timeout=20)
+    msg = str(err.value)
+    parts = msg.split("rank ")[1:]
+    stacks = {int(p.split()[0]): p for p in parts if " stacks:" in p[:12]}
+    assert sorted(stacks) == list(range(S)), msg
+    assert "wait_in_sleep" in stacks[0], msg
+    for r in range(1, S):
+        assert "in barrier" in stacks[r], msg
+    assert _live_children() <= before
+    assert not list(tmp_path.iterdir())

@@ -1206,6 +1206,42 @@ def test_flash_attention_decode_shapes_match_plain(cuda, dtype):
         assert float(row.max()) <= 1e-2, (skv, float(row.max()))
 
 
+@pytest.mark.parametrize("rank", [0, 3])
+def test_flash_attention_on_one_ranks_heads_matches_plain(cuda, rank):
+    """B6 on one rank's head slice of qwen3-14b served over 4 ranks of a
+    (1, 4) grid (q heads 10 r .. 10 r + 9 read kv heads 2 r, 2 r + 1): a
+    prefill of 4 x 512 on the wgmma path and a decode step over the first
+    513 slots of a 544-slot cache on the split path, each within the B6
+    tolerances of its plain version, which agrees with those heads of the
+    whole attention's plain version to bf16 rounding."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    gen = _gen(40 + rank)
+    H, Kv, hd, B = 40, 8, 128, 4
+    q_heads = slice(10 * rank, 10 * rank + 10)
+    kv_heads = slice(2 * rank, 2 * rank + 2)
+    for sq, skv, slots, path in ((512, 512, 512, "flash_attention_wgmma"),
+                                 (1, 513, 544, "flash_attention_split")):
+        q = torch.randn(B, H, sq, hd, device=cuda, generator=gen).to(
+            torch.bfloat16)
+        k, v = (torch.randn(B, Kv, slots, hd, device=cuda, generator=gen).to(
+            torch.bfloat16)[:, :, :skv] for _ in range(2))
+        qr, kr, vr = q[:, q_heads], k[:, kv_heads], v[:, kv_heads]
+        FA.reset_launches()
+        got = ops.flash_attention(qr, kr, vr, causal=True)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_attention"] == 1 and FA.LAUNCHES[path] == 1
+        want = ref.flash_attention_ref(qr, kr, vr, causal=True)
+        whole = ref.flash_attention_ref(q, k, v, causal=True)[:, q_heads]
+        torch.testing.assert_close(want.float(), whole.float(), rtol=1e-2,
+                                   atol=1e-2)
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                                   atol=5e-2)
+        row = (got.float() - want.float()).norm(dim=-1) / \
+            want.float().norm(dim=-1).clamp_min(1e-30)
+        assert float(row.max()) <= 1e-2, (sq, float(row.max()))
+
+
 @pytest.mark.parametrize("arch,prompt,gen", [("qwen3-14b", 12, 6),
                                              ("mixtral-8x7b", 12, 6),
                                              ("mixtral-8x7b", 6, 10)])
