@@ -223,7 +223,26 @@ Phases, each of which exits non-zero on failure:
    version, and the logits of those steps and of every greedy step whose
    ids so far are phase 7's held to phase 7's one-card logits within
    MODEL_FLOOR_FACTOR x phase 7's floor; the phase fails past 240 s.  The
-   B6 entry's launches add the meshed ones, in a case of their own.
+   B6 entry's launches add the meshed ones, in a case of their own;
+11. the dry run and the examples (``[dryrun]`` and ``[check] dryrun``
+   lines): ``repro_torch.launch.dryrun`` traces, on meta tensors, rank 0
+   of this run's meshes: qwen3-14b's prefill 4 x 512 and one decode step
+   over a dry (1, 4) mesh, whose calls and bytes per collective kind must
+   equal phase 10's rank 0, and gin-tu's meshed step on phase 9's graph
+   over a dry (4, 1) mesh, equal to phase 9's rank 0; then qwen3-14b's
+   prefill and gin-tu's ``ogb_products`` step on one card, whose dry
+   peaks must be within 15% of phases 7's and 8's own (an extra prefill
+   and an extra warm step there, the memory held before each that is not
+   its argument left out); no trace may launch a kernel.  Then the four
+   examples in process on the card: ``quickstart_torch`` against its
+   ``--device cpu`` run (BFS levels equal, PageRank within 1e-4, Table I
+   equal; B1 launched), ``graph_analytics_torch --scale 12 --ranks 4
+   --stream 2 --trace build/graph_analytics_trace.json`` (B1, B2 and B3
+   launched, PageRank mass 1 within 1e-3, BFS and SSSP reach the same
+   vertices, the 4-rank service answered its 64 queries),
+   ``train_lm_torch --demo --steps 20`` (the loss falls, a checkpoint at
+   step 20, no B6) and ``serve_lm_torch`` (B6 launched); the phase fails
+   past 90 s.
 
 Prints one JSON line ``{"kernels": [...]}`` (eight kernels) and, last, the
 device line.
@@ -257,8 +276,6 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 ADD_RTOL = ADD_ATOL = 1e-5         # kernel vs plain, f32 'add'
 # B4: in-order f32 sums of rows of up to ~1e5 entries (RMAT hubs, summed
 # in pieces of at most block_n), against a float64-accumulated plain version
@@ -405,21 +422,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def least_ms(nbytes: float, flops: float = 0) -> tuple:
+    """(the least ms the card takes to move ``nbytes`` and do ``flops``
+    bf16 operations, what binds it: 'bytes' or 'operations'), by
+    ``kernels.cost.bound_s`` over the card's rates (``launch.mesh.HW``)."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch.mesh import HW
+    s, by = cost.bound_s(nbytes, flops, HW)
+    return 1e3 * s, by
+
+
 def bound_ms(bb, tile_active=None) -> float:
     """Least time at the card's memory rate for the bytes the kernel must
-    move on these inputs: 12 B per real slot of the tiles it processes,
-    their tile_cb and tile_cnt, the tile_active flags (SpMSpV), rb_ptr, x
-    (padded) and y."""
-    import torch
-    live = bb.tile_cnt if tile_active is None else \
-        torch.where(tile_active != 0, bb.tile_cnt, 0)
-    n_live = bb.n_tiles if tile_active is None else \
-        int((tile_active != 0).sum())
-    nbytes = (12 * int(live.long().sum()) + 8 * n_live
-              + (0 if tile_active is None else 4 * bb.n_tiles)
-              + 4 * (bb.n_row_blocks + 1)
-              + 4 * bb.n_col_blocks * bb.block_cols + 4 * bb.n_rows)
-    return 1e3 * nbytes / HBM_BYTES_PER_S
+    move on these inputs (``kernels.cost.bbcsr_bytes``: 12 B per real slot
+    of the tiles it processes, their tile_cb and tile_cnt, the tile_active
+    flags (SpMSpV), rb_ptr, x (padded) and y)."""
+    from repro_torch.kernels import cost
+    return least_ms(cost.bbcsr_bytes(bb, tile_active))[0]
 
 
 def heaviest_block_diagnostic(bb, rb_slots, x, all_act, reps: int) -> dict:
@@ -464,6 +483,7 @@ def tune_phase(args) -> dict:
     phase's numbers."""
     import torch
     from repro_torch import tune
+    from repro_torch.launch.mesh import HW
     from repro_torch.tune.sweep import format_entry
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
@@ -495,8 +515,8 @@ def tune_phase(args) -> dict:
     rows_s = time.perf_counter() - t0
     peak = tune.stream_peak_bytes_per_s()
     log(f"[tune] STREAM triad peak {peak / 1e12!r} TB/s: "
-        f"{peak / HBM_BYTES_PER_S!r} of the nominal "
-        f"{HBM_BYTES_PER_S / 1e12!r} TB/s")
+        f"{peak / HW['hbm_bw']!r} of the nominal "
+        f"{HW['hbm_bw'] / 1e12!r} TB/s")
     out = {"sweep": entry, "sweep_s": sweep_s, "winners_committed": same,
            "kernel_rows": rows, "kernel_rows_s": rows_s,
            "stream_peak_bytes_per_s": peak,
@@ -597,6 +617,7 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels import embedding_bag as EB
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
@@ -779,7 +800,7 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
                 table, ix, bg, n_bags, wt, mode=mode), args.reps),
             plain_ms=cuda_ms(lambda: ref.embedding_bag_ref(
                 table, ix, bg, n_bags, wt, mode), 3, 1),
-            bound_ms=1e3 * (stream_b + row_b) / HBM_BYTES_PER_S,
+            bound_ms=least_ms(stream_b + row_b)[0],
             bound_by="bytes",
             # F.embedding_bag takes per-sample weights only for 'sum', and
             # no -1 ids: the weighted mean has no single library call
@@ -791,7 +812,7 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
         log(f"[ops] B5 {label}: {n_distinct} distinct rows of {v_rows}: "
             f"{row_b} B as rows, {sector_b} B in the 32-byte sectors they "
             f"span; byte bound {case['bound_ms']!r} ms, "
-            f"{1e3 * (stream_b + sector_b) / HBM_BYTES_PER_S!r} ms counting "
+            f"{least_ms(stream_b + sector_b)[0]!r} ms counting "
             f"the rows' sectors (information only, no limit uses it)")
         cases.append(case)
     entry_ms = cuda_ms(lambda: ops.embedding_bag(table, idx, bag, batch), 5)
@@ -839,8 +860,9 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
             faulty)
         del out, faulty
         # operations on the visible (query, key) pairs only, 4 D each
-        by_ops = 4 * D * B * Hq * int(visible.sum()) / BF16_FLOP_PER_S
-        by_bytes = 2 * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S
+        least, least_by = least_ms(
+            cost.attention_bytes(q.numel(), k.numel(), q.element_size()),
+            cost.attention_flops(B, Hq, Sq, Skv, D, True, window))
         # prefill: is_causal (Sq == Skv, so both alignments agree); decode:
         # Sq = 1 at the last position sees every key, so no mask; window: an
         # explicit band, in torch's convention (True where the key takes
@@ -859,8 +881,7 @@ def ops_phase(args, seg, n_vertices: int, err: dict) -> dict:
                                                    window=window), args.reps),
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=True, window=window), 3, 1),
-            bound_ms=1e3 * max(by_ops, by_bytes),
-            bound_by="operations" if by_ops >= by_bytes else "bytes",
+            bound_ms=least, bound_by=least_by,
             library_ms=cuda_ms(lib, args.reps))
         log(f"[time] flash_attention {label} ({took}): kernel "
             f"{case['ms']!r} ms, plain {case['plain_ms']!r} ms, bound "
@@ -1191,6 +1212,12 @@ def model_phase(args, smi: str) -> dict:
                f"profiler" if "host_ms" in d else "") + f" ({smi})")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[model] peak memory {out['peak_gib']!r} GiB ({smi})")
+    # one more prefill, its own peak kept for phase 11's dry run
+    from repro_torch.launch.dryrun import storage_bytes
+    out["prefill_peak"] = step_peak(
+        lambda: TF.prefill(cfg, model, prompts), storage_bytes(model))
+    log(f"[model] one prefill {Bm} x {P}: its own peak "
+        f"{out['prefill_peak']['step_peak']} B ({out['prefill_peak']})")
     del cache, model, run, steps, toks
     torch.cuda.empty_cache()
 
@@ -1382,7 +1409,7 @@ def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
                    args.reps),
         plain_ms=cuda_ms(lambda: ref.segment_or_ref(p_dst, w_e, n), 3, 1),
         # ids and words read once, out written once
-        bound_ms=1e3 * (m * (4 + 4 * W) + n * 4 * W) / HBM_BYTES_PER_S,
+        bound_ms=least_ms(m * (4 + 4 * W) + n * 4 * W)[0],
         bound_by="bytes", library_ms=None)
     log(f"[time] segment_or: kernel {row['ms']!r} ms, plain "
         f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms, library "
@@ -1781,7 +1808,7 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
                    args.reps),
         plain_ms=cuda_ms(lambda: ref.segment_mode_ref(dst, lab, sw, n), 1, 1),
         # destination, label and weight read once, (best_w, label) written
-        bound_ms=1e3 * (12 * dst.numel() + 8 * n) / HBM_BYTES_PER_S,
+        bound_ms=least_ms(12 * dst.numel() + 8 * n)[0],
         bound_by="bytes", library_ms=None)
     log(f"[time] segment_mode: kernel {mode_case['ms']!r} ms, plain "
         f"{mode_case['plain_ms']!r} ms, bound {mode_case['bound_ms']!r} ms, "
@@ -1885,7 +1912,7 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
                    args.reps),
         plain_ms=cuda_ms(lambda: ref.run_sum_ref(run_id, sv, n_runs), 1, 1),
         # ids and weights read once, the run sums written once
-        bound_ms=1e3 * (8 * m + 4 * n_runs) / HBM_BYTES_PER_S,
+        bound_ms=least_ms(8 * m + 4 * n_runs)[0],
         bound_by="bytes", library_ms=None)
     log(f"[time] run_sum: kernel {sum_case['ms']!r} ms, plain "
         f"{sum_case['plain_ms']!r} ms, bound {sum_case['bound_ms']!r} ms, "
@@ -2847,17 +2874,19 @@ def device_split(fn) -> dict:
 
 
 def b4_bound_ms(n_rows: int, d: int, n: int) -> float:
-    """B4's byte bound: data (or the gathered rows) and the ids read once,
-    out written once."""
-    return 1e3 * (4 * n_rows * d + 4 * n_rows + 4 * n * d) / HBM_BYTES_PER_S
+    """B4's byte bound (``kernels.cost.segment_sum_bytes``): data (or the
+    gathered rows) and the ids read once, out written once."""
+    from repro_torch.kernels import cost
+    return least_ms(cost.segment_sum_bytes(n_rows, d, n))[0]
 
 
 def b4_strict_bound_ms(t_rows: int, n_rows: int, d: int, n: int) -> float:
-    """B4's strict byte bound with the row gather fused in: the table read
-    once (only an L2 that held it whole would come near), the ids and the
-    offsets read once, out written once."""
-    return 1e3 * (4 * t_rows * d + 4 * n_rows + 8 * (n + 1) + 4 * n * d) / \
-        HBM_BYTES_PER_S
+    """B4's strict byte bound with the row gather fused in
+    (``kernels.cost.segment_sum_strict_bytes``): the table read once (only
+    an L2 that held it whole would come near), the ids and the offsets
+    read once, out written once."""
+    from repro_torch.kernels import cost
+    return least_ms(cost.segment_sum_strict_bytes(t_rows, n_rows, d, n))[0]
 
 
 def b4_block_n(n: int) -> int:
@@ -2916,6 +2945,23 @@ def b4_repro(label, out, offsets, table, rows, want, again):
     if not (same and mirror and caught):
         fail(f"{label}: B4 is not reproducible, not in its order, or the "
              f"check passes a fault")
+
+
+def step_peak(fn, arg_bytes: int) -> dict:
+    """fn()'s peak allocated bytes on the card as one step's own: the
+    peak less the bytes held before it, plus those of its arguments
+    (``arg_bytes``, held before it too), so memory held for other work is
+    left out; phase 11 holds the dry run's peak to it."""
+    import torch
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del res
+    return {"peak": peak, "held": held, "args": arg_bytes,
+            "step_peak": peak - held + arg_bytes}
 
 
 def gin_graph():
@@ -3122,6 +3168,7 @@ def train_phase(args, smi: str) -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import segment_sum as SS
+    from repro_torch.launch.mesh import HW
     from repro_torch.models import transformer as TF
     from repro_torch.optim import adamw
 
@@ -3340,8 +3387,7 @@ def train_phase(args, smi: str) -> dict:
     p = gin["profile"]
     # an (E, d) message, however many launches write it, takes at least
     # its bytes over the memory rate: the step's gathers must take less
-    gin["message_write_ms"] = 1e3 * 4 * e_pad * cfg.d_hidden / \
-        HBM_BYTES_PER_S
+    gin["message_write_ms"] = least_ms(4 * e_pad * cfg.d_hidden)[0]
     log(f"[train] gin-tu step {GIN_STEPS} profiled: device {p['device_ms']!r}"
         f" ms, B4 {p['b4_ms']!r} ms over {p['b4_kernels']} kernels, matrix "
         f"products {p['matmul_ms']!r} ms, gathers {p['gather_ms']!r} ms over "
@@ -3366,6 +3412,12 @@ def train_phase(args, smi: str) -> dict:
         f"no (E, d) message is gathered")
     if p["gather_ms"] is None or p["gather_ms"] >= gin["message_write_ms"]:
         fail("gin-tu: the step still gathers (E, d) messages")
+    # one more warm step, its own peak kept for phase 11's dry run
+    from repro_torch.launch.dryrun import storage_bytes
+    gin["step_peak"] = step_peak(lambda: step(state, batch),
+                                 storage_bytes((state, batch)))
+    log(f"[train] gin-tu one more warm step: its own peak "
+        f"{gin['step_peak']['step_peak']} B ({gin['step_peak']})")
     out["gin"] = gin
     del state, step, batch
     torch.cuda.empty_cache()
@@ -3480,12 +3532,12 @@ def train_phase(args, smi: str) -> dict:
     warm = min(lm["walls"][1:])
     lm["tokens_per_s"] = tok / warm
     lm["tflops_achieved"] = lm["flops_step"] / warm / 1e12
-    lm["bound_s"] = lm["flops_step_remat"] / BF16_FLOP_PER_S
+    lm["bound_s"] = least_ms(0, lm["flops_step_remat"])[0] / 1e3
     log(f"[train] {LM_TRAIN_ARCH} bf16: {lm['tokens_per_s']!r} tokens/s "
         f"warm; 6ND {lm['flops_step']:.3e} FLOP a step "
         f"({lm['tflops_achieved']!r} TFLOP/s), 8ND with the recompute "
         f"{lm['flops_step_remat']:.3e} (bound {lm['bound_s']!r} s at "
-        f"{BF16_FLOP_PER_S:.3g})")
+        f"{HW['peak_bf16_flops']:.3g})")
     # f32 weights, bf16 moments (the same 51 GB of state): the falling loss
     lm["f32"] = lm_run("f32 weights", torch.float32, torch.bfloat16,
                        LM_FALL_LR)
@@ -4052,6 +4104,10 @@ def mesh_phase(smi: str) -> dict:
     for k in ("x", "src", "dst", "labels"):
         np.save(os.path.join(MESH_DIR, f"gin_{k}.npy"), b[k])
     E = b["src"].shape[0]
+    # the batch's shapes and dtypes, for phase 11's dry run of the step
+    gin_spec = dict(classes=spec["classes"], batch={
+        k: (b[k].shape, b[k].dtype.name) for k in ("x", "src", "dst",
+                                                   "labels")})
     del g, b
 
     # -- the local steps on this process (one rank, no mesh) ----------------
@@ -4180,7 +4236,7 @@ def mesh_phase(smi: str) -> dict:
     return {"phase_s": phase_s, "prep_s": prep_s, "ranks_s": ranks_s,
             "resume1_s": one_s,
             "b4_launches": b4_launches, "ranks": ranks, "resume2": two,
-            "resume1_loss": one}
+            "resume1_loss": one, "gin_spec": gin_spec}
 
 
 # -- the LM-over-a-mesh phase ------------------------------------------------
@@ -4473,7 +4529,9 @@ def lmmesh_phase(smi: str, lm_losses: dict) -> dict:
     LMMESH_SERVE_GRID grid, held to phase 7.  ``lm_losses``: phase 8's
     step-1 losses in bf16 and with f32 weights.  Returns the phase's
     numbers; fails on any check or past LMMESH_BUDGET_S."""
+    import dataclasses
     import shutil
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config, input_specs
@@ -4603,6 +4661,208 @@ def lmmesh_phase(smi: str, lm_losses: dict) -> dict:
                       for r in ranks]}
 
 
+DRY_PEAK_TOL = 0.15                # dry peak vs the card's, relative
+DRY_BUDGET_S = 90.0
+EXAMPLES = os.path.join(ROOT, "examples")
+EXAMPLE_TRACE = os.path.join(ROOT, "build", "graph_analytics_trace.json")
+EXAMPLE_CKPT = os.path.join(ROOT, "build", "train_lm_example")
+QUICKSTART_PR_TOL = 1e-4
+
+
+def _example(name: str):
+    """examples/<name>.py as a module (its ``main(argv) -> dict``)."""
+    import importlib
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    return importlib.import_module(name)
+
+
+def _meta_batch(specs: dict) -> dict:
+    """Meta tensors of {name: (shape, numpy dtype name)}."""
+    import numpy as np
+    import torch
+    return {k: torch.empty(tuple(shape), device="meta", dtype=torch.from_numpy(
+        np.empty(0, dtype)).dtype) for k, (shape, dtype) in specs.items()}
+
+
+def dryrun_phase(smi: str, model: dict, train: dict, meshed: dict,
+                 lmmesh: dict) -> dict:
+    """Phase 11: the dry run (``repro_torch.launch.dryrun``) held to what
+    the card measured in this run, and the four examples run on the card.
+    Rank 0's collective calls and bytes per kind of qwen3-14b's prefill and
+    one decode step over a dry (1, 4) mesh must equal phase 10's, and of
+    gin-tu's meshed step over a dry (4, 1) mesh phase 9's; the dry peak of
+    qwen3-14b's prefill and of gin-tu's ogb_products warm step on one card
+    must be within DRY_PEAK_TOL of phases 7's and 8's; no trace may launch
+    a kernel.  Then quickstart on the card against ``--device cpu``,
+    graph_analytics with 4 ranks, train_lm's demo and serve_lm, each with
+    its kernels' launches counted.  Fails past DRY_BUDGET_S."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.configs.common import SpecBundle
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import segment_sum as SS
+    from repro_torch.kernels import spmv_dma as K
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models import transformer as TF
+
+    t_phase = time.perf_counter()
+    out, checks = {"nvidia_smi": smi}, []
+
+    def check(name, ok, detail=""):
+        checks.append((name, bool(ok), detail))
+        log(f"[check] dryrun {name}: {'ok' if ok else 'FAILED'}; {detail}")
+
+    def kernel_counts():
+        return {**SS.LAUNCHES, **FA.LAUNCHES, **K.LAUNCHES}
+
+    # -- collective bytes: rank 0 of this run's meshes, traced on meta -----
+    before = kernel_counts()
+    ac = get_config(MODEL_ARCH)
+    cfg = ac.model
+    Bm, P, G = MODEL_BATCH, MODEL_PROMPT, MODEL_GEN
+    srules = make_rules(make_dry_mesh(LMMESH_SERVE_GRID, ("data", "model")))
+    tokens = torch.empty((Bm, P), dtype=torch.int32, device="meta")
+    pre = D.dry_step(ac, SpecBundle("prefill", cfg, {"tokens": tokens}, {}),
+                     srules)
+    dec = D.dry_step(ac, SpecBundle(
+        "decode", cfg, {"tokens": tokens[:, :1]}, {},
+        cache=TF.init_cache(cfg, Bm, P + G, device="meta")), srules,
+        position=P + MODEL_PLAIN_STEPS - 1)
+    rank0 = lmmesh["ranks"][0]
+    for label, got, calls, nbytes in (
+            ("qwen3-14b prefill", pre, rank0["prefill_calls"],
+             rank0["prefill_bytes"]),
+            ("qwen3-14b decode step", dec, rank0["step_calls"],
+             rank0["step_bytes"])):
+        dry = {k: (c["count"], c["bytes"])
+               for k, c in got["collectives"].items()}
+        card = {k: (calls[k], nbytes[k]) for k in calls}
+        out[label] = dict(dry=dry, card=card, trace_s=got["trace_s"])
+        check(f"{label} over a dry {LMMESH_SERVE_GRID} mesh: rank 0's "
+              f"calls and bytes per kind vs phase 10's", dry == card,
+              f"dry {dry}, card {card}")
+    gac = get_config("gin-tu")
+    gbatch = _meta_batch(meshed["gin_spec"]["batch"])
+    gcfg = dataclasses.replace(gac.model, d_feat=gbatch["x"].shape[1],
+                               n_classes=meshed["gin_spec"]["classes"])
+    gmesh = make_dry_mesh((MESH_RANKS, 1), ("data", "model"))
+    gin = D.dry_step(gac, SpecBundle("train", gcfg, gbatch, {}),
+                     make_rules(gmesh))
+    rec = meshed["ranks"][0]["steps"][-1]
+    dry = {k: (c["count"], c["bytes"]) for k, c in gin["collectives"].items()}
+    card = {k: (rec["calls"][k], rec["bytes"][k]) for k in rec["calls"]}
+    out["gin-tu meshed step"] = dict(dry=dry, card=card,
+                                     trace_s=gin["trace_s"])
+    check(f"gin-tu's step over a dry ({MESH_RANKS}, 1) mesh: rank 0's calls "
+          f"and bytes per kind vs phase 9's", dry == card,
+          f"dry {dry}, card {card}")
+
+    # -- peaks: one card, the same shapes as phases 7 and 8 -----------------
+    one = make_rules(None)
+    p_dry = D.dry_step(ac, SpecBundle("prefill", cfg, {"tokens": tokens},
+                                      {}), one)
+    gbundle = input_specs(gac, GIN_SHAPE)
+    g_dry = D.dry_step(gac, gbundle, one)
+    for label, got, card in (
+            (f"qwen3-14b prefill {Bm} x {P}", p_dry,
+             model["prefill_peak"]),
+            (f"gin-tu {GIN_SHAPE} warm step", g_dry,
+             train["gin"]["step_peak"])):
+        rel = abs(got["peak_bytes"] - card["step_peak"]) / card["step_peak"]
+        out[f"peak {label}"] = dict(dry=got["peak_bytes"],
+                                    dry_args=got["argument_bytes"],
+                                    card=card, rel=rel,
+                                    trace_s=got["trace_s"])
+        check(f"{label}: the dry peak vs the card's own", rel <= DRY_PEAK_TOL,
+              f"dry {got['peak_bytes']} B (arguments "
+              f"{got['argument_bytes']} B) vs card {card['step_peak']} B "
+              f"(arguments {card['args']} B): {rel!r} (limit "
+              f"{DRY_PEAK_TOL})")
+    after = kernel_counts()
+    check("the dry traces launched no kernel", after == before,
+          f"{before} -> {after}")
+    out["dry_s"] = time.perf_counter() - t_phase
+    log(f"[dryrun] dry traces in {out['dry_s']!r} s")
+
+    # -- the examples on the card -----------------------------------------
+    def run(name, argv):
+        for mod in (SS, FA, K):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = _example(name).main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        log(f"[dryrun] example {name} {' '.join(argv)}: {wall!r} s; "
+            f"launches {counts}")
+        out[f"example {name}"] = dict(wall_s=wall, launches=counts)
+        return res, counts
+
+    qs, qc = run("quickstart_torch", [])
+    qs_cpu, _ = run("quickstart_torch", ["--device", "cpu"])
+    pr_diff = float(np.abs(qs["pagerank"] - qs_cpu["pagerank"]).max())
+    check("quickstart: card vs --device cpu",
+          np.array_equal(qs["levels"], qs_cpu["levels"])
+          and pr_diff <= QUICKSTART_PR_TOL
+          and qs["table1"] == qs_cpu["table1"]
+          and qc.get("spmv_bbcsr", 0) > 0,
+          f"BFS levels equal {np.array_equal(qs['levels'], qs_cpu['levels'])}"
+          f", PageRank max |diff| {pr_diff!r} (limit {QUICKSTART_PR_TOL}), "
+          f"Table I {qs['table1']} vs {qs_cpu['table1']}, B1 launches "
+          f"{qc.get('spmv_bbcsr', 0)}")
+    ga, gc = run("graph_analytics_torch",
+                 ["--scale", "12", "--ranks", str(MESH_RANKS), "--stream",
+                  "2", "--trace", EXAMPLE_TRACE])
+    dist = ga.get("distributed") or {}
+    check("graph_analytics: B1, B2, B3 launched; the served streams and "
+          "the distributed demo answered",
+          all(gc.get(k, 0) > 0 for k in ("spmv_bbcsr", "spmspv_bbcsr_add",
+                                           "spmspv_bbcsr_select"))
+          and abs(ga["pagerank_mass"] - 1.0) <= 1e-3
+          and ga["bfs_reached"] == ga["sssp_reached"]
+          and dist.get("queries") == 64 and os.path.exists(EXAMPLE_TRACE),
+          f"launches {gc}, pagerank mass {ga['pagerank_mass']!r}, bfs / "
+          f"sssp reached {ga['bfs_reached']} / {ga['sssp_reached']}, "
+          f"distributed {dist}")
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    tl, tc = run("train_lm_torch", ["--demo", "--steps", "20", "--ckpt-dir",
+                                    EXAMPLE_CKPT])
+    losses = [r["loss"] for r in tl["losses"]]
+    check("train_lm --demo --steps 20: the loss falls, a checkpoint at step "
+          "20, no B6 in a train step",
+          tl["steps_run"] == 20 and losses[-1] < losses[0]
+          and tl["checkpoint_step"] == 20
+          and not tc.get("flash_attention"),
+          f"losses {losses}, checkpoint {tl['checkpoint_step']}, launches "
+          f"{tc}")
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    sl, sc = run("serve_lm_torch", [])
+    check("serve_lm: B6 launched", sc.get("flash_attention", 0) > 0
+          and sl["tokens"].shape == (4, 24), f"launches {sc}")
+    out["examples"] = dict(quickstart=dict(pagerank_diff=pr_diff),
+                           graph_analytics={k: v for k, v in ga.items()
+                                            if k != "stream"},
+                           train_lm=dict(losses=losses, seconds=tl["seconds"]),
+                           serve_lm={k: v for k, v in sl.items()
+                                     if k != "tokens"})
+    phase_s = time.perf_counter() - t_phase
+    out["phase_s"] = phase_s
+    check(f"the phase within its {DRY_BUDGET_S} s budget",
+          phase_s <= DRY_BUDGET_S, f"{phase_s!r} s ({smi})")
+    failed = [c[0] for c in checks if not c[1]]
+    if failed:
+        fail(f"the dry-run phase failed: {failed}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -4636,6 +4896,8 @@ def main() -> int:
     log(f"[device] {name} sm_{cap[0]}{cap[1]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"[device] nvidia-smi: {smi}")
+    log(f"[device] total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B")
 
     # -- 2. build: one nvcc per source, all started together -----------------
     t0 = time.perf_counter()
@@ -5047,6 +5309,10 @@ def main() -> int:
         max_abs_err_row=max(r["b6_checked"]["row_err"]
                             for r in lmmesh["ranks"])))
 
+    # -- 11. the dry run against this run's card numbers; the examples ----
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(smi, model, train, meshed, lmmesh)
+
     kernels = [dict(name=k, route="cuda", source=SOURCE[k],
                     replaces=REPLACES[k], launches=launches[k],
                     max_abs_err=err[k], ms=timed[k]["ms"],
@@ -5065,6 +5331,7 @@ def main() -> int:
                    "service": service, "structured": structured,
                    "dist": dist, "dist2": dist2, "model": model,
                    "train": train, "mesh": meshed, "lmmesh": lmmesh,
+                   "dryrun": dry,
                    "sparse_min_ms": sparse_min_ms, "heaviest_block": heavy,
                    "tune": tuned,
                    "total_s": time.perf_counter() - t_all}, fh, indent=1)

@@ -20,7 +20,8 @@ import tempfile
 import torch
 
 __all__ = ["NVCC_FLAGS", "SOURCES", "source_path", "library_path",
-           "compile_source", "compile_all", "load", "on_cpu", "launch"]
+           "compile_source", "compile_all", "load", "on_cpu", "on_meta",
+           "launch"]
 
 # every CUDA source of the port, by name (csrc/<name>.cu)
 SOURCES = ("bbcsr", "segment_sum", "segment_or", "segment_mode",
@@ -110,6 +111,14 @@ def on_cpu(tensors, what: str) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")
     return dev.type == "cpu"
+
+
+def on_meta(tensors) -> bool:
+    """True when every tensor lies on the meta device: a dry run, whose
+    caller then calls its kernel's torch operator (the operator's meta
+    kernel gives the output's shape and launches nothing).  Only B4 and B6
+    have one; any other mix or device is left to :func:`on_cpu`."""
+    return all(t.is_meta for t in tensors if t is not None)
 
 
 def launch(fn, device: torch.device, *args, what: str) -> None:

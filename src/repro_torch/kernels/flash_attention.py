@@ -28,6 +28,10 @@ count, into how many contiguous pieces each row tile's keys are cut; with
 more than one, each piece writes its (m, l, acc) to f32 scratch and a second
 kernel merges the pieces in split order (bit-reproducible).
 
+The launch is also the CUDA kernel of the torch operator
+``repro_torch::flash_attention`` (:data:`flash_attention_op`), which the
+entry calls only on meta tensors: its meta kernel lets a dry run trace a
+call, while a CUDA call launches directly, without the dispatcher's cost.
 Each entry call on the card adds one to ``LAUNCHES["flash_attention"]``; a
 call on the wgmma path also adds one to ``LAUNCHES["flash_attention_wgmma"]``
 and a call whose keys were split (splits > 1) one to
@@ -40,14 +44,16 @@ import functools
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
+from . import cost
 from . import ref
 
 __all__ = ["flash_attention_kernel_call", "LAUNCHES", "reset_launches",
            "HEAD_DIMS", "BLOCK_Q", "BLOCK_K", "WGMMA_TILE", "WGMMA_MIN_SQ",
            "MIN_SPLIT_BLOCKS", "path", "key_blocks", "split_range",
-           "split_plan", "tile_order", "kv_rows"]
+           "split_plan", "tile_order", "kv_rows", "flash_attention_op"]
 
 # kernel launches since the last reset_launches(): every entry call, and
 # those that took the wgmma kernel or split their keys
@@ -194,7 +200,8 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     _check_rows_see_keys(Sq, Skv, causal, window)
-    if _build.on_cpu((q, k, v), "flash_attention"):
+    meta = _build.on_meta((q, k, v))
+    if not meta and _build.on_cpu((q, k, v), "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     if not (q.dtype == k.dtype == v.dtype) or \
@@ -211,6 +218,24 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
             B * Hq * -(-Sq // WGMMA_TILE) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} / {tuple(k.shape)} "
                          f"exceeds the kernel's grid")
+    scale = scale if scale is not None else D ** -0.5
+    if meta:
+        return flash_attention_op(q, k, v, bool(causal),
+                                  None if window is None else int(window),
+                                  float(scale), int(block_q), int(block_k))
+    return _flash_attention_launch(q, k, v, causal, window, scale, block_q,
+                                   block_k)
+
+
+def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool,
+                            window: Optional[int], scale: float, block_q: int,
+                            block_k: int) -> torch.Tensor:
+    """The launch on the card (also the operator's CUDA kernel), on inputs
+    :func:`flash_attention_kernel_call` has checked."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
     # cp.async and TMA move 16-byte chunks: contiguous and aligned, but for
     # the folded kernels' k and v rows, which may lie in a larger cache
     which = path(q.dtype, D, Sq)
@@ -222,7 +247,6 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
     q = q.contiguous()
     q = q.clone() if q.data_ptr() % 16 else q
     out = torch.empty_like(q)
-    scale = scale if scale is not None else D ** -0.5
     # a window of Skv or more hides nothing (positions are below Skv)
     window = None if window is None else min(int(window), Skv)
     lib = _lib()
@@ -254,3 +278,25 @@ def flash_attention_kernel_call(q: torch.Tensor, k: torch.Tensor,
             LAUNCHES["flash_attention_split"] += 1
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+# B6 as a torch operator: its CUDA kernel is the launch above, its meta
+# kernel gives the output's shape, and torch.utils.flop_counter counts it
+# by ``cost`` on the visible pairs alone (a dry run traces it on meta
+# tensors, ``launch.dryrun``)
+flash_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _flash_attention_launch,
+    mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int? window, "
+           "float scale, int block_q, int block_k) -> Tensor")
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale, block_q, block_k):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, *args, **kwargs):
+    B, Hq, Sq, D = q_shape
+    return cost.attention_flops(B, Hq, Sq, k_shape[2], D, causal, window)

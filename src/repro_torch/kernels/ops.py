@@ -1,8 +1,10 @@
 """Public wrappers for the port's kernels (counterpart of
 ``repro.kernels.ops``).  CPU tensors take the plain torch version, CUDA
 tensors the hand-written kernel; see :mod:`.spmv_dma`, :mod:`.segment_sum`,
-:mod:`.embedding_bag` and :mod:`.flash_attention`.  Tile sizes left as None
-resolve through :mod:`repro_torch.tune`."""
+:mod:`.embedding_bag` and :mod:`.flash_attention`.  B4 and B6 also take
+meta tensors (a dry run, ``launch.dryrun``): their torch operators' meta
+kernels give the output's shape.  Tile sizes left as None resolve through
+:mod:`repro_torch.tune` (meta tensors as the card's)."""
 from __future__ import annotations
 
 from typing import Optional

@@ -33,6 +33,12 @@ add those the card has passed, :meth:`Mesh.settle` waits for the rest.
 The Mesh also counts the routed requests that overflowed a peer's
 capacity and were dropped (``core.offload``'s routes add them, on the
 device, with no read back).
+
+A *dry* mesh (:func:`make_dry_mesh`, :func:`make_production_mesh`) is one
+rank's view of a grid with no process group and no peers: its device is
+``meta`` and each collective is counted as above and not run, so a step
+traced on meta tensors gives that rank's collective inventory
+(``launch.dryrun``).  :data:`HW` holds the card the dry run prices it on.
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "backend_for", "rank_device", "make_cores_mesh",
-           "make_mesh", "spawn", "KINDS"]
+           "make_mesh", "make_dry_mesh", "make_production_mesh", "spawn",
+           "KINDS", "HW"]
 
 # the collective kinds a Mesh counts
 KINDS = ("all_to_all", "all_reduce", "all_gather")
@@ -150,6 +157,8 @@ class Mesh:
         """Hand ``x`` to the backend through ``fn(*args)``, counted."""
         self.calls[kind] += 1
         self.bytes[kind] += x.numel() * x.element_size()
+        if self.backend == "dry":       # counted, never run
+            return
         ev = None
         if x.is_cuda:
             ev = (torch.cuda.Event(enable_timing=True),
@@ -312,32 +321,18 @@ def make_cores_mesh(device=None, name: str = "cores") -> Mesh:
     return Mesh(None, rank, size, dev, dist.get_backend(), name)
 
 
-def make_mesh(shape, axis_names, device=None, ranks=None):
-    """A mesh over the initialized default process group laid out as the
-    rank grid ``shape`` (row-major: rank = the flattened coordinate) with
-    one name per axis.  Builds one process group per axis line and per
-    tuple of axes in grid order (``torch.distributed.new_group``; every
-    rank builds every group, as the call requires), so :meth:`Mesh.over`
-    gives each axis, or each flattened tuple of axes, its own collectives.
-    The sub-meshes share the mesh's counters.  ``ranks``: the world ranks
-    the grid spans, in its order (default: all of them); every rank of
-    the world must call, and one outside them gets None."""
+def _lay_out(mesh: Mesh, shape: tuple, names: tuple, members: list,
+             group: Callable) -> None:
+    """Lay ``mesh`` out as the rank grid ``shape`` over the world ranks
+    ``members`` (row-major: ``mesh.rank`` is this rank's flattened grid
+    coordinate, -1 outside the grid) with one name per axis, and give it
+    one sub-mesh per axis line and per tuple of axes in grid order.
+    ``group(line)`` makes the process group of the world ranks ``line``;
+    it is called for every line in the same order on every rank, as
+    ``torch.distributed.new_group`` requires.  The sub-meshes share the
+    mesh's counters."""
     import itertools
-    world = make_cores_mesh(device)
-    members = list(range(world.size)) if ranks is None else \
-        [int(r) for r in ranks]
-    shape = tuple(int(s) for s in shape)
-    names = tuple(axis_names)
-    if len(shape) != len(names) or int(np.prod(shape)) != len(members):
-        raise ValueError(f"grid {shape} over axes {names} does not hold "
-                         f"{len(members)} ranks")
-    inside = world.rank in members
-    mesh = world
-    if ranks is not None:
-        grp = dist.new_group(members)
-        mesh = dataclasses.replace(
-            world, group=grp, size=len(members),
-            rank=members.index(world.rank) if inside else -1)
+    inside = mesh.rank >= 0
     mesh.shape, mesh.axis_names = shape, names
     mesh.axis_name = names if len(names) > 1 else names[0]
     coords = np.array(np.unravel_index(np.arange(len(members)), shape)).T
@@ -358,17 +353,93 @@ def make_mesh(shape, axis_names, device=None, ranks=None):
                 line = [members[r] for r in range(len(members))
                         if all(coords[r][a] == f
                                for a, f in zip(rest, fixed))]
-                grp = dist.new_group(line)
+                grp = group(line)
                 if inside and all(me[a] == f for a, f in zip(rest, fixed)):
                     mine = (grp, line)
             if inside:
                 grp, line = mine
                 mesh.subs[key] = dataclasses.replace(
-                    mesh, group=grp, rank=line.index(world.rank),
+                    mesh, group=grp, rank=line.index(members[mesh.rank]),
                     size=len(line), axis_name=key, subs={},
                     shape=(len(line),),
                     axis_names=(key if k == 1 else "+".join(key),))
+
+
+def _grid(shape, axis_names, n_ranks: int) -> tuple:
+    shape = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if len(shape) != len(names) or int(np.prod(shape)) != n_ranks:
+        raise ValueError(f"grid {shape} over axes {names} does not hold "
+                         f"{n_ranks} ranks")
+    return shape, names
+
+
+def make_mesh(shape, axis_names, device=None, ranks=None):
+    """A mesh over the initialized default process group laid out as the
+    rank grid ``shape`` (row-major: rank = the flattened coordinate) with
+    one name per axis.  Builds one process group per axis line and per
+    tuple of axes in grid order (``torch.distributed.new_group``; every
+    rank builds every group, as the call requires), so :meth:`Mesh.over`
+    gives each axis, or each flattened tuple of axes, its own collectives.
+    The sub-meshes share the mesh's counters.  ``ranks``: the world ranks
+    the grid spans, in its order (default: all of them); every rank of
+    the world must call, and one outside them gets None."""
+    world = make_cores_mesh(device)
+    members = list(range(world.size)) if ranks is None else \
+        [int(r) for r in ranks]
+    shape, names = _grid(shape, axis_names, len(members))
+    inside = world.rank in members
+    mesh = world
+    if ranks is not None:
+        grp = dist.new_group(members)
+        mesh = dataclasses.replace(
+            world, group=grp, size=len(members),
+            rank=members.index(world.rank) if inside else -1)
+    _lay_out(mesh, shape, names, members, dist.new_group)
     return mesh if inside else None
+
+
+def make_dry_mesh(shape, axis_names, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of the rank grid ``shape``, for a dry run on
+    the meta device: its sub-meshes are laid out as :func:`make_mesh`
+    lays them, but no process group exists (none is initialised) and a
+    collective is counted (calls and bytes per kind) without being run;
+    its result is a meta tensor of the right shape."""
+    shape, names = _grid(shape, axis_names, int(np.prod(shape)))
+    size = int(np.prod(shape))
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} is outside a grid of {size} ranks")
+    mesh = Mesh(None, int(rank), size, torch.device("meta"), "dry")
+    _lay_out(mesh, shape, names, list(range(size)), lambda line: None)
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s dry view of a production grid: (16, 16) over
+    ('data', 'model'), 256 cards, or (2, 16, 16) over ('pod', 'data',
+    'model'), 512 (the reference's ``make_production_mesh``)."""
+    if multi_pod:
+        return make_dry_mesh((2, 16, 16), ("pod", "data", "model"), rank)
+    return make_dry_mesh((16, 16), ("data", "model"), rank)
+
+
+# One NVIDIA H100 80GB HBM3 (SXM5) at its 700 W limit, for the dry run's
+# roofline (``launch.dryrun.roofline_terms``) and its fit test
+HW = {
+    # dense bf16 tensor-core FLOP/s: NVIDIA H100 data sheet, SXM column
+    # (1,979 TFLOP/s with 2:4 sparsity, half of it dense)
+    "peak_bf16_flops": 989e12,
+    # HBM3 bytes/s: the same data sheet, SXM column (3.35 TB/s)
+    "hbm_bw": 3.35e12,
+    # bytes/s a card sends to another node: one 400 Gb/s NDR InfiniBand
+    # port per GPU, as a DGX H100 wires its eight GPUs; every 16-rank axis
+    # of the production grids crosses nodes of 8
+    "link_bw": 50e9,
+    # device memory: torch.cuda.get_device_properties(0).total_memory of
+    # the card, as chip_smoke.py's phase 1 prints it (79.18 GiB)
+    "hbm_per_chip": 85_017_493_504,
+
+}
 
 
 # the signal on which a rank writes every thread's stack to its stacks

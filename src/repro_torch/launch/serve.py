@@ -119,7 +119,9 @@ def _peak(device: torch.device) -> str:
             f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
 
 
-def main(argv: Optional[list] = None) -> None:
+def main(argv: Optional[list] = None) -> dict:
+    """The CLI; returns the numbers it prints (rank 0's over a mesh, None
+    on the other ranks)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -145,11 +147,10 @@ def main(argv: Optional[list] = None) -> None:
         try:
             grid = ((1, world) if args.grid is None else
                     tuple(int(n) for n in args.grid.split(",")))
-            _serve_meshed(args, cfg, make_mesh(grid, ("data", "model"),
-                                               device=dev))
+            return _serve_meshed(args, cfg, make_mesh(grid, ("data", "model"),
+                                                      device=dev))
         finally:
             dist.destroy_process_group()
-        return
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -158,9 +159,11 @@ def main(argv: Optional[list] = None) -> None:
         b = next(synthetic.recsys_batches(args.batch, cfg.n_fields,
                                           cfg.rows_per_field, seed=args.seed))
         r = score_fm(cfg, params, b["ids"])
+        mean = float(r["scores"].mean())
         print(f"scored {args.batch} requests in {r['seconds']:.3f}s; "
-              f"mean score {float(r['scores'].mean()):.4f}; {_peak(dev)}")
-        return
+              f"mean score {mean:.4f}; {_peak(dev)}")
+        return {"seconds": r["seconds"], "mean_score": mean,
+                "peak": _peak(dev)}
 
     model = TF.init_params(cfg, args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
@@ -171,9 +174,16 @@ def main(argv: Optional[list] = None) -> None:
           f"decoded {args.gen} tokens in {r['decode_s']:.3f}s "
           f"({r['tok_per_s']:.1f} tok/s); {_peak(dev)}")
     print("sample generation ids:", r["tokens"][0][:12].tolist())
+    return _numbers(r, dev)
 
 
-def _serve_meshed(args, cfg, mesh) -> None:
+def _numbers(r: dict, dev: torch.device) -> dict:
+    return {"prefill_s": r["prefill_s"], "decode_s": r["decode_s"],
+            "tok_per_s": r["tok_per_s"], "tokens": r["tokens"],
+            "peak": _peak(dev)}
+
+
+def _serve_meshed(args, cfg, mesh) -> Optional[dict]:
     """The LM served over ``mesh``: this rank's blocks drawn from the seed,
     every rank stepping, rank 0 printing."""
     rules = make_rules(mesh)
@@ -194,6 +204,8 @@ def _serve_meshed(args, cfg, mesh) -> None:
               f"{r['decode_s']:.3f}s ({r['tok_per_s']:.1f} tok/s); "
               f"{mesh.collectives} collectives; rank 0's {_peak(dev)}")
         print("sample generation ids:", r["tokens"][0][:12].tolist())
+        return {**_numbers(r, dev), "collectives": mesh.collectives}
+    return None
 
 
 if __name__ == "__main__":

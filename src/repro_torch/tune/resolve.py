@@ -60,11 +60,13 @@ def scale_of(n: int) -> int:
 
 def backend_of(device=None) -> str:
     """The backend key of ``device`` (a ``torch.device`` or its string):
-    its type; "cuda" when None."""
+    its type; "cuda" when None or ``meta`` (a dry run traces the card's
+    calls)."""
     if device is None:
         return "cuda"
     kind = getattr(device, "type", None)
-    return kind if kind is not None else str(device).split(":")[0]
+    kind = kind if kind is not None else str(device).split(":")[0]
+    return "cuda" if kind == "meta" else kind
 
 
 def load_tuned(path: Optional[str] = None):

@@ -159,20 +159,20 @@ def run_cases(mesh, sds: dict, work: str) -> dict:
     for arch in ARCHS:
         mesh.reset_counts()
         out[arch] = loss_grads(smoke(arch), sds[arch], tokens(arch), rules)
-        out[f"{arch}/collectives"] = dict(mesh.calls)
+        out[f"{arch}/collectives"] = mesh.counts()
     sp = make_rules(mesh, seq_parallel=True)
     for arch in SP_ARCHS:
         mesh.reset_counts()
         out[f"sp/{arch}"] = loss_grads(smoke(arch), sds[arch], tokens(arch),
                                        sp)
-        out[f"sp/{arch}/collectives"] = dict(mesh.calls)
+        out[f"sp/{arch}/collectives"] = mesh.counts()
     out["ep"] = loss_grads(smoke(EP_ARCH), sds[EP_ARCH], tokens(EP_ARCH),
                            rules, EP_TP)
     # expert parallel on sequence-split tokens: the all-to-all exchange
     mesh.reset_counts()
     out["sp/ep"] = loss_grads(smoke(EP_ARCH), sds[EP_ARCH], tokens(EP_ARCH),
                               sp, EP_TP)
-    out["sp/ep/collectives"] = dict(mesh.calls)
+    out["sp/ep/collectives"] = mesh.counts()
     # ... at a batch the data axis does not divide (one dispatch group; the
     # aux loss's sums over the model ranks only)
     out["sp/ep/odd"] = loss_grads(smoke(EP_ARCH), sds[EP_ARCH],
@@ -187,8 +187,10 @@ def run_cases(mesh, sds: dict, work: str) -> dict:
 
     # one AdamW step, its checkpoint, and the state's reshard round trip
     cfg = smoke(STEP_ARCH)
+    mesh.reset_counts()
     state, metrics = train_step(cfg, sds[STEP_ARCH], tokens(STEP_ARCH),
                                 rules)
+    out["step/collectives"] = mesh.counts()
     model = state.params
     out["step/loss"] = float(metrics["loss"])
     out["step/params"] = whole(model, {k: p.detach() for k, p in
@@ -236,7 +238,7 @@ def run_cases(mesh, sds: dict, work: str) -> dict:
         mesh.reset_counts()
         out[f"serve/{arch}"] = serve(smoke(arch), sds[arch], tokens(arch),
                                      decode_tokens(arch), rules)
-        out[f"serve/{arch}/collectives"] = dict(mesh.calls)
+        out[f"serve/{arch}/collectives"] = mesh.counts()
 
     # the train CLI under this 4-rank world, as a (2, 2) grid
     from repro_torch.launch import train

@@ -24,6 +24,8 @@ its own (``tests/_ref_lm_mesh_runs.py``), all running beside the pool.
   the port's one-device run); and on the serving grid (1, 4), where the
   kv heads do not split over the ranks.
 * ``launch.train --grid 2,2`` for an LM under the pool.
+* The AdamW step traced on meta tensors as rank 0 of a dry (2, 2) mesh
+  (``launch.dryrun``): the pool's rank-0 collectives, calls and bytes.
 """
 import dataclasses
 import os
@@ -43,6 +45,7 @@ from repro.optim import adamw as RA
 from repro_torch.configs import common as TCOM
 from repro_torch.configs import get_config
 from repro_torch.distributed.sharding import make_rules
+from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as TM
 from repro_torch.models import transformer as T
 
@@ -197,6 +200,13 @@ def runs(tmp_path_factory):
                     ref[f"serve/{a}"] = C.serve(
                         C.smoke(a), sds[a], C.tokens(a), C.decode_tokens(a),
                         make_rules(None))
+            # the AdamW step traced on meta as rank 0 of a dry grid
+            ref["dry/step"] = D.dry_step(
+                get_config(C.STEP_ARCH), TCOM.SpecBundle(
+                    "train", C.smoke(C.STEP_ARCH), {"tokens": torch.empty(
+                        (C.BATCH, C.LEN), dtype=torch.int32,
+                        device="meta")}, {}),
+                make_rules(TM.make_dry_mesh(*C.GRID)))["collectives"]
             # the AdamW step as soon as its gradients are in
             ref[C.STEP_ARCH] = losses[C.STEP_ARCH].result()
             opt = RA.AdamWConfig(lr=C.OPT.lr, warmup_steps=0,
@@ -244,7 +254,7 @@ def _same_loss(got: dict, want: dict, arch: str):
 def test_meshed_lm_equals_reference(runs, arch):
     port, ref, _ = runs
     _same_loss(port[arch], ref[arch], arch)
-    calls = port[f"{arch}/collectives"]
+    calls = port[f"{arch}/collectives"]["calls"]
     assert calls["all_gather"] > 0 and calls["all_reduce"] > 0
 
 
@@ -255,8 +265,8 @@ def test_sequence_parallel_equals_reference(runs, arch):
     makes more all-gathers than without, and gives the same values."""
     port, ref, _ = runs
     _same_loss(port[f"sp/{arch}"], ref[arch], arch)
-    assert port[f"sp/{arch}/collectives"]["all_gather"] > \
-        port[f"{arch}/collectives"]["all_gather"]
+    assert port[f"sp/{arch}/collectives"]["calls"]["all_gather"] > \
+        port[f"{arch}/collectives"]["calls"]["all_gather"]
 
 
 def test_expert_parallel_placement_equals_reference(runs):
@@ -267,8 +277,8 @@ def test_expert_parallel_placement_equals_reference(runs):
     assert port["ep/entries"] == ("model", ("data",), None)
     _same_loss(port["ep"], ref[C.EP_ARCH], C.EP_ARCH)
     _same_loss(port["sp/ep"], ref[C.EP_ARCH], C.EP_ARCH)
-    assert port["sp/ep/collectives"]["all_to_all"] > 0
-    assert port[f"sp/{C.EP_ARCH}/collectives"]["all_to_all"] == 0
+    assert port["sp/ep/collectives"]["calls"]["all_to_all"] > 0
+    assert port[f"sp/{C.EP_ARCH}/collectives"]["calls"]["all_to_all"] == 0
 
 
 def test_expert_parallel_at_an_undivided_batch_equals_reference(runs):
@@ -302,6 +312,19 @@ def test_adamw_step_over_a_mesh(runs):
         np.testing.assert_allclose(
             port["step/params"][k], w, rtol=1e-4,
             atol=1e-4 * max(float(np.abs(w).max()), 1e-12), err_msg=k)
+
+
+def test_dry_step_equals_the_pools_collectives(runs):
+    """One AdamW step of the smoke LM traced on meta tensors as rank 0 of a
+    dry (2, 2) mesh (``launch.dryrun``, in the fixture) makes the
+    collectives, by kind, calls and bytes, that rank 0 of the pool made for
+    the same step."""
+    port, ref, _ = runs
+    got = port["step/collectives"]
+    assert got["collectives"] > 0
+    assert {k: (c["count"], c["bytes"])
+            for k, c in ref["dry/step"].items()} == \
+        {k: (got["calls"][k], got["bytes"][k]) for k in got["calls"]}
 
 
 def test_lm_checkpoint_restores_on_one_device_and_reshards(runs):

@@ -10,6 +10,8 @@ outside [0, n_bags) against the reference oracle, the ValueError where a
 query row would see no key, and the CUDA path raising on a host without a
 card instead of falling back.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import embedding_bag as TEB
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import ops as tops
+from repro_torch.core.graph import rmat, to_bbcsr
+from repro_torch.kernels import segment_mode as TSM
+from repro_torch.kernels import segment_or as TSO
 from repro_torch.kernels import segment_sum as TSS
 
 
@@ -170,12 +175,14 @@ def test_flash_attention_refuses_rows_without_keys(sq, skv, causal, window):
 def test_cuda_path_raises_without_a_card(monkeypatch):
     """Operands the wrappers take for CUDA ones go to the kernel, which
     cannot be built or launched here: they raise and never return the plain
-    result; a device with no kernel is refused."""
+    result; a device with no kernel is refused (meta, outside B4 and B6,
+    whose operators take a dry run's meta operands)."""
     data = torch.ones(4, 3)
     seg = torch.tensor([0, 0, 1, -1], dtype=torch.int32)
     q = torch.zeros(1, 2, 4, 16)
     with pytest.raises(ValueError, match="device"):
-        tops.segment_sum_sorted(data.to("meta"), seg.to("meta"), 2)
+        tops.embedding_bag(data.to("meta"), seg.to("meta"),
+                           seg.abs().to("meta"), 2)
     monkeypatch.setattr(_build, "on_cpu", lambda tensors, what: False)
     before = (dict(TSS.LAUNCHES), dict(TEB.LAUNCHES), dict(TFA.LAUNCHES))
     for call in (lambda: tops.segment_sum_sorted(data, seg, 2),
@@ -184,3 +191,63 @@ def test_cuda_path_raises_without_a_card(monkeypatch):
         with pytest.raises((RuntimeError, ValueError)):
             call()
     assert (TSS.LAUNCHES, TEB.LAUNCHES, TFA.LAUNCHES) == before
+
+
+def _meta_bbcsr():
+    bb = to_bbcsr(rmat(6, 4, seed=1, device="cpu"), block_rows=16,
+                  block_cols=16, tile_nnz=16)
+    return dataclasses.replace(bb, **{
+        f.name: getattr(bb, f.name).to("meta") for f in dataclasses.fields(bb)
+        if isinstance(getattr(bb, f.name), torch.Tensor)})
+
+
+def _meta_calls():
+    m = torch.ones(4, 3, device="meta")
+    ids = torch.zeros(4, dtype=torch.int32, device="meta")
+    words = torch.zeros(4, 2, dtype=torch.int32, device="meta")
+    w = torch.ones(4, device="meta")
+    x = torch.ones(64, device="meta")
+    return {
+        "embedding_bag": lambda: tops.embedding_bag(m, ids, ids, 2),
+        "spmv_dma": lambda: tops.spmv_dma(_meta_bbcsr(), x),
+        "segment_or": lambda: TSO.segment_or_kernel_call(ids, words, 2),
+        "segment_mode": lambda: TSM.segment_mode_kernel_call(ids, ids, w, 2),
+        "run_sum": lambda: TSM.run_sum_kernel_call(ids, w, 2),
+        # B4 and B6 take meta only when every operand is meta
+        "segment_sum mixed": lambda: tops.segment_sum_csr(
+            m, torch.tensor([0, 2, 4])),
+        "flash_attention mixed": lambda: tops.flash_attention(
+            torch.zeros(1, 2, 4, 16, device="meta"), torch.zeros(1, 2, 4, 16),
+            torch.zeros(1, 2, 4, 16)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_meta_calls()))
+def test_meta_operands_raise_outside_b4_and_b6(monkeypatch, name):
+    """Only B4 and B6 have a torch operator whose meta kernel takes a dry
+    run's meta tensors: every other wrapper refuses meta operands (and B4
+    and B6 a mix of meta and host ones) with ValueError before it loads a
+    library, so no launch ever reads a meta tensor's null pointer."""
+    def no_load(name):
+        raise AssertionError(f"library {name} loaded for meta operands")
+    monkeypatch.setattr(_build, "load", no_load)
+    with pytest.raises(ValueError, match="device"):
+        _meta_calls()[name]()
+
+
+def test_meta_operands_take_b4_and_b6_operators(monkeypatch):
+    """B4 and B6 on meta operands (a dry run) call their operators' meta
+    kernels: the output's shape and dtype, no library, no launch."""
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail(name))
+    before = (dict(TSS.LAUNCHES), dict(TFA.LAUNCHES))
+    data = torch.ones(4, 3, device="meta")
+    seg = torch.zeros(4, dtype=torch.int32, device="meta")
+    out = tops.segment_sum_sorted(data, seg, 2)
+    assert out.device.type == "meta" and out.shape == (2, 3) and \
+        out.dtype == torch.float32
+    q = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16, device="meta")
+    k = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16, device="meta")
+    out = tops.flash_attention(q, k, k)
+    assert out.device.type == "meta" and out.shape == q.shape and \
+        out.dtype == torch.bfloat16
+    assert (TSS.LAUNCHES, TFA.LAUNCHES) == before

@@ -252,12 +252,14 @@ DEF_D = TSP.DEFAULTS["sssp.delta_scale"]
     ("engine.switch_frac", dict(scale=4, device="cpu"), DEF_F, 1),
     # outside the window of every entry: the default, counted
     ("engine.switch_frac", dict(scale=30, device="cpu"), DEF_F, 1),
-    # backends never leak across; a call with no data resolves "cuda"
+    # backends never leak across; a call with no data resolves "cuda", and
+    # so does a dry run's meta data (it traces the card's calls)
     ("sssp.delta_scale", dict(scale=8, device="cpu"), 7.0, 0),
     ("sssp.delta_scale", dict(scale=8, device="cuda:0"), 99.0, 0),
     ("sssp.delta_scale", dict(scale=8), 99.0, 0),
     ("engine.switch_frac", dict(scale=20), DEF_F, 1),
-    ("sssp.delta_scale", dict(scale=8, device="meta"), DEF_D, 1),
+    ("sssp.delta_scale", dict(scale=8, device="meta"), 99.0, 0),
+    ("sssp.delta_scale", dict(scale=8, device="xpu"), DEF_D, 1),
 ])
 def test_resolve_precedence_window_backend(tmp_path, name, kwargs, want,
                                            fires):
