@@ -159,7 +159,14 @@ Phases, each of which exits non-zero on failure:
    memory; mixtral-8x7b's smoke config on the card against the CPU past
    its window (1e-4); fm at full width (``serve_p99``, ``serve_bulk``,
    ``retrieval_cand``) against a float64 plain gather (1e-5).  The B6
-   entry's launches add the model path's, in a case of their own;
+   entry's launches add the model path's, in a case of their own.  Then
+   MLA serving: minicpm3-4b at its published widths through ``serve_lm``,
+   prefill 1 x 32,768 through the online softmax
+   (``transformer.online_attention``, once a layer, no B6) and 8 greedy
+   steps, with the prefill wall, decode ms a step and the peak (under 80
+   GB), the prefill's own peak kept for phase 11; a 4 x 512 prompt's
+   logits on that route held to the plain route by the floor rule above
+   (prefill and ``forward``);
 8. training (``[train]`` and ``[check] train`` lines): one ``make_step``
    train step of each smoke config (qwen3, minicpm3, mixtral, the four
    GNNs, fm) on the card and on the CPU from the same parameters at lr
@@ -186,7 +193,8 @@ Phases, each of which exits non-zero on failure:
 9. training over a process mesh (``[mesh]`` and ``[check] mesh`` lines):
    4 ranks sharing the card over gloo (a (4, 1) ('data', 'model') grid)
    train gin-tu at its published widths with its own DGAS threshold on
-   ``uniform_random_graph(65536, 25, seed=0)`` for 2 steps, each rank's
+   ``uniform_random_graph(65536, 25, seed=0)`` for 2 steps, each rank
+   reading its block of the batch alone (``gnn.local_batch``), each rank's
    step measured (wall around a barrier plus synchronize; calls, bytes,
    host and card seconds per collective kind; dropped requests; B4
    launches and device time; peak memory), held to the local step this
@@ -201,7 +209,9 @@ Phases, each of which exits non-zero on failure:
    sum, int8 within 0.05 / 1e-3 and the bits of the reference's
    arithmetic, bytes halved and quartered); fm at its published widths
    with ``fm_dgas``: serve_bulk scoring and a train_batch step held to
-   the local ones (1e-5); the phase fails past 120 s.  The B4 entry's
+   the local ones (1e-5); the last gin-tu step's own peak kept for phase
+   11; every collective of the phases with several ranks fails, named,
+   past CHIP_COLL_TIMEOUT_S; the phase fails past 120 s.  The B4 entry's
    launches add the owners' sums, in a case of their own;
 10. the LM over a process mesh (``[lmmesh]`` and ``[check] lmmesh``
    lines): 4 ranks sharing the card over gloo.  On a (2, 2) ('data',
@@ -233,7 +243,13 @@ Phases, each of which exits non-zero on failure:
    prefill and gin-tu's ``ogb_products`` step on one card, whose dry
    peaks must be within 15% of phases 7's and 8's own (an extra prefill
    and an extra warm step there, the memory held before each that is not
-   its argument left out); no trace may launch a kernel.  Then the four
+   its argument left out), and the same for gin-tu's meshed step (rank 0's
+   block) against phase 9's rank 0's last step and minicpm3-4b's
+   1 x 32,768 prefill against phase 7's (traced here, after the measured
+   phases, at 2 and 3 of its 62 layers: the arguments counted whole, and
+   each further layer adding the latent and RoPE-key cache it keeps,
+   which the two traces must differ by); no trace may launch a kernel.
+   Then the four
    examples in process on the card: ``quickstart_torch`` against its
    ``--device cpu`` run (BFS levels equal, PageRank within 1e-4, Table I
    equal; B1 launched), ``graph_analytics_torch --scale 12 --ranks 4
@@ -336,6 +352,22 @@ MODEL_LOGIT_TOL = 5e-2
 MODEL_PLAIN_STEPS = 4              # decode steps held to the plain route
 MODEL_SHARE_STEPS = 8              # decode steps timed for B6's share
 MODEL_F32_TOL = 1e-4               # mixtral smoke (f32), card vs CPU
+# MLA serving (phase 7): minicpm3-4b at its published widths, prefill
+# 1 x 32,768 (prefill_32k's sequence, batch cut 32 -> 1) through the online
+# softmax, then greedy steps; its logits held on a 4 x 512 prompt
+MLA_ARCH = "minicpm3-4b"
+MLA_PROMPT, MLA_GEN = 32768, 8
+MLA_CHECK_BATCH, MLA_CHECK_PROMPT = 4, 512
+MLA_PEAK_LIMIT = 80e9              # bytes: the prefill must fit the card
+# phase 11 traces that prefill at this many layers and one more, and
+# carries the peak to the model's depth (a trace of every layer takes
+# minutes of host time)
+MLA_DRY_DEPTH = 2
+# seconds a collective of the multi-rank phases waits for a peer before it
+# raises, named: on one H100 over gloo phase 9's all-to-alls (267 MB a rank
+# on average) take 0.3 s each and phase 10's all-reduces 0.03 s on average,
+# so a slow host has room, and a stall ends long before a phase's budget
+CHIP_COLL_TIMEOUT_S = 180.0
 FM_TOL = 1e-5                      # fm, port vs a float64 plain gather
 SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_add": "src/repro_torch/csrc/bbcsr.cu",
@@ -1301,6 +1333,189 @@ def model_phase(args, smi: str) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[model] phase wall {out['phase_s']!r} s")
+    return out
+
+
+def dry_mla_prefill() -> dict:
+    """The dry run's peak of phase 7's MLA prefill (MLA_ARCH, 1 x
+    MLA_PROMPT, one card) on meta tensors, from traces of the model cut
+    to MLA_DRY_DEPTH layers and to one more: the arguments are the whole
+    model's and the prompt's, and each layer past the traced ones adds
+    the cache it keeps to the end (the latent and the RoPE key of every
+    position, in the model's dtype), which the two traces' temporaries
+    (peak less arguments) must differ by.  ``TraceCounter`` alone: the
+    peak, without the FLOP count."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as TF
+    cfg = get_config(MLA_ARCH).model
+    toks = torch.empty((1, MLA_PROMPT), dtype=torch.int32, device="meta")
+    t0 = time.perf_counter()
+    temps = []
+    for depth in (MLA_DRY_DEPTH, MLA_DRY_DEPTH + 1):
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        model = TF.init_params(cut, device="meta")
+        tc = D.TraceCounter()
+        held = tc.hold((model, toks))
+        with tc:
+            TF.prefill(cut, model, toks)
+        temps.append(tc.peak - held)
+    m = cfg.mla
+    layer_cache = MLA_PROMPT * (m.kv_lora_rank + m.rope_head_dim) * \
+        torch.empty((), dtype=cfg.dtype).element_size()
+    args = D.storage_bytes((TF.init_params(cfg, device="meta"), toks))
+    return {"peak_bytes": args + temps[0] + (cfg.n_layers - MLA_DRY_DEPTH)
+            * layer_cache, "argument_bytes": args,
+            "temporaries": dict(zip((MLA_DRY_DEPTH, MLA_DRY_DEPTH + 1),
+                                    temps)),
+            "layer_cache_bytes": layer_cache,
+            "trace_s": time.perf_counter() - t0}
+
+
+def mla_phase(smi: str) -> dict:
+    """Phase 7's MLA serving: MLA_ARCH at its published widths served
+    through ``serve_lm``, prefill 1 x MLA_PROMPT through the online softmax
+    (``transformer.online_attention``, once a layer; no B6) and MLA_GEN
+    greedy steps (the absorbed latent decode), its prefill wall, decode ms
+    a step and peak memory (under MLA_PEAK_LIMIT), the prefill's own peak
+    kept for phase 11's dry run; then on a MLA_CHECK_BATCH x
+    MLA_CHECK_PROMPT prompt the online route held to the plain route
+    (``ref.flash_attention_ref``) by phase 7's floor rule: the plain
+    route's prefill and decode against its own ``forward`` give the floor,
+    and prefill and ``forward`` of both routes must agree within
+    MODEL_FLOOR_FACTOR x it, at most MODEL_LOGIT_TOL."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.launch.dryrun import storage_bytes
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as TF
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MLA_ARCH).model
+    out = {"arch": MLA_ARCH, "nvidia_smi": smi}
+    if TF.attention_route(cfg) != "online":
+        fail(f"{MLA_ARCH} does not route attention to the online softmax")
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    model = TF.init_params(cfg, 0).requires_grad_(False)
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0,
+               params=TF.count_params(model),
+               param_bytes=storage_bytes(model))
+    m = cfg.mla
+    log(f"[model] {MLA_ARCH}: {out['params']} parameters, "
+        f"{out['param_bytes'] / 1e9:.2f} GB, drawn in {out['init_s']!r} s; "
+        f"{L} layers d {cfg.d_model} {cfg.n_heads} heads, MLA q / k width "
+        f"{m.nope_head_dim + m.rope_head_dim}, v {m.v_head_dim}, latent "
+        f"{m.kv_lora_rank}, vocab {cfg.vocab}, {cfg.dtype}")
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, MLA_PROMPT)).astype(np.int32)
+
+    # -- the main path: serve_lm, the prefill's own peak measured around it -
+    real_prefill, real_online = TF.prefill, TF.online_attention
+    rec, online = {}, []
+
+    def measured_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        rec["held"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        return res
+
+    def counted(*a, **kw):
+        online.append(tuple(a[0].shape))
+        return real_online(*a, **kw)
+
+    FA.reset_launches()
+    with mock.patch.object(TF, "prefill", measured_prefill), \
+            mock.patch.object(TF, "online_attention", counted):
+        run = serve_lm(cfg, model, prompts, MLA_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    b6 = dict(FA.LAUNCHES)
+    out["prefill_peak"] = dict(peak=rec["peak"], held=rec["held"],
+                               args=out["param_bytes"],
+                               step_peak=rec["peak"] - rec["held"]
+                               + out["param_bytes"])
+    out.update(prefill_s=run["prefill_s"],
+               decode_ms_per_step=1e3 * run["decode_s"] / MLA_GEN,
+               tokens_per_s=run["tok_per_s"], peak_bytes=peak,
+               online_calls=len(online), b6_launches=b6)
+    log(f"[model] {MLA_ARCH} prefill 1 x {MLA_PROMPT} through the online "
+        f"softmax: wall {run['prefill_s']!r} s; decode {MLA_GEN} greedy "
+        f"steps: {out['decode_ms_per_step']!r} ms a step; peak "
+        f"{peak} B ({peak / 2**30:.2f} GiB; the prefill's own "
+        f"{out['prefill_peak']['step_peak']} B) ({smi})")
+    ok = (run["tokens"].shape == (1, MLA_GEN) and len(online) == L
+          and all(sh[2] == MLA_PROMPT for sh in online)
+          and not any(b6.values())
+          and bool(torch.isfinite(run["logits"]).all()))
+    log(f"[check] model {MLA_ARCH} prefill {MLA_PROMPT}: online-softmax "
+        f"calls {len(online)} (want {L}, one a layer), B6 launches {b6} "
+        f"(want none: MLA's widths are not B6's), {MLA_GEN} tokens, finite "
+        f"logits: {'ok' if ok else 'FAILED'}")
+    log(f"[check] model {MLA_ARCH} peak {peak} B under {MLA_PEAK_LIMIT:.0f}"
+        f" B: {'ok' if peak < MLA_PEAK_LIMIT else 'FAILED'}")
+    if not ok or peak >= MLA_PEAK_LIMIT:
+        fail(f"{MLA_ARCH} serving at {MLA_PROMPT} failed its checks")
+    del run
+
+    # -- the online route against the plain route, 4 x 512 ----------------
+    def row_err(got, want):
+        got, want = got.float(), want.float()
+        return float(((got - want).norm(dim=-1)
+                      / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+    def plain(q, k, v, *, causal=True, window=None, k_chunk=None):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    Bc, Pc, G = MLA_CHECK_BATCH, MLA_CHECK_PROMPT, MLA_GEN
+    pr = np.random.default_rng(3).integers(0, cfg.vocab, (Bc, Pc)).astype(
+        np.int32)
+    run = serve_lm(cfg, model, pr, G, keep_logits=True)
+    toks = torch.from_numpy(run["tokens"]).cuda()
+    seq = torch.cat([torch.from_numpy(pr).cuda().long(), toks], dim=1)
+    with torch.no_grad():
+        o_fwd, _ = TF.forward(cfg, model, seq[:, :Pc])
+    with mock.patch.object(TF, "online_attention", plain):
+        p_logits, cache = TF.prefill(cfg, model, pr)
+        cache = TF.grow_cache(cache, Pc + G)
+        p_steps = []
+        for t in range(G):
+            lg, cache = TF.decode_step(cfg, model, cache, toks[:, t:t + 1])
+            p_steps.append(lg)
+        del cache
+        with torch.no_grad():
+            p_fwd, _ = TF.forward(cfg, model, seq)
+    floor = max([row_err(p_logits, p_fwd[:, Pc - 1])]
+                + [row_err(p_steps[t], p_fwd[:, Pc + t]) for t in range(G)])
+    limit = min(MODEL_LOGIT_TOL, MODEL_FLOOR_FACTOR * floor)
+    errs = {"prefill": row_err(run["prefill_logits"], p_logits),
+            "forward": row_err(o_fwd, p_fwd[:, :Pc])}
+    out.update(logit_floor=floor, logit_limit=limit, err_vs_plain=errs)
+    good = 0 < floor <= MODEL_LOGIT_TOL and all(e <= limit
+                                                 for e in errs.values())
+    log(f"[check] model {MLA_ARCH} {Bc} x {Pc}: online route vs plain route,"
+        f" per row max ||a - b|| / ||b||: prefill {errs['prefill']!r}, "
+        f"forward over the prompt {errs['forward']!r}; the plain route's "
+        f"floor (its prefill and {G} decode steps vs its own forward) "
+        f"{floor!r}, limit {MODEL_FLOOR_FACTOR} x that = {limit!r} (at most "
+        f"{MODEL_LOGIT_TOL}): {'ok' if good else 'FAILED'}")
+    if not good:
+        fail(f"{MLA_ARCH}: the online route disagrees with the plain route")
+    del model, run, p_fwd, o_fwd, p_steps, p_logits
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[model] {MLA_ARCH} part wall {out['phase_s']!r} s")
     return out
 
 
@@ -2360,7 +2575,7 @@ def dist_phase(g, x, ref: dict, smi: str) -> dict:
     t0 = time.perf_counter()
     ranks = M.spawn(dist_rank, DIST_RANKS, device="cuda",
                     init_file=os.path.join(DIST_DIR, "init4"), args=(spec,),
-                    timeout=900)
+                    timeout=900, coll_timeout=CHIP_COLL_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     rep = ranks[0]
     log(f"[dist] {DIST_RANKS} ranks on {[r['device'] for r in ranks]}, "
@@ -2391,7 +2606,7 @@ def dist_phase(g, x, ref: dict, smi: str) -> dict:
             f"wall); launches over the ranks {launches}")
     nccl = M.spawn(dist_nccl_rank, 1, device="cuda",
                    init_file=os.path.join(DIST_DIR, "init1"), args=(spec,),
-                   timeout=600)[0]
+                   timeout=600, coll_timeout=CHIP_COLL_TIMEOUT_S)[0]
     log(f"[dist] 1-rank {nccl['backend']} bfs auto: wall "
         f"{nccl['wall_s']!r} s, iters {nccl['iters']} pushes "
         f"{nccl['pushes']} pulls {nccl['pulls']}, collectives "
@@ -2742,7 +2957,8 @@ def dist2_phase(g, kept: dict, ref: dict, smi: str) -> dict:
     t0 = time.perf_counter()
     ranks = M.spawn(dist2_rank, DIST_RANKS, device="cuda", init_file=init,
                     args=(spec,), timeout=900,
-                    grid=((2, 2), ("data", "model")))
+                    grid=((2, 2), ("data", "model")),
+                    coll_timeout=CHIP_COLL_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     rep = ranks[0]
     log(f"[dist2] {DIST_RANKS} ranks as a (2, 2) grid ('data', 'model') on "
@@ -3710,20 +3926,28 @@ def _grad_param_check(g_got, g_want, p_got, p_want, lr) -> dict:
                 param_err_rest=prest, ok=ok)
 
 
-def _mesh_gin(spec):
+def _mesh_gin(spec, rules=None):
     """gin-tu at its published widths on the cut graph: (ArchConfig,
-    model config, the global batch as CPU tensors)."""
+    model config, the global batch as CPU tensors, or over a mesh
+    (``rules``) this rank's block of it on its card, read from the saved
+    arrays at its rows alone: ``gnn.local_batch``)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.models import gnn as G
     ac = get_config("gin-tu")
     cfg = dataclasses.replace(ac.model, d_feat=spec["d_feat"],
                               n_classes=spec["classes"])
-    batch = {k: torch.from_numpy(np.load(os.path.join(spec["dir"],
-                                                      f"gin_{k}.npy")))
-             for k in ("x", "src", "dst", "labels")}
-    return ac, cfg, batch
+    path = lambda k: os.path.join(spec["dir"], f"gin_{k}.npy")
+    keys = ("x", "src", "dst", "labels")
+    if rules is None or rules.mesh is None:
+        return ac, cfg, {k: torch.from_numpy(np.load(path(k)))
+                         for k in keys}
+    block = G.local_batch(cfg, {k: np.load(path(k), mmap_mode="r")
+                                for k in keys}, rules)
+    return ac, cfg, block._replace(arrays={
+        k: v.to(rules.mesh.device) for k, v in block.arrays.items()})
 
 
 def _mesh_fm(spec, make: bool = False):
@@ -3815,7 +4039,10 @@ def mesh_rank(mesh, spec):
         kept = SS.LAUNCHES["segment_sum"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = ref.segment_sum_csr_ref(table, offsets, rows, block=1 << 18)
+        # float64 sums over blocks of 16,384 entries: the check's card
+        # memory (about 30 MB at d 100) stays small beside the step's peak,
+        # which the step's record keeps for phase 11
+        want = ref.segment_sum_csr_ref(table, offsets, rows, block=1 << 14)
         err = float((res - want).abs().max()) if res.numel() else 0.0
         ok = bool(torch.allclose(res, want, rtol=SEG_TOL, atol=SEG_TOL))
         del want
@@ -3824,15 +4051,18 @@ def mesh_rank(mesh, spec):
         SS.LAUNCHES["segment_sum"] = kept
         return res
 
-    def measured(fn):
+    def measured(fn, args=None):
         """fn() between a barrier plus synchronize and a synchronize: its
-        result and its record."""
+        result and its record, with ``args`` (fn's arguments) its own peak
+        as :func:`step_peak` counts it."""
+        from repro_torch.launch.dryrun import storage_bytes
         mesh.barrier()
         torch.cuda.synchronize()
         mesh.reset_counts()
         SS.reset_launches()
         events.clear()
         b4_held.clear()
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with mock.patch.object(ops, "segment_sum_csr", timed_b4):
@@ -3850,12 +4080,19 @@ def mesh_rank(mesh, spec):
                    b4_err=max((h[0] for h in b4_held), default=0.0),
                    b4_ok=all(h[1] for h in b4_held), b4_check_s=held_s,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if args is not None:
+            peak = torch.cuda.max_memory_allocated()
+            arg_bytes = storage_bytes(args)
+            rec["step_peak"] = dict(peak=peak, held=held, args=arg_bytes,
+                                    step_peak=peak - held + arg_bytes)
         return res, rec
 
     # -- gin-tu: run_training over MESH_STEPS meshed steps, a checkpoint a
     # step and a failure injected on every rank at step 2; each step held
     # to the local (uninterrupted) step ----------------------------------------
-    ac, cfg, batch = _mesh_gin(spec)
+    ac, cfg, batch = _mesh_gin(spec, rules)
+    out["batch_bytes"] = {k: v.numel() * v.element_size()
+                          for k, v in batch.arrays.items()}
     opt = adamw.AdamWConfig(**SMOKE_OPT)
     step = make_step(ac, SpecBundle("train", cfg, {}, {}), rules, opt)
     params = init_params(ac, cfg, 0, device=dev)
@@ -3876,7 +4113,7 @@ def mesh_rank(mesh, spec):
 
     def measured_step(state, b):
         with mock.patch.object(common, "reduce_grads", keep_grads):
-            (state, m), rec = measured(lambda: step(state, b))
+            (state, m), rec = measured(lambda: step(state, b), (state, b))
         rec["loss"] = float(m["loss"])
         i = len(out["steps"]) + 1
         out["steps"].append(rec)
@@ -4040,6 +4277,7 @@ def mesh_rank(mesh, spec):
     check("fm updated table rows and their gradients vs the local step",
           gerr <= MESH_FM_TOL and rerr <= MESH_FM_TOL, f"{out['fm_rows']}")
     out["checks"] = checks
+    out["step_peak"] = out["steps"][-1]["step_peak"]
     return out
 
 
@@ -4054,7 +4292,7 @@ def mesh_resume(mesh, spec) -> dict:
     from repro_torch.distributed.sharding import make_rules
     from repro_torch.optim import adamw
     rules = make_rules(mesh)
-    ac, cfg, batch = _mesh_gin(spec)
+    ac, cfg, batch = _mesh_gin(spec, rules)
     params = init_params(ac, cfg, 1, device=mesh.device)
     sh = state_shardings(param_shardings(
         rules, params, param_logical_axes(ac, cfg, params)))
@@ -4160,7 +4398,7 @@ def mesh_phase(smi: str) -> dict:
     ranks = M.spawn(mesh_rank, MESH_RANKS, device="cuda",
                     init_file=os.path.join(MESH_DIR, "init4"),
                     grid=((MESH_RANKS, 1), ("data", "model")), args=(spec,),
-                    timeout=900)
+                    timeout=900, coll_timeout=CHIP_COLL_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     two = ranks[0]["resume2"]
     t0 = time.perf_counter()
@@ -4190,6 +4428,12 @@ def mesh_phase(smi: str) -> dict:
                 f"launches, {s['b4_ms']!r} ms, held to its plain version "
                 f"(largest |err| {s['b4_err']!r}, {s['b4_check_s']!r} s of "
                 f"checks kept out of the wall); peak {s['peak_gib']:.3f} GiB")
+    for r in ranks:
+        log(f"[mesh] rank {r['rank']} gin-tu batch: its block built from the "
+            f"saved arrays at its rows alone (gnn.local_batch), bytes by key "
+            f"{r['batch_bytes']}; its last step's own peak "
+            f"{r['step_peak']['step_peak']} B (the B4 checks' float64 "
+            f"blocks, about 30 MB, included)")
     for r in ranks:
         for tag in ("fm_serve", "fm_step"):
             s = r[tag]
@@ -4572,7 +4816,7 @@ def lmmesh_phase(smi: str, lm_losses: dict) -> dict:
     ranks = M.spawn(lmmesh_rank, LMMESH_RANKS, device="cuda",
                     init_file=os.path.join(LMMESH_DIR, "init4"),
                     grid=(LMMESH_GRID, ("data", "model")), args=(spec,),
-                    timeout=600)
+                    timeout=600, coll_timeout=CHIP_COLL_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
     rep = ranks[0]
     log(f"[lmmesh] {LMMESH_RANKS} ranks on {[r['device'] for r in ranks]}, "
@@ -4691,12 +4935,16 @@ def dryrun_phase(smi: str, model: dict, train: dict, meshed: dict,
     the card measured in this run, and the four examples run on the card.
     Rank 0's collective calls and bytes per kind of qwen3-14b's prefill and
     one decode step over a dry (1, 4) mesh must equal phase 10's, and of
-    gin-tu's meshed step over a dry (4, 1) mesh phase 9's; the dry peak of
+    gin-tu's meshed step over a dry (4, 1) mesh (rank 0's block of the
+    batch, as phase 9's rank 0 took it) phase 9's; the dry peak of
     qwen3-14b's prefill and of gin-tu's ogb_products warm step on one card
-    must be within DRY_PEAK_TOL of phases 7's and 8's; no trace may launch
-    a kernel.  Then quickstart on the card against ``--device cpu``,
-    graph_analytics with 4 ranks, train_lm's demo and serve_lm, each with
-    its kernels' launches counted.  Fails past DRY_BUDGET_S."""
+    must be within DRY_PEAK_TOL of phases 7's and 8's, of that meshed step
+    of phase 9's rank 0's last step, and of MLA_ARCH's 1 x MLA_PROMPT
+    prefill (:func:`dry_mla_prefill`, traced here after the measured
+    phases) of phase 7's; no trace may launch a kernel.  Then quickstart
+    on the card against ``--device cpu``, graph_analytics with 4 ranks,
+    train_lm's demo and serve_lm, each with its kernels' launches
+    counted.  Fails past DRY_BUDGET_S."""
     import dataclasses
     import shutil
 
@@ -4770,11 +5018,24 @@ def dryrun_phase(smi: str, model: dict, train: dict, meshed: dict,
                                       {}), one)
     gbundle = input_specs(gac, GIN_SHAPE)
     g_dry = D.dry_step(gac, gbundle, one)
+    m_dry = dry_mla_prefill()
+    t2, t3 = m_dry["temporaries"].values()
+    log(f"[dryrun] {MLA_ARCH} prefill 1 x {MLA_PROMPT} traced at "
+        f"{MLA_DRY_DEPTH} and {MLA_DRY_DEPTH + 1} layers in "
+        f"{m_dry['trace_s']!r} s: temporaries {t2} and {t3} B, a layer's "
+        f"cache {m_dry['layer_cache_bytes']} B")
+    check(f"{MLA_ARCH} prefill's dry temporaries grow by one layer's cache "
+          f"a layer", t3 - t2 == m_dry["layer_cache_bytes"],
+          f"{t3} - {t2} = {t3 - t2} B vs {m_dry['layer_cache_bytes']} B")
     for label, got, card in (
             (f"qwen3-14b prefill {Bm} x {P}", p_dry,
              model["prefill_peak"]),
             (f"gin-tu {GIN_SHAPE} warm step", g_dry,
-             train["gin"]["step_peak"])):
+             train["gin"]["step_peak"]),
+            (f"gin-tu meshed step, rank 0 of ({MESH_RANKS}, 1)", gin,
+             meshed["ranks"][0]["step_peak"]),
+            (f"{MLA_ARCH} prefill 1 x {MLA_PROMPT}", m_dry,
+             model["mla"]["prefill_peak"])):
         rel = abs(got["peak_bytes"] - card["step_peak"]) / card["step_peak"]
         out[f"peak {label}"] = dict(dry=got["peak_bytes"],
                                     dry_args=got["argument_bytes"],
@@ -5252,8 +5513,9 @@ def main() -> int:
     del seg
     torch.cuda.empty_cache()
 
-    # -- 7. model serving: qwen3-14b at full width through B6 --------------
+    # -- 7. model serving: qwen3-14b at full width through B6, then MLA ----
     model = model_phase(args, smi)
+    model["mla"] = mla_phase(smi)
     launches["flash_attention"] += model["b6_launches"]["flash_attention"]
     timed["flash_attention"]["cases"].append(dict(
         shape=f"{MODEL_ARCH} serving {MODEL_BATCH} x {MODEL_PROMPT} + "

@@ -312,13 +312,24 @@ class CheckpointManager:
 
     def restore_latest(self, target, *, device=None, shardings=None):
         """(restored, step) of the newest checkpoint, or (None, None); over
-        a mesh (``shardings``) each rank's blocks, once every rank is
-        here."""
+        a mesh (``shardings``) each rank's blocks, once every rank is here.
+
+        Over a mesh rank 0, the rank that writes, reads the directory once
+        its own writes are done, and every rank takes its step through one
+        all-reduce (the rendezvous the barrier was).  A rank that read the
+        directory itself could read it after rank 0, past that rendezvous,
+        has started the next save: it would restore where the others start
+        afresh, skip the save they make and the barrier that waits for it,
+        and pair every later collective with the wrong one."""
         self.wait()
         mesh = _mesh_of(placements(target, shardings))
+        step = None if mesh is not None and mesh.rank != 0 else \
+            latest_step(self.directory)
         if mesh is not None:
-            mesh.barrier()
-        step = latest_step(self.directory)
+            seen = torch.tensor([-1 if step is None else step],
+                                dtype=torch.int32, device=mesh.device)
+            step = int(mesh.all_reduce(seen, "max")[0])
+            step = None if step < 0 else step
         if step is None:
             return None, None
         return restore(self.directory, step, target, device=device,

@@ -18,8 +18,11 @@ logical axes give it: a GNN's parameters are whole on every rank, FM's
 table is row-sharded over the flat axes, an LM's weights are FSDP over
 the batch axes and tensor or expert parallel over ``model`` by the
 reference's table (``transformer.param_logical_axes``).  Every train step
-runs on every rank from the global batch (the models slice it) and sums
-each gradient over the axes its parameter is not split over.
+runs on every rank from the global batch (the models slice it) or, for a
+GNN, the rank's block of it (``gnn.local_batch``, what the launcher and
+the dry run hand each rank) and sums each gradient over the axes its
+parameter is not split over.  An LM's tokens and FM's ids stay whole on
+every rank: a few MB even at ``prefill_32k`` (32 x 32,768 int32, 4 MB).
 """
 from __future__ import annotations
 
@@ -318,10 +321,11 @@ def make_step(ac: ArchConfig, bundle: SpecBundle, rules: MeshRules,
     trains), runs the loss forward and backward and applies AdamW in
     place; metrics are detached tensors on the device.
 
-    Over a mesh every rank calls the step with the global batch and its
-    blocks of the state (``fault_tolerance.reshard_state`` of the whole
-    parameters; an LM's :class:`~repro_torch.models.transformer.Transformer`
-    drawn or placed with its placements); the loss carries each rank's
+    Over a mesh every rank calls the step with the global batch (a GNN's
+    may be the rank's ``gnn.RankBatch``) and its blocks of the state
+    (``fault_tolerance.reshard_state`` of the whole parameters; an LM's
+    :class:`~repro_torch.models.transformer.Transformer` drawn or placed
+    with its placements); the loss carries each rank's
     share, so each parameter's gradient is summed over the mesh axes its
     placement does not split (:func:`reduce_grads`; an FSDP block's sum
     over the batch axes is its gather's backward) before the update.

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -20,7 +20,8 @@ from ..core.graph import CSR, rmat, uniform_random_graph
 from ..core.algorithms.sampling import neighbor_sample_np
 
 __all__ = ["lm_batches", "gnn_batch", "sampled_gnn_batch", "recsys_batches",
-           "prefetch", "build_triplets", "build_wigner", "graph_for_shape"]
+           "prefetch", "build_triplets", "build_wigner", "graph_for_shape",
+           "Rows", "triplet_rows", "wigner_rows", "gnn_inputs"]
 
 
 def lm_batches(batch: int, seq: int, vocab: int, *,
@@ -49,37 +50,90 @@ def recsys_batches(batch: int, n_fields: int, rows_per_field: int, *,
 # GNN batches
 # ---------------------------------------------------------------------------
 
+class Rows(NamedTuple):
+    """Arrays of ``length`` rows given by their rows: ``build(lo, hi)``
+    returns {key: rows lo to hi - 1} (0 <= lo <= hi <= length) of every
+    key in ``keys``, so a rank of a mesh builds only its block of them
+    (``models.gnn.local_batch``, which finds the object under each of its
+    keys of a batch)."""
+
+    keys: tuple
+    length: int
+    build: Callable
+
+    def entries(self) -> dict:
+        """{key: self} for each of its keys, to put into a batch."""
+        return dict.fromkeys(self.keys, self)
+
+
+def _triplet_plan(src: np.ndarray, dst: np.ndarray) -> tuple:
+    """(edges sorted by destination, stably; their offsets by destination
+    node; each edge e2's first triplet index, one past the last at the
+    end).  Edge e2 = (j -> i) is fed by every edge e1 into j whose source
+    is not i, in edge order."""
+    n = int(max(src.max(), dst.max())) + 1 if src.size else 1
+    order = np.argsort(dst, kind="stable")
+    ptr = np.searchsorted(dst[order], np.arange(n + 1))
+    indeg = ptr[src + 1] - ptr[src]
+    # the fed edges whose source is i: copies of the reverse edge (i -> j)
+    key = src.astype(np.int64) * n + dst
+    uniq, mult = np.unique(key, return_counts=True)
+    rkey = dst.astype(np.int64) * n + src
+    rev = np.zeros_like(indeg)
+    if uniq.size:
+        at = np.minimum(np.searchsorted(uniq, rkey), uniq.size - 1)
+        rev = np.where(uniq[at] == rkey, mult[at], 0)
+    off = np.concatenate([[0], np.cumsum(indeg - rev)]).astype(np.int64)
+    return order, ptr, off
+
+
+def triplet_rows(src: np.ndarray, dst: np.ndarray, pos: np.ndarray,
+                 max_triplets: Optional[int] = None) -> Rows:
+    """:class:`Rows` of :func:`build_triplets`' arrays ('triplet_kj',
+    'triplet_ji', 'angle'; ``max_triplets`` rows, by default min(4 E,
+    20,000)), a range of rows built from the edges it needs alone."""
+    mt = max_triplets or min(4 * src.shape[0], 20000)
+    order, ptr, off = _triplet_plan(src, dst)
+    real = int(min(off[-1], mt))
+
+    def rows(lo: int, hi: int) -> dict:
+        top = max(min(hi, real), lo)
+        kj = np.full(hi - lo, -1, np.int32)
+        ji = np.zeros(hi - lo, np.int32)
+        if top > lo:
+            # the feeding edges of every e2 whose triplets meet [lo, top)
+            ea = int(np.searchsorted(off, lo, "right")) - 1
+            eb = int(np.searchsorted(off, top - 1, "right")) - 1
+            e2 = np.arange(ea, eb + 1)
+            j = src[e2]
+            lens = ptr[j + 1] - ptr[j]
+            first = np.repeat(ptr[j] - np.cumsum(lens) + lens, lens)
+            e1 = order[first + np.arange(int(lens.sum()))]
+            e2 = np.repeat(e2, lens)
+            keep = src[e1] != dst[e2]
+            at = lo - int(off[ea])
+            kj[:top - lo] = e1[keep][at:at + top - lo]
+            ji[:top - lo] = e2[keep][at:at + top - lo]
+        # angle at j between (k - j) and (i - j); padding reads edge 0
+        safe_kj = np.maximum(kj, 0)
+        k_, j_, i_ = src[safe_kj], dst[safe_kj], dst[np.maximum(ji, 0)]
+        v1 = pos[k_] - pos[j_]
+        v2 = pos[i_] - pos[j_]
+        cos = (v1 * v2).sum(-1) / (np.linalg.norm(v1, axis=-1) *
+                                   np.linalg.norm(v2, axis=-1) + 1e-9)
+        angle = np.arccos(np.clip(cos, -1, 1)).astype(np.float32)
+        return {"triplet_kj": kj, "triplet_ji": ji, "angle": angle}
+
+    return Rows(("triplet_kj", "triplet_ji", "angle"), mt, rows)
+
+
 def build_triplets(src: np.ndarray, dst: np.ndarray, pos: np.ndarray,
                    max_triplets: int, *, seed: int = 0):
-    """(k->j) feeding (j->i) triplet lists + bond angle at j."""
-    E = src.shape[0]
-    by_dst: dict[int, list[int]] = {}
-    for e in range(E):
-        by_dst.setdefault(int(dst[e]), []).append(e)
-    t_kj, t_ji = [], []
-    for e2 in range(E):
-        j = int(src[e2])
-        for e1 in by_dst.get(j, ()):
-            if int(src[e1]) == int(dst[e2]):
-                continue
-            t_kj.append(e1)
-            t_ji.append(e2)
-            if len(t_kj) >= max_triplets:
-                break
-        if len(t_kj) >= max_triplets:
-            break
-    n = len(t_kj)
-    t_kj = np.array(t_kj + [-1] * (max_triplets - n), np.int32)
-    t_ji = np.array(t_ji + [0] * (max_triplets - n), np.int32)
-    # angle at j between (k - j) and (i - j)
-    safe_kj = np.maximum(t_kj, 0)
-    k_, j_, i_ = src[safe_kj], dst[safe_kj], dst[np.maximum(t_ji, 0)]
-    v1 = pos[k_] - pos[j_]
-    v2 = pos[i_] - pos[j_]
-    cos = (v1 * v2).sum(-1) / (np.linalg.norm(v1, axis=-1) *
-                               np.linalg.norm(v2, axis=-1) + 1e-9)
-    angle = np.arccos(np.clip(cos, -1, 1)).astype(np.float32)
-    return t_kj, t_ji, angle
+    """(k->j) feeding (j->i) triplet lists + bond angle at j: for each edge
+    e2 = (j -> i) in order, every edge e1 into j (in order) whose source is
+    not i, cut at ``max_triplets``; padded with kj -1, ji 0."""
+    got = triplet_rows(src, dst, pos, max_triplets).build(0, max_triplets)
+    return got["triplet_kj"], got["triplet_ji"], got["angle"]
 
 
 def _rotation_to_y(vec: np.ndarray) -> np.ndarray:
@@ -116,6 +170,14 @@ def build_wigner(src: np.ndarray, dst: np.ndarray, pos: np.ndarray,
     return W
 
 
+def wigner_rows(src: np.ndarray, dst: np.ndarray, pos: np.ndarray,
+                l_max: int) -> Rows:
+    """:class:`Rows` of :func:`build_wigner`'s (E, ncoef, ncoef) blocks,
+    a range built from its own edges."""
+    return Rows(("wigner",), src.shape[0], lambda lo, hi: {
+        "wigner": build_wigner(src[lo:hi], dst[lo:hi], pos, l_max)})
+
+
 def graph_for_shape(shape_name: str, *, seed: int = 0,
                     scale_override: Optional[int] = None,
                     device=None) -> CSR:
@@ -132,10 +194,12 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
 
 
-def gnn_batch(arch: str, csr: CSR, d_feat: int, n_classes: int, *,
-              l_max: int = 6, max_triplets: Optional[int] = None,
-              graph_id: Optional[np.ndarray] = None, seed: int = 0,
-              label_mask: Optional[np.ndarray] = None) -> dict:
+def gnn_inputs(arch: str, csr: CSR, d_feat: int, n_classes: int, *,
+               seed: int = 0) -> dict:
+    """A labelled batch's node and edge arrays over ``csr``'s edges (x,
+    src, dst, labels, and pos for dimenet and equiformer-v2), without the
+    geometry built from them (:func:`triplet_rows`, :func:`wigner_rows`),
+    which a rank of a mesh builds at its own rows alone."""
     rng = np.random.default_rng(seed)
     n = csr.n_rows
     src = _host(csr.row_ids()).astype(np.int32)
@@ -147,12 +211,22 @@ def gnn_batch(arch: str, csr: CSR, d_feat: int, n_classes: int, *,
     }
     if arch in ("dimenet", "equiformer_v2"):
         b["pos"] = rng.standard_normal((n, 3)).astype(np.float32) * 3.0
+    return b
+
+
+def gnn_batch(arch: str, csr: CSR, d_feat: int, n_classes: int, *,
+              l_max: int = 6, max_triplets: Optional[int] = None,
+              graph_id: Optional[np.ndarray] = None, seed: int = 0,
+              label_mask: Optional[np.ndarray] = None) -> dict:
+    """A labelled batch over ``csr``'s edges (:func:`gnn_inputs`), with
+    dimenet's triplets and equiformer-v2's Wigner blocks built whole."""
+    b = gnn_inputs(arch, csr, d_feat, n_classes, seed=seed)
     if arch == "dimenet":
-        mt = max_triplets or min(4 * src.shape[0], 20000)
-        t_kj, t_ji, angle = build_triplets(src, dst, b["pos"], mt, seed=seed)
-        b.update(triplet_kj=t_kj, triplet_ji=t_ji, angle=angle)
+        rows = triplet_rows(b["src"], b["dst"], b["pos"], max_triplets)
+        b.update(rows.build(0, rows.length))
     if arch == "equiformer_v2":
-        b["wigner"] = build_wigner(src, dst, b["pos"], l_max)
+        rows = wigner_rows(b["src"], b["dst"], b["pos"], l_max)
+        b.update(rows.build(0, rows.length))
     if graph_id is not None:
         b["graph_id"] = graph_id
     if label_mask is not None:

@@ -5,9 +5,11 @@ production H100 grid runs it, on the meta device (counterpart of
 The reference compiles each cell for 512 fake XLA devices and reads the
 compiled program.  The port is multi-controller and has no whole-program
 graph, so the dry run runs rank 0's step once on meta tensors: the
-state, the batch and the cache are meta tensors (the state and the cache
-in the rank's blocks, the batch whole, as every rank's step takes it and
-slices its rows), the mesh is a dry view of the grid
+state, the batch and the cache are meta tensors in the rank's blocks (a
+GNN's batch as ``models.gnn.local_batch`` builds rank 0's block, as the
+launcher hands each rank its own; an LM's tokens and FM's ids, a few MB
+a rank, whole, as every rank's step takes them and slices its rows), the
+mesh is a dry view of the grid
 (``launch.mesh.make_production_mesh``) that counts each collective and
 runs none, and the kernels B4 and B6 are their torch operators' meta
 kernels.  Around the step it records:
@@ -61,13 +63,13 @@ from ..distributed import fault_tolerance as FT
 from ..distributed.sharding import make_rules
 from ..kernels import cost
 from ..kernels.segment_sum import entries_of
+from ..models import gnn as GNN
 from ..models import transformer as TF
 from ..optim import adamw
 from .mesh import HW, KINDS, make_production_mesh
 
 __all__ = ["run_cell", "dry_step", "roofline_terms", "model_flops",
-           "cell_state", "storage_bytes", "TraceCounter", "trace", "table",
-           "main"]
+           "cell_state", "storage_bytes", "TraceCounter", "trace", "main"]
 
 _ALLOC = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_like.default,
           torch.ops.aten.new_empty.default, torch.ops.aten.empty_strided.default,
@@ -249,7 +251,8 @@ def cell_state(ac, bundle, rules, *, seed: int = 0,
     """(the step's arguments on meta tensors as rank ``rules.mesh.rank``
     holds them, the placements of its parameters).  Train: (TrainState,
     batch); prefill / serve / retrieval: (params, batch); decode: (params,
-    cache, batch), the cache at ``position`` (default: its last slot)."""
+    cache, batch), the cache at ``position`` (default: its last slot).
+    A meshed GNN's batch is the rank's block (``gnn.local_batch``)."""
     cfg = bundle.model
     shapes = init_params(ac, cfg, seed, device="meta")
     sh = None
@@ -261,8 +264,11 @@ def cell_state(ac, bundle, rules, *, seed: int = 0,
     else:
         params = shapes if sh is None else FT.reshard_state(shapes, sh)
     if bundle.kind == "train":
+        batch = bundle.batch
+        if ac.family == "gnn" and rules.mesh is not None:
+            batch = GNN.local_batch(cfg, batch, rules)
         return (adamw.init_state_with_dtype(params, ac.moment_dtype),
-                bundle.batch), sh
+                batch), sh
     if bundle.kind == "decode":
         if position is None:
             position = bundle.cache["k" if "k" in bundle.cache

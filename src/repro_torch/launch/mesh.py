@@ -34,6 +34,16 @@ The Mesh also counts the routed requests that overflowed a peer's
 capacity and were dropped (``core.offload``'s routes add them, on the
 device, with no read back).
 
+Every process group the port makes has one timeout (:func:`init_world`,
+:func:`spawn`'s ``coll_timeout``; :func:`make_mesh` gives each sub-mesh's
+group the world's): a collective that waits longer for its peers raises
+on its rank a :class:`CollectiveError` that names the collective (its
+kind, its number on the mesh, its bytes and its axis), and ``spawn``
+reports it with every rank's stacks.  On a multi-axis grid the flat
+sub-mesh over every axis has a group of its own, so the data collectives
+routed over it (DGAS exchanges, sums over every axis) never share a gloo
+context with the world group's barriers and a checkpoint's waits.
+
 A *dry* mesh (:func:`make_dry_mesh`, :func:`make_production_mesh`) is one
 rank's view of a grid with no process group and no peers: its device is
 ``meta`` and each collective is counted as above and not run, so a step
@@ -43,6 +53,7 @@ traced on meta tensors gives that rank's collective inventory
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import faulthandler
 import os
 import signal
@@ -56,10 +67,46 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "backend_for", "rank_device", "make_cores_mesh",
            "make_mesh", "make_dry_mesh", "make_production_mesh", "spawn",
-           "KINDS", "HW"]
+           "init_world", "group_timeout", "CollectiveError", "KINDS",
+           "HW", "DEFAULT_TIMEOUT_S"]
 
 # the collective kinds a Mesh counts
 KINDS = ("all_to_all", "all_reduce", "all_gather")
+
+# seconds a collective waits for its peers, where the caller names no
+# other value (torch's own default is 30 minutes)
+DEFAULT_TIMEOUT_S = 600.0
+
+
+class CollectiveError(RuntimeError):
+    """A collective that failed or outlived the group's timeout on this
+    rank; the message names it."""
+
+
+def init_world(backend: str, *, init_method: str, world_size: int,
+               rank: int, timeout: Optional[float] = None) -> None:
+    """``torch.distributed.init_process_group`` with a timeout of
+    ``timeout`` seconds (default :data:`DEFAULT_TIMEOUT_S`), which every
+    group :func:`make_mesh` makes afterwards shares."""
+    t = DEFAULT_TIMEOUT_S if timeout is None else float(timeout)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=t))
+
+
+def group_timeout(group=None) -> datetime.timedelta:
+    """The timeout of a process group (default: the world's), as torch
+    holds it for the group's backend."""
+    g = dist.group.WORLD if group is None else group
+    dev = torch.device("cuda" if dist.get_backend(g) == "nccl" else "cpu")
+    return g._get_backend(dev).options._timeout
+
+
+def _new_group(ranks):
+    """A process group over the world ranks ``ranks`` with the world's
+    timeout."""
+    return dist.new_group(ranks, timeout=group_timeout())
+
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -153,10 +200,15 @@ class Mesh:
         if not self.shape:
             self.shape, self.axis_names = (self.size,), (self.axis_name,)
 
-    def _call(self, kind: str, x: torch.Tensor, fn, *args) -> None:
-        """Hand ``x`` to the backend through ``fn(*args)``, counted."""
+    def _call(self, kind: str, x: torch.Tensor, fn, *args,
+              what: Optional[str] = None) -> None:
+        """Hand ``x`` to the backend through ``fn(*args)``, counted.  A
+        failure (a peer that never came within the group's timeout)
+        raises :class:`CollectiveError` naming the call (``what``, default
+        the kind)."""
         self.calls[kind] += 1
-        self.bytes[kind] += x.numel() * x.element_size()
+        nbytes = x.numel() * x.element_size()
+        self.bytes[kind] += nbytes
         if self.backend == "dry":       # counted, never run
             return
         ev = None
@@ -165,7 +217,17 @@ class Mesh:
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
         t0 = time.perf_counter()
-        fn(*args, group=self.group)
+        try:
+            fn(*args, group=self.group)
+        except RuntimeError as e:
+            raise CollectiveError(
+                f"{what or kind} (the mesh's {kind} call "
+                f"{self.calls[kind]}, {nbytes} B, axis {self.axis_name!r} "
+                f"on {'the world' if self.group is None else 'its own'} "
+                f"group, rank {self.rank} of {self.size}, {self.backend}) "
+                f"failed after {time.perf_counter() - t0:.1f} s of a "
+                f"{group_timeout(self.group).total_seconds():g} s "
+                f"timeout: {e}") from e
         self.seconds[kind] += time.perf_counter() - t0
         if ev is not None:
             ev[1].record()
@@ -299,8 +361,9 @@ class Mesh:
 
     def barrier(self) -> None:
         """Wait for every rank (a one-word all-reduce, counted)."""
-        self._all_reduce(torch.ones(1, dtype=torch.int32,
-                                    device=self.device), "sum")
+        x = torch.ones(1, dtype=torch.int32, device=self.device)
+        self._call("all_reduce", x, dist.all_reduce, x, _OPS["sum"],
+                   what="barrier")
 
 
 def make_cores_mesh(device=None, name: str = "cores") -> Mesh:
@@ -329,8 +392,10 @@ def _lay_out(mesh: Mesh, shape: tuple, names: tuple, members: list,
     one sub-mesh per axis line and per tuple of axes in grid order.
     ``group(line)`` makes the process group of the world ranks ``line``;
     it is called for every line in the same order on every rank, as
-    ``torch.distributed.new_group`` requires.  The sub-meshes share the
-    mesh's counters."""
+    ``torch.distributed.new_group`` requires.  The flat sub-mesh over
+    every axis of a multi-axis grid has a group of its own over all the
+    members (the data collectives), apart from the mesh's (the control
+    ones).  The sub-meshes share the mesh's counters."""
     import itertools
     inside = mesh.rank >= 0
     mesh.shape, mesh.axis_names = shape, names
@@ -342,10 +407,13 @@ def _lay_out(mesh: Mesh, shape: tuple, names: tuple, members: list,
             key = tuple(names[a] for a in axes)
             key = key[0] if k == 1 else key
             if k == len(names):
-                if k > 1 and inside:
-                    mesh.subs[key] = dataclasses.replace(
-                        mesh, axis_name=key, subs={}, shape=(mesh.size,),
-                        axis_names=("+".join(names),))
+                if k > 1:
+                    grp = group(list(members))
+                    if inside:
+                        mesh.subs[key] = dataclasses.replace(
+                            mesh, group=grp, axis_name=key, subs={},
+                            shape=(mesh.size,),
+                            axis_names=("+".join(names),))
                 continue
             rest = [a for a in range(len(names)) if a not in axes]
             mine = None
@@ -379,11 +447,12 @@ def make_mesh(shape, axis_names, device=None, ranks=None):
     rank grid ``shape`` (row-major: rank = the flattened coordinate) with
     one name per axis.  Builds one process group per axis line and per
     tuple of axes in grid order (``torch.distributed.new_group``; every
-    rank builds every group, as the call requires), so :meth:`Mesh.over`
-    gives each axis, or each flattened tuple of axes, its own collectives.
-    The sub-meshes share the mesh's counters.  ``ranks``: the world ranks
-    the grid spans, in its order (default: all of them); every rank of
-    the world must call, and one outside them gets None."""
+    rank builds every group, as the call requires, each with the world's
+    timeout), so :meth:`Mesh.over` gives each axis, or each flattened
+    tuple of axes, its own collectives.  The sub-meshes share the mesh's
+    counters.  ``ranks``: the world ranks the grid spans, in its order
+    (default: all of them); every rank of the world must call, and one
+    outside them gets None."""
     world = make_cores_mesh(device)
     members = list(range(world.size)) if ranks is None else \
         [int(r) for r in ranks]
@@ -391,11 +460,11 @@ def make_mesh(shape, axis_names, device=None, ranks=None):
     inside = world.rank in members
     mesh = world
     if ranks is not None:
-        grp = dist.new_group(members)
+        grp = _new_group(members)
         mesh = dataclasses.replace(
             world, group=grp, size=len(members),
             rank=members.index(world.rank) if inside else -1)
-    _lay_out(mesh, shape, names, members, dist.new_group)
+    _lay_out(mesh, shape, names, members, _new_group)
     return mesh if inside else None
 
 
@@ -452,7 +521,7 @@ def _stacks_file(init_file: str, rank: int) -> str:
 
 
 def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, grid,
-               conn):
+               coll_timeout, conn):
     stacks = open(_stacks_file(init_file, rank), "w")
     faulthandler.register(STACK_SIGNAL, file=stacks, all_threads=True)
     try:
@@ -462,8 +531,8 @@ def _rank_main(fn, rank, n_ranks, device, backend, init_file, args, grid,
             # spins and starves the peer that a collective waits for
             torch.set_num_threads(1)
             torch.set_num_interop_threads(1)
-        dist.init_process_group(backend, init_method=f"file://{init_file}",
-                                world_size=n_ranks, rank=rank)
+        init_world(backend, init_method=f"file://{init_file}",
+                   world_size=n_ranks, rank=rank, timeout=coll_timeout)
         try:
             mesh = make_cores_mesh(device) if grid is None else \
                 make_mesh(grid[0], grid[1], device)
@@ -536,7 +605,8 @@ def _take(ready, pending: dict, procs, out: dict, failed: dict) -> None:
 
 
 def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
-          args: tuple = (), timeout: float = 600.0, grid=None) -> list:
+          args: tuple = (), timeout: float = 600.0, grid=None,
+          coll_timeout: float = DEFAULT_TIMEOUT_S) -> list:
     """Run ``fn(mesh, *args)`` on ``n_ranks`` fresh processes (the
     ``spawn`` start method), joined through the file ``init_file`` (which
     must not exist yet: parallel callers each take their own file, so they
@@ -546,14 +616,18 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
     Returns the ranks' results, by rank.  A rank that raises, dies or
     outlives ``timeout`` seconds fails the call: the other ranks are
     terminated (one waiting in a collective would never return) and a
-    RuntimeError carries every failed rank's traceback, or, past the
-    timeout, every live rank's stacks (each rank writes them on
-    :data:`STACK_SIGNAL`).  The call leaves no process
-    behind: every rank is joined (or killed), and the start method's
-    resource tracker, when this call started it, is stopped.  The backend
-    is :func:`backend_for` the device and rank count.  ``grid`` = (shape,
-    axis names) lays the ranks out as :func:`make_mesh` does; None gives
-    the 1-D mesh.  A CPU rank runs torch on one thread."""
+    RuntimeError carries every failed rank's traceback and every live
+    rank's stacks (each rank writes them on :data:`STACK_SIGNAL`).  Every
+    process group of the ranks has a timeout of ``coll_timeout`` seconds
+    (:func:`init_world`), so a collective that a peer never joins fails
+    its rank with a :class:`CollectiveError` that names it, well before
+    ``timeout`` where ``coll_timeout`` is the smaller.  The call leaves no
+    process behind: every rank is joined (or killed), and the start
+    method's resource tracker, when this call started it, is stopped.
+    The backend is :func:`backend_for` the device and rank count.
+    ``grid`` = (shape, axis names) lays the ranks out as :func:`make_mesh`
+    does; None gives the 1-D mesh.  A CPU rank runs torch on one
+    thread."""
     import multiprocessing as mp
     from multiprocessing import connection, resource_tracker
     dev = torch.device("cuda" if device is None else device)
@@ -572,7 +646,7 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
     pipes = [ctx.Pipe(duplex=False) for _ in range(n_ranks)]
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, n_ranks, str(dev), backend, init_file,
-                               args, grid, pipes[r][1]))
+                               args, grid, coll_timeout, pipes[r][1]))
              for r in range(n_ranks)]
     out, deadline = {}, time.monotonic() + timeout
     try:
@@ -601,7 +675,8 @@ def spawn(fn: Callable, n_ranks: int, *, device=None, init_file: str,
                                       timeout=grace - time.monotonic()),
                       pending, procs, out, failed)
             raise RuntimeError("".join(f"rank {r} failed:\n{failed[r]}"
-                                       for r in sorted(failed)))
+                                       for r in sorted(failed))
+                               + _dump_stacks(procs, init_file))
         for p in procs:
             p.join(timeout=60)
     finally:

@@ -37,7 +37,7 @@ from ..distributed.sharding import make_rules
 from ..models import recsys as RS
 from ..models import transformer as TF
 from ..data import synthetic
-from .mesh import backend_for, make_mesh
+from .mesh import backend_for, init_world, make_mesh
 
 __all__ = ["serve_lm", "score_fm", "cache_len_for", "main"]
 
@@ -142,8 +142,8 @@ def main(argv: Optional[list] = None) -> dict:
     if world > 1 or args.grid is not None:
         if ac.family != "lm" or world < 2:
             raise ValueError("--grid and a process world serve an LM")
-        dist.init_process_group(backend_for(dev, world),
-                                init_method="env://")
+        init_world(backend_for(dev, world), init_method="env://",
+                   world_size=world, rank=int(os.environ["RANK"]))
         try:
             grid = ((1, world) if args.grid is None else
                     tuple(int(n) for n in args.grid.split(",")))

@@ -17,7 +17,9 @@ Several processes (``WORLD_SIZE`` > 1, as ``torch.distributed.run`` sets
 it, or a process group already initialized) train one model over a
 ``("data", "model")`` mesh of ``--grid D,M`` ranks (default (world, 1)),
 as the reference meshes its devices; every rank draws the same global
-batches and the models take its block of each.  An LM's parameters are
+batches and the models take its block of each (a GNN rank builds only
+its block of the edge and triplet arrays: ``gnn.local_batch``; the graph,
+the node arrays and ``pos`` stay whole).  An LM's parameters are
 drawn as its blocks (FSDP over ``data``, tensor / expert parallel over
 ``model``).  Rank 0 prints and writes the checkpoints:
 
@@ -46,8 +48,9 @@ from ..data import synthetic
 from ..distributed.fault_tolerance import (FTConfig, reshard_state,
                                            run_training)
 from ..distributed.sharding import make_rules
+from ..models import gnn as GNN
 from ..optim import adamw
-from .mesh import backend_for, make_mesh
+from .mesh import backend_for, init_world, make_mesh
 
 __all__ = ["build_batch_iter", "main"]
 
@@ -59,10 +62,13 @@ def _tensors(b: dict) -> dict:
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def build_batch_iter(ac, model_cfg, args):
+def build_batch_iter(ac, model_cfg, args, rules=None):
     """Host batches (CPU tensors, prefetched on a thread); the models move
     them to their device.  lm: Zipf token streams; recsys: click batches;
-    gnn: a fresh labelled batch over one random graph every step."""
+    gnn: a fresh labelled batch over one random graph every step, over a
+    mesh (``rules``) this rank's block of it (a ``gnn.RankBatch``: the
+    Wigner blocks and triplets built for the rank's rows alone)."""
+    meshed = rules is not None and rules.mesh is not None
     if ac.family == "lm":
         it = synthetic.lm_batches(args.batch, args.seq, model_cfg.vocab,
                                   seed=args.seed)
@@ -77,9 +83,22 @@ def build_batch_iter(ac, model_cfg, args):
                                  device="cpu")
         i = 0
         while True:
-            yield _tensors(synthetic.gnn_batch(
-                model_cfg.arch, g, model_cfg.d_feat, model_cfg.n_classes,
-                l_max=model_cfg.l_max, seed=args.seed + i))
+            if not meshed:
+                yield _tensors(synthetic.gnn_batch(
+                    model_cfg.arch, g, model_cfg.d_feat, model_cfg.n_classes,
+                    l_max=model_cfg.l_max, seed=args.seed + i))
+            else:
+                b = synthetic.gnn_inputs(model_cfg.arch, g, model_cfg.d_feat,
+                                         model_cfg.n_classes,
+                                         seed=args.seed + i)
+                if model_cfg.arch == "dimenet":
+                    b.update(synthetic.triplet_rows(
+                        b["src"], b["dst"], b["pos"]).entries())
+                if model_cfg.arch == "equiformer_v2":
+                    b.update(synthetic.wigner_rows(
+                        b["src"], b["dst"], b["pos"],
+                        model_cfg.l_max).entries())
+                yield GNN.local_batch(model_cfg, b, rules)
             i += 1
     return synthetic.prefetch(gen())
 
@@ -113,8 +132,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     mesh, own_group = None, False
     if world > 1 and not dist.is_initialized():
-        dist.init_process_group(backend_for(dev, world),
-                                init_method="env://")
+        init_world(backend_for(dev, world), init_method="env://",
+                   world_size=world, rank=int(os.environ["RANK"]))
         own_group = True
     if dist.is_initialized():
         grid = ((dist.get_world_size(), 1) if args.grid is None else
@@ -156,7 +175,7 @@ def _train(args, ac, model_cfg, mesh, dev) -> dict:
         print(f"arch={args.arch} params={n_params / 1e6:.1f}M "
               f"devices={1 if mesh is None else mesh.size} ({dev})")
 
-    batches = build_batch_iter(ac, model_cfg, args)
+    batches = build_batch_iter(ac, model_cfg, args, rules)
     ckpt = CheckpointManager(args.ckpt_dir, every=args.ckpt_every, keep=3)
     logs = []
 

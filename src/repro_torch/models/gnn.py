@@ -31,8 +31,10 @@ the same forward on its blocks: the functions take the *global* batch
 (the same on every rank) and slice it by its logical axes
 (:func:`batch_axes`: nodes and edges over the flat axes; with
 ``edge_chunk`` / ``triplet_chunk`` rank r's share of chunk c is chunk c's
-r-th block, as the reference's ``shard_map`` of each chunk gives it), and
-the parameters are whole on every rank.  Above ``dgas_threshold`` a
+r-th block, as the reference's ``shard_map`` of each chunk gives it), or
+a :class:`RankBatch` that :func:`local_batch` built as that block
+directly (the same bits; no rank holds the global edge or triplet
+arrays), and the parameters are whole on every rank.  Above ``dgas_threshold`` a
 node (or edge) table's gathers and scatters are the reference's DGAS
 exchanges under autograd (``distributed.routed``): each request routes
 to the row's owner and only the requested rows return; every owner-side
@@ -73,7 +75,7 @@ from ..kernels.segment_sum import SegmentPlan
 __all__ = ["GNNConfig", "init_params", "forward", "loss_fn", "segment_sum",
            "gather_rows", "gather_segment_sum", "EdgePlan", "gather_nodes",
            "scatter_add_nodes", "params_from_reference", "batch_to",
-           "batch_axes", "place_batch"]
+           "batch_axes", "place_batch", "local_batch", "RankBatch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -846,49 +848,102 @@ def _chunk_of(cfg: GNNConfig, key: str, E: int, T: int) -> Optional[int]:
     return None
 
 
-def place_batch(cfg: GNNConfig, batch: dict, rules: MeshRules):
-    """(this rank's batch as tensors, its layout) from the global batch.
-    Without a mesh the batch itself.  Over a mesh each array is sliced by
-    its logical axes (:func:`batch_axes`; a dim the flat size does not
-    divide stays whole); an array streamed in chunks is padded to whole
-    chunks as the reference pads it (ids with -1, the rest with 0) and
-    this rank takes its block of every chunk.  Edges the flat size does
-    not divide are padded first (src and dst -1, the rest 0), as
-    ``input_specs`` pads them to 512: a padding edge adds nothing."""
-    batch = {k: _tensor(v) for k, v in batch.items()}
-    n, E = batch["x"].shape[0], batch["src"].shape[0]
-    T = batch["triplet_kj"].shape[0] if "triplet_kj" in batch else 0
-    if rules.mesh is None:
-        return batch, _Layout(n, E, T, 1)
-    mesh = _flat_mesh(rules)
-    S, r = mesh.size, mesh.rank
-    pad = -(-E // S) * S - E
-    if pad:
-        for k in ("src", "dst", "wigner"):
-            if k in batch:
-                v = batch[k]
-                batch[k] = torch.cat([v, v.new_full(
-                    (pad,) + tuple(v.shape[1:]), -1 if k != "wigner" else 0)])
-        E += pad
-    axes = batch_axes(cfg)
-    out = {}
+class RankBatch(NamedTuple):
+    """One rank's block of a global batch (:func:`local_batch`): its
+    arrays as :func:`place_batch` cuts them, the global layout, and the
+    rank of the flat mesh it belongs to."""
+
+    arrays: dict
+    layout: _Layout
+    rank: int
+
+
+def _fill(key: str) -> int:
+    """The padding of a key's array: -1 for ids, 0 for the rest."""
+    return -1 if key in ("src", "dst", "triplet_kj") else 0
+
+
+def _length(v) -> int:
+    """The rows of a batch value: an array, a tensor, or rows given by a
+    builder (``.length`` and ``.build``: ``data.synthetic.Rows``)."""
+    return v.length if hasattr(v, "build") else v.shape[0]
+
+
+def _padded(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """``t`` with rows of ``fill`` after it up to ``rows`` rows."""
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_full((rows - t.shape[0],)
+                                    + tuple(t.shape[1:]), fill)])
+
+
+def local_batch(cfg: GNNConfig, batch: dict, rules: MeshRules) -> RankBatch:
+    """This rank's block of the global ``batch`` over ``rules``' mesh,
+    built directly.  Each array is sliced by its logical axes
+    (:func:`batch_axes`; a dim the flat size does not divide stays whole);
+    an array streamed in chunks is padded to whole chunks as the reference
+    pads it (ids with -1, the rest with 0) and this rank takes its block
+    of every chunk.  Edges the flat size does not divide are padded first
+    (src and dst -1, the rest 0), as ``input_specs`` pads them to 512: a
+    padding edge adds nothing.  Only the rank's rows are read: an array or
+    tensor is sliced (meta tensors as shapes), and rows given by a builder
+    (``data.synthetic.Rows``, under each key it builds) are built at the
+    rank's ranges alone, every key of one builder from one call a range;
+    no global-sized array is copied or padded."""
+    n, E = _length(batch["x"]), _length(batch["src"])
+    T = _length(batch["triplet_kj"]) if "triplet_kj" in batch else 0
+    flat = _flat_mesh(rules)
+    S, r = flat.size, flat.rank
+    E = -(-E // S) * S
+    axes, out = batch_axes(cfg), {}
     for k, v in batch.items():
+        if k in out:                    # built with another key's rows
+            continue
+        L = E if k in ("src", "dst", "wigner") else _length(v)
         chunk = _chunk_of(cfg, k, E, T)
         if chunk is None:
-            out[k] = rules.input_sharding(v.shape, *axes[k]).block(v)
-            continue
-        if chunk % S:
-            raise ValueError(f"{k}'s chunk of {chunk} does not split over "
-                             f"{S} ranks")
-        pad = -(-v.shape[0] // chunk) * chunk - v.shape[0]
-        if pad:
-            fill = -1 if k in ("src", "dst", "triplet_kj") else 0
-            v = torch.cat([v, v.new_full((pad,) + tuple(v.shape[1:]), fill)])
-        per = chunk // S
-        v = v.reshape((-1, chunk) + tuple(v.shape[1:]))[:, r * per:
-                                                         (r + 1) * per]
-        out[k] = v.reshape((-1,) + tuple(v.shape[2:])).clone()
-    return out, _Layout(n, E, T, S)
+            entry = rules.input_sharding((L,), axes[k][0]).entries[0]
+            at, count = rules.mesh.coord(entry)
+            per = L // count
+            spans = [(at * per, (at + 1) * per)]
+        else:
+            if chunk % S:
+                raise ValueError(f"{k}'s chunk of {chunk} does not split "
+                                 f"over {S} ranks")
+            per = chunk // S
+            spans = [(c + r * per, c + (r + 1) * per)
+                     for c in range(0, -(-L // chunk) * chunk, chunk)]
+        keys = v.keys if hasattr(v, "build") else (k,)
+        parts: dict = {key: [] for key in keys}
+        for lo, hi in spans:
+            a, b = min(lo, _length(v)), min(hi, _length(v))
+            got = v.build(a, b) if hasattr(v, "build") else {k: v[a:b]}
+            for key in keys:
+                parts[key].append(_padded(_tensor(got[key]), hi - lo,
+                                          _fill(key)))
+        out.update({key: torch.cat(p) for key, p in parts.items()})
+    return RankBatch(out, _Layout(n, E, T, S), r)
+
+
+def place_batch(cfg: GNNConfig, batch, rules: MeshRules):
+    """(this rank's batch as tensors, its layout) from the global batch.
+    Without a mesh the batch itself; over a mesh :func:`local_batch`'s
+    block.  A :class:`RankBatch` is this rank's block already: its arrays
+    and layout, once they are checked to be this rank's of this mesh."""
+    if isinstance(batch, RankBatch):
+        S, r = (1, 0) if rules.mesh is None else (
+            _flat_mesh(rules).size, _flat_mesh(rules).rank)
+        if (batch.layout.S, batch.rank) != (S, r):
+            raise ValueError(f"a block of rank {batch.rank} of "
+                             f"{batch.layout.S} handed to rank {r} of {S}")
+        return ({k: _tensor(v) for k, v in batch.arrays.items()},
+                batch.layout)
+    if rules.mesh is not None:
+        block = local_batch(cfg, batch, rules)
+        return block.arrays, block.layout
+    batch = {k: _tensor(v) for k, v in batch.items()}
+    T = batch["triplet_kj"].shape[0] if "triplet_kj" in batch else 0
+    return batch, _Layout(batch["x"].shape[0], batch["src"].shape[0], T, 1)
 
 
 def _forward(cfg, params, batch, rules, lay):

@@ -20,8 +20,11 @@ Otherwise its route is fixed by the configuration (:func:`attention_route`):
 GQA models call the B6 kernel through ``kernels.ops.flash_attention`` (on
 CUDA tensors it launches the kernel or raises, on CPU tensors it computes
 the plain version); MLA, whose q / k head dim is not one of B6's and
-differs from v's, runs the plain version (``kernels.ref.flash_attention_ref``),
-and its decode the absorbed latent form.  ``prefill`` and ``decode_step``
+differs from v's, runs :func:`online_attention`, the forward of
+:class:`FlashAttention` (the reference's ``_online_softmax_attn`` over
+``k_chunk`` key blocks, so no (Sq, Skv) tensor outlives one block: a 32k
+prefill holds (heads, Sq, k_chunk) logits, not (heads, Sq, Sq)), and its
+decode the absorbed latent form.  ``prefill`` and ``decode_step``
 run under ``inference_mode``.  With ``remat`` a training forward
 checkpoints each layer (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint(nothing_saveable)``).
@@ -57,14 +60,13 @@ from ..core.graph import resolve_device
 from ..distributed import routed
 from ..distributed.sharding import MeshRules, make_rules
 from ..kernels import ops
-from ..kernels.ref import flash_attention_ref
 
 __all__ = ["LMConfig", "MoEConfig", "MLAConfig", "Transformer", "init_params",
            "forward", "prefill", "loss_fn", "init_cache", "decode_step",
            "grow_cache", "count_params", "attention_route", "rmsnorm", "rope",
            "rope_tables", "params_from_reference", "cache_from_reference",
            "cache_to_reference", "FlashAttention", "flash_attn",
-           "param_logical_axes"]
+           "online_attention", "param_logical_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,9 +130,10 @@ class LMConfig:
 
 
 def attention_route(cfg: LMConfig) -> str:
-    """"flash" (B6 through ``ops.flash_attention``) or "plain" (MLA: a q / k
-    head dim outside B6's and a v head dim unlike q's)."""
-    return "plain" if cfg.mla is not None else "flash"
+    """"flash" (B6 through ``ops.flash_attention``) or "online"
+    (:func:`online_attention`; MLA: a q / k head dim outside B6's and a v
+    head dim unlike q's)."""
+    return "online" if cfg.mla is not None else "flash"
 
 
 # ---------------------------------------------------------------------------
@@ -408,21 +411,79 @@ def _block_rows(k0: int, k1: int, sq: int, causal: bool,
     return a, max(a, b)
 
 
+def _masked_rows(a: int, r: int, k0: int, t: int, causal: bool,
+                 window: Optional[int]) -> list:
+    """[lo, hi) ranges of the r query rows at positions a.. that a mask
+    hides one of the keys k0..k0 + t - 1 from (causal: rows before the
+    block's last key; window: rows at or past k0 + window); every other
+    row sees the whole block."""
+    spans = []
+    if causal and k0 + t - 1 - a > 0:
+        spans.append((0, min(r, k0 + t - 1 - a)))
+    if window is not None and k0 + window - a < r:
+        spans.append((max(0, k0 + window - a), r))
+    if len(spans) == 2 and spans[1][0] <= spans[0][1]:
+        spans = [(0, r)]
+    return spans
+
+
 def _block_logits(qs, kb, a: int, k0: int, scale: float, causal: bool,
                   window: Optional[int]):
     """Scaled logits of the query rows qs (B, Kv, G, r, D), positions a to
     a + r - 1, against the key block kb (B, Kv, t, D) starting at key k0,
-    in f32, -1e30 where masked."""
+    in f32, -1e30 where masked (the mask built for the rows it hides a key
+    from alone, :func:`_masked_rows`)."""
     s = torch.matmul(qs, kb[:, :, None].transpose(-1, -2)) * scale
-    qpos = a + torch.arange(qs.shape[3], device=qs.device)[:, None]
-    kpos = k0 + torch.arange(kb.shape[2], device=qs.device)[None, :]
-    mask = torch.ones((qs.shape[3], kb.shape[2]), dtype=torch.bool,
-                      device=qs.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    return torch.where(mask, s, -1e30)
+    t = kb.shape[2]
+    for lo, hi in _masked_rows(a, qs.shape[3], k0, t, causal, window):
+        qpos = a + lo + torch.arange(hi - lo, device=qs.device)[:, None]
+        kpos = k0 + torch.arange(t, device=qs.device)[None, :]
+        mask = torch.ones((hi - lo, t), dtype=torch.bool, device=qs.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s[..., lo:hi, :] = torch.where(mask, s[..., lo:hi, :], -1e30)
+    return s
+
+
+def _online_softmax(q, k, v, causal: bool, window: Optional[int],
+                    k_chunk: int, scale: float):
+    """The forward of :class:`FlashAttention`: (out (B, H, Sq, Dv) in q's
+    dtype, lse (B, Kv, G, Sq) f32).  An online softmax over the key blocks
+    of :func:`_key_blocks`, each updating only the query rows that see one
+    of its keys (:func:`_block_rows`), in f32; the largest temporary is one
+    block's (B, Kv, G, rows, block) logits."""
+    B, H, Sq, D = q.shape
+    Kv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    qr = q.reshape(B, Kv, H // Kv, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    t, nk = _key_blocks(Skv, k_chunk)
+    m = qr.new_full(qr.shape[:4], -1e30)
+    l = qr.new_zeros(qr.shape[:4])
+    acc = qr.new_zeros(qr.shape[:4] + (Dv,))
+    for i in range(nk):
+        a, b = _block_rows(i * t, (i + 1) * t, Sq, causal, window)
+        if a == b:
+            continue
+        kb = kf[:, :, i * t:(i + 1) * t]
+        vb = vf[:, :, i * t:(i + 1) * t]
+        s = _block_logits(qr[:, :, :, a:b], kb, a, i * t, scale, causal,
+                          window)
+        # in place on the block's rows: the same products and sums, no
+        # copy of the (rows, Dv) accumulator
+        mr = m[..., a:b]
+        mc = torch.maximum(mr, s.amax(dim=-1))
+        p = s.sub_(mc[..., None]).exp_()
+        alpha = torch.exp(mr - mc)
+        l[..., a:b].mul_(alpha).add_(p.sum(dim=-1))
+        acc[..., a:b, :].mul_(alpha[..., None]).add_(
+            torch.matmul(p, vb[:, :, None]))
+        mr.copy_(mc)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    out = out.reshape(B, H, Sq, Dv)
+    return out, lse
 
 
 class FlashAttention(torch.autograd.Function):
@@ -445,32 +506,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, k_chunk, scale):
-        B, H, Sq, D = q.shape
-        Kv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-        qr = q.reshape(B, Kv, H // Kv, Sq, D).float()
-        t, nk = _key_blocks(Skv, k_chunk)
-        m = qr.new_full(qr.shape[:4], -1e30)
-        l = qr.new_zeros(qr.shape[:4])
-        acc = qr.new_zeros(qr.shape[:4] + (Dv,))
-        for i in range(nk):
-            a, b = _block_rows(i * t, (i + 1) * t, Sq, causal, window)
-            if a == b:
-                continue
-            kb = k[:, :, i * t:(i + 1) * t].float()
-            vb = v[:, :, i * t:(i + 1) * t].float()
-            s = _block_logits(qr[:, :, :, a:b], kb, a, i * t, scale, causal,
-                              window)
-            mr = m[..., a:b]
-            mc = torch.maximum(mr, s.amax(dim=-1))
-            p = torch.exp(s - mc[..., None])
-            alpha = torch.exp(mr - mc)
-            l[..., a:b] = l[..., a:b] * alpha + p.sum(dim=-1)
-            acc[..., a:b, :] = acc[..., a:b, :] * alpha[..., None] + \
-                torch.matmul(p, vb[:, :, None])
-            m[..., a:b] = mc
-        lse = m + torch.log(torch.clamp(l, min=1e-30))
-        out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-        out = out.reshape(B, H, Sq, Dv)
+        out, lse = _online_softmax(q, k, v, causal, window, k_chunk, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = (causal, window, k_chunk, scale)
         return out
@@ -517,6 +553,15 @@ def flash_attn(q, k, v, *, causal: bool = True,
     return FlashAttention.apply(q, k, v, causal, window, k_chunk, scale)
 
 
+def online_attention(q, k, v, *, causal: bool = True,
+                     window: Optional[int] = None, k_chunk: int = 64,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Attention by :class:`FlashAttention`'s forward, outside autograd
+    (MLA serving's route); the shapes and the scale of :func:`flash_attn`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _online_softmax(q, k, v, causal, window, k_chunk, scale)[0]
+
+
 def _attend(cfg: LMConfig, q, k, v, *, causal: bool, window: Optional[int]):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -524,7 +569,8 @@ def _attend(cfg: LMConfig, q, k, v, *, causal: bool, window: Optional[int]):
                           k_chunk=cfg.k_chunk)
     if attention_route(cfg) == "flash":
         return ops.flash_attention(q, k, v, causal=causal, window=window)
-    return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return online_attention(q, k, v, causal=causal, window=window,
+                            k_chunk=cfg.k_chunk)
 
 
 def _rope_dim(cfg: LMConfig) -> int:

@@ -265,6 +265,45 @@ def block_past_timeout(mesh, seconds: float) -> int:
     return mesh.rank
 
 
+def skip_a_collective(mesh, kind: str, seconds: float) -> int:
+    """Rank 1 skips the collective ``kind`` ('all_reduce' or 'barrier')
+    that rank 0 makes and waits in :func:`wait_in_sleep` instead; rank 0's
+    collective outlives the group's timeout."""
+    if mesh.rank == 1:
+        wait_in_sleep(seconds)
+    elif kind == "barrier":
+        mesh.barrier()
+    else:
+        mesh.all_reduce(torch.ones(1), "sum")
+    return mesh.rank
+
+
+def restore_while_rank0_saves(mesh, work: str, delay: float) -> dict:
+    """A ``CheckpointManager`` over a fresh directory on every rank: rank
+    1 reads its directory ``delay`` seconds late, while rank 0, once its
+    ``restore_latest`` has returned nothing, writes step 0 at once (as
+    ``run_training`` does).  Returns what this rank restored and its
+    collectives' count after the save's wait."""
+    import time
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed.sharding import Placement
+    if mesh.rank == 1:
+        real = ckpt.latest_step
+
+        def late(directory):
+            time.sleep(delay)
+            return real(directory)
+        ckpt.latest_step = late
+    tree = {"w": torch.arange(4.0)}
+    shard = {"w": Placement((None,), mesh)}
+    cm = ckpt.CheckpointManager(work, every=1)
+    restored, step = cm.restore_latest(tree, shardings=shard)
+    if restored is None:
+        cm.maybe_save(0, tree, force=True, shardings=shard)
+    cm.wait()
+    return {"step": step, "collectives": mesh.collectives}
+
+
 # ---------------------------------------------------------------------------
 # The second half of the distributed placement (tests/test_torch_dist_more.py)
 # ---------------------------------------------------------------------------

@@ -30,6 +30,9 @@ from repro_torch.optim import adamw, compression
 
 GRID = ((2, 2), ("data", "model"))
 S = 4
+# seconds a collective of the pool waits for a peer: the module passes in
+# 20-30 s, so a stalled collective fails named long before spawn's 300 s
+COLL_TIMEOUT = 120.0
 # the reference's own sizes (tests/_distributed_main.py, GNN DGAS vs local)
 ARCHS = {"gin": dict(n_layers=2, d_hidden=16),
          "gatedgcn": dict(n_layers=2, d_hidden=16),
@@ -240,6 +243,16 @@ def run_cases(mesh, ref: dict, work: str) -> dict:
         out[f"gnn/{arch}/loss"], out[f"gnn/{arch}/grads"] = loss, grads
         keep(f"gnn/{arch}/dropped", np.int64(mesh.dropped()))
         keep(f"gnn/{arch}/a2a", np.int64(mesh.calls["all_to_all"]))
+        # the same step handed this rank's block, built directly (NaN
+        # where the global form has it: equiformer's gradients at these
+        # inputs are NaN in places, the reference's too)
+        block = G.local_batch(gnn_cfg(arch), gnn_inputs(arch), rules)
+        loss_b, grads_b = gnn_loss_grads(gnn_cfg(arch), ref[f"gnn/{arch}"],
+                                         block, rules)
+        keep(f"gnn/{arch}/rank_batch_same", np.int64(
+            loss_b == loss and all(np.array_equal(grads_b[k], grads[k],
+                                                  equal_nan=True)
+                                   for k in grads)))
     # below the threshold (the all-gather path), and 66 nodes, which the
     # flat size does not divide (the whole-table path)
     loss, grads = gnn_loss_grads(gnn_cfg("gin", dgas_threshold=10 ** 12),

@@ -65,7 +65,7 @@ def runs(tmp_path_factory):
     try:
         port = TM.spawn(C.run_more_cases, S, device="cpu",
                         init_file=str(tmp / "init"), grid=C.GRID,
-                        timeout=300)[0]
+                        timeout=300, coll_timeout=120)[0]
     finally:
         logs = {part: p.communicate(timeout=300)[0]
                 for part, p in procs.items()}

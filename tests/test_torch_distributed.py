@@ -68,7 +68,8 @@ def both(tmp_path_factory):
         stderr=subprocess.STDOUT, text=True) for part in ("runs", "pagerank")}
     try:
         port = TM.spawn(C.run_cases, S, device="cpu",
-                        init_file=str(tmp / "init"), timeout=300)[0]
+                        init_file=str(tmp / "init"), timeout=300,
+                        coll_timeout=120)[0]
         local = _local_reference()
     finally:
         logs = {part: p.communicate(timeout=300)[0]
@@ -281,13 +282,13 @@ def test_spawn_leaves_no_process(tmp_path, bad):
     if bad < 0:
         got = TM.spawn(C.rank_or_fail, S, device="cpu",
                        init_file=str(tmp_path / "init"), args=(bad,),
-                       timeout=120)
+                       timeout=120, coll_timeout=120)
         assert got == list(range(S))
     else:
         with pytest.raises(RuntimeError, match="fails on purpose"):
             TM.spawn(C.rank_or_fail, S, device="cpu",
                      init_file=str(tmp_path / "init"), args=(bad,),
-                     timeout=120)
+                     timeout=120, coll_timeout=120)
     assert _live_children() <= before
     assert not (tmp_path / "init").exists()
 
@@ -300,7 +301,7 @@ def test_spawn_timeout_shows_every_rank_stack(tmp_path):
     with pytest.raises(RuntimeError, match="did not finish") as err:
         TM.spawn(C.block_past_timeout, S, device="cpu",
                  init_file=str(tmp_path / "init"), args=(600.0,),
-                 timeout=20)
+                 timeout=20, coll_timeout=120)
     msg = str(err.value)
     parts = msg.split("rank ")[1:]
     stacks = {int(p.split()[0]): p for p in parts if " stacks:" in p[:12]}

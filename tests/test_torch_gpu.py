@@ -1144,7 +1144,7 @@ def test_distributed_bfs_on_the_card_matches_cpu(cuda, tmp_path):
     import _torch_dist_cases as C
 
     got = TM.spawn(C.run_card_case, 2, init_file=str(tmp_path / "init"),
-                   timeout=600)[0]
+                   timeout=600, coll_timeout=120)[0]
     assert got["backend"] == "gloo" and got["device"].startswith("cuda")
     g = rmat(C.CARD_SCALE, 16, seed=7, device="cpu")
     np.testing.assert_array_equal(got["bfs"], bfs(g, 0).numpy())
@@ -1163,7 +1163,7 @@ def test_mesh_service_on_the_card_matches_cpu(cuda, tmp_path, placement):
     import _torch_dist_cases as C
 
     got = TM.spawn(C.run_card_service, 2, init_file=str(tmp_path / "init"),
-                   args=(placement,), timeout=600)[0]
+                   args=(placement,), timeout=600, coll_timeout=120)[0]
     assert got["device"].startswith("cuda")
     g = rmat(12, 16, seed=7, device="cpu")
     want = C.run_service(TS.GraphService(g, batch_budget=C.SVC_BUDGET,

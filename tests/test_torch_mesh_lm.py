@@ -180,7 +180,8 @@ def runs(tmp_path_factory):
                 MC.torch_threads(1):
             four = pool.submit(TM.spawn, C.run_cases, C.S, device="cpu",
                                init_file=os.path.join(work, "init4"),
-                               grid=C.GRID, args=(sds, work), timeout=900)
+                               grid=C.GRID, args=(sds, work), timeout=300,
+                               coll_timeout=MC.COLL_TIMEOUT)
             # XLA compiles the four losses side by side
             losses = {a: pool.submit(_ref_loss, a, trees[a], C.tokens(a))
                       for a in C.ARCHS}

@@ -27,6 +27,8 @@ process on the port's parameter draws.
   reference's quantization of each rank's input summed in int32, twice
   (the carried residual); ``psum_bf16`` within the reference's own
   tolerance; the all-reduce bytes halved and quartered.
+* The meshed GNN step handed each rank's block (``gnn.local_batch``):
+  the same loss and summed gradients, bit for bit, on every rank.
 * The 4 -> 2 -> 1 rank resume from a 4-rank checkpoint, a failure
   injected on every rank, and ``launch.train.main`` under the 4-rank
   world.
@@ -113,7 +115,8 @@ def runs(tmp_path_factory):
     with ThreadPoolExecutor(1 + len(C.ARCHS)) as pool, C.torch_threads(1):
         four = pool.submit(TM.spawn, C.run_cases, C.S, device="cpu",
                            init_file=os.path.join(work, "init4"),
-                           grid=C.GRID, args=(params, work), timeout=900)
+                           grid=C.GRID, args=(params, work), timeout=300,
+                           coll_timeout=C.COLL_TIMEOUT)
         rules = make_rules(None)
         # XLA compiles the four references side by side
         jitted = {a: pool.submit(_ref_gnn, a, params[f"gnn/{a}"])
@@ -206,6 +209,16 @@ def test_meshed_gnn_equals_reference_and_local(runs, arch):
     _grads_close(port[f"gnn/{arch}/grads"], local[1])
     assert port[f"gnn/{arch}/dropped"].reshape(-1).tolist() == [0] * C.S
     assert (port[f"gnn/{arch}/a2a"] > 0).all()    # the DGAS path was taken
+
+
+@pytest.mark.parametrize("arch", list(C.ARCHS))
+def test_rank_local_batch_gives_the_same_bits(runs, arch):
+    """Every rank's step handed its block built by ``gnn.local_batch``
+    gives the loss and the summed gradients of the step handed the global
+    batch, bit for bit."""
+    port, _, _ = runs
+    assert port[f"gnn/{arch}/rank_batch_same"].reshape(-1).tolist() == \
+        [1] * C.S
 
 
 @pytest.mark.parametrize("case", ["gin_below", "gin_whole"])

@@ -394,26 +394,34 @@ def test_init_moments_and_bf16():
 
 def test_attention_route_per_config(monkeypatch):
     """GQA configs send attention to ops.flash_attention (B6 on the card),
-    MLA (minicpm3) to the plain path, by configuration."""
-    calls = []
-    real = tops.flash_attention
+    MLA (minicpm3) to the online softmax (``online_attention``) on prefill
+    and to its absorbed latent form on decode, by configuration."""
+    calls, online = [], []
+    real, real_online = tops.flash_attention, T.online_attention
 
     def spy(*a, **kw):
         calls.append(a[0].shape)
         return real(*a, **kw)
 
+    def spy_online(*a, **kw):
+        online.append(a[0].shape)
+        return real_online(*a, **kw)
+
     monkeypatch.setattr(tops, "flash_attention", spy)
+    monkeypatch.setattr(T, "online_attention", spy_online)
     for arch in LM_ARCHS:
         cfg = get_config(arch).smoke
-        want = "plain" if arch == "minicpm3-4b" else "flash"
+        want = "online" if arch == "minicpm3-4b" else "flash"
         assert T.attention_route(cfg) == want
         assert T.attention_route(get_config(arch).model) == want
         model = T.Transformer(cfg, device="cpu")
         calls.clear()
+        online.clear()
         _, cache = T.prefill(cfg, model, torch.zeros((1, 4), dtype=torch.long))
         T.decode_step(cfg, model, T.grow_cache(cache, 5),
                       torch.zeros((1, 1), dtype=torch.long))
-        assert len(calls) == (0 if want == "plain" else 2 * cfg.n_layers)
+        assert len(calls) == (0 if want == "online" else 2 * cfg.n_layers)
+        assert len(online) == (cfg.n_layers if want == "online" else 0)
 
 
 def test_cuda_request_without_a_card_raises():
