@@ -62,8 +62,10 @@ Phases, each of which exits non-zero on failure:
    it): ``label_propagation(iters=8)`` twice (equal bits) and at RMAT-16
    on the card against the CPU path (equal bits); ``segment_mode`` alone
    on the LPA dense step's sorted stream and ``run_sum`` alone on
-   ``contract``'s stream, each bit-equal to its plain version and timed
-   beside its byte bound; ``multilevel`` per level (wall, sweeps, vertices
+   ``contract``'s stream, in f32 and in f64, each bit-equal to its plain
+   version and timed beside its byte bound, its longest run's order floor
+   and ``torch.segment_reduce`` of the same runs (order-free, not
+   bit-equal); ``multilevel`` per level (wall, sweeps, vertices
    and edges after contraction, Q), twice (equal labels and scores), Q
    against ``modularity`` (1e-6), the contracted graph's Q (1e-5) and a
    single LPA sweep's, and at RMAT-16 card against CPU (equal bits);
@@ -113,7 +115,8 @@ Phases, each of which exits non-zero on failure:
    collectives, bytes, host and card seconds and peak memory per rank;
    ``segment_mode`` and ``segment_or`` must be launched; the structured
    phase also prices ``run_sum``'s order floor (``[time] run_sum's
-   order floor``: a chain of dependent f32 adds timed on the card);
+   order floor``: a chain of dependent f32 adds timed on the card, and
+   one of f64 adds for ``run_sum_f64``);
 5. kernel timings with CUDA events beside their byte bound, the plain
    version and, where one exists, a library call computing the same
    function (timed here only; the port never calls it), and B1 / B3 on the
@@ -1847,29 +1850,36 @@ def pooled_chisquare(counts, expected):
 
 FADD_SRC = r"""
 #include <cuda_runtime.h>
-extern "C" __global__ void chain(const float* in, float* out,
-                                 long long* cycles, int n) {
-    float x = in[0], y = in[1];
+__device__ __forceinline__ void add_rn(float& x, float y) {
+    asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(x) : "f"(y));
+}
+__device__ __forceinline__ void add_rn(double& x, double y) {
+    asm volatile("add.rn.f64 %0, %0, %1;" : "+d"(x) : "d"(y));
+}
+template <typename T>
+__global__ void chain(const T* in, T* out, long long* cycles, int n) {
+    T x = in[0], y = in[1];
     long long t0 = clock64();
     for (int i = 0; i < n; i += 8) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-            asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(x) : "f"(y));
+        for (int j = 0; j < 8; ++j) add_rn(x, y);
     }
     long long t1 = clock64();
     out[0] = x;
     cycles[0] = t1 - t0;
 }
-extern "C" int run_chain(int n, float* ms, long long* cycles) {
-    float *in, *out; long long* cyc;
-    float h[2] = {1.0f, 1e-7f};
-    cudaMalloc(&in, 8); cudaMalloc(&out, 4); cudaMalloc(&cyc, 8);
-    cudaMemcpy(in, h, 8, cudaMemcpyHostToDevice);
+template <typename T>
+int run(int n, float* ms, long long* cycles) {
+    T *in, *out; long long* cyc;
+    T h[2] = {T(1), T(1e-7)};
+    cudaMalloc(&in, sizeof(h)); cudaMalloc(&out, sizeof(T));
+    cudaMalloc(&cyc, 8);
+    cudaMemcpy(in, h, sizeof(h), cudaMemcpyHostToDevice);
     cudaEvent_t a, b;
     cudaEventCreate(&a); cudaEventCreate(&b);
-    chain<<<1, 1>>>(in, out, cyc, 8);
+    chain<T><<<1, 1>>>(in, out, cyc, 8);
     cudaEventRecord(a);
-    chain<<<1, 1>>>(in, out, cyc, n);
+    chain<T><<<1, 1>>>(in, out, cyc, n);
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     cudaEventElapsedTime(ms, a, b);
@@ -1878,41 +1888,54 @@ extern "C" int run_chain(int n, float* ms, long long* cycles) {
     cudaEventDestroy(a); cudaEventDestroy(b);
     return (int)cudaGetLastError();
 }
+extern "C" int run_chain(int n, float* ms, long long* cycles) {
+    return run<float>(n, ms, cycles);
+}
+extern "C" int run_chain_f64(int n, float* ms, long long* cycles) {
+    return run<double>(n, ms, cycles);
+}
 """
 
 
-def fadd_chain_floor(chain: int, n: int = 1 << 26) -> dict:
+def fadd_chain_floor(chain: int, n: int = 1 << 26, *,
+                     f64: bool = False) -> dict:
     """The floor an in-order run sum's longest run sets: ``run_sum`` adds
     each run's weights in stream order, so a run of ``chain`` items is that
-    many dependent f32 adds.  One thread adds a value to an accumulator
-    ``n`` times through ``add.rn.f32`` (no FMA contraction, no
-    reordering), timed by ``clock64`` and by CUDA events (best of 5): the
-    cycles per add are the FADD latency, cycles over seconds the SM clock,
-    and ``chain`` times the seconds per add the floor."""
+    many dependent adds.  One thread adds a value to an accumulator ``n``
+    times through ``add.rn.f32`` (``add.rn.f64`` with ``f64``: no FMA
+    contraction, no reordering), timed by ``clock64`` and by CUDA events
+    (best of 5): the cycles per add are the add's latency, cycles over
+    seconds the SM clock, and ``chain`` times the seconds per add the
+    floor."""
     import ctypes
+    import hashlib
     out = os.path.join(ROOT, "build", "fadd_chain")
     os.makedirs(out, exist_ok=True)
-    src, lib = os.path.join(out, "chain.cu"), os.path.join(out, "chain.so")
-    with open(src, "w") as fh:
-        fh.write(FADD_SRC)
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", lib, src],
-                   check=True)
+    tag = hashlib.sha256(FADD_SRC.encode()).hexdigest()[:12]
+    src = os.path.join(out, f"chain-{tag}.cu")
+    lib = os.path.join(out, f"chain-{tag}.so")
+    if not os.path.exists(lib):
+        with open(src, "w") as fh:
+            fh.write(FADD_SRC)
+        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "nvcc")
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib,
+                        src], check=True)
     so = ctypes.CDLL(lib)
+    entry = so.run_chain_f64 if f64 else so.run_chain
     ms, cyc = ctypes.c_float(), ctypes.c_longlong()
     best = None
     for _ in range(5):
-        if so.run_chain(n, ctypes.byref(ms), ctypes.byref(cyc)):
-            fail("the FADD chain kernel failed")
+        if entry(n, ctypes.byref(ms), ctypes.byref(cyc)):
+            fail("the add chain kernel failed")
         if best is None or ms.value < best[0]:
             best = (ms.value, cyc.value)
     t_ms, cycles = best
     ns = t_ms * 1e6 / n
     return dict(cycles_per_add=cycles / n, ns_per_add=ns,
                 sm_ghz=cycles / (t_ms * 1e-3) / 1e9, chain=chain,
-                floor_ms=chain * ns / 1e6)
+                floor_ms=chain * ns / 1e6, dtype="f64" if f64 else "f32")
 
 
 def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
@@ -2005,7 +2028,8 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
     dst, lab, sw = key >> 32, key & 0xFFFFFFFF, t_g.values[order]
     del key, order, rows_t, cols_t
     start, run_id = offload.run_starts(dst, lab)
-    longest = int(torch.bincount(run_id).max())
+    run_len = torch.bincount(run_id)
+    longest = int(run_len.max())
     got = SM.segment_mode_kernel_call(dst, lab, sw, n)
     want = ref.segment_mode_ref(dst, lab, sw, n)
     torch.cuda.synchronize()
@@ -2024,11 +2048,18 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
         plain_ms=cuda_ms(lambda: ref.segment_mode_ref(dst, lab, sw, n), 1, 1),
         # destination, label and weight read once, (best_w, label) written
         bound_ms=least_ms(12 * dst.numel() + 8 * n)[0],
-        bound_by="bytes", library_ms=None)
+        bound_by="bytes",
+        # an order-free yardstick, not bit-equal: the run sums alone
+        library_ms=cuda_ms(lambda: torch.segment_reduce(
+            sw, "sum", lengths=run_len, unsafe=True), args.reps),
+        library="torch.segment_reduce(sum) of the (destination, label) "
+                "runs, not bit-equal")
     log(f"[time] segment_mode: kernel {mode_case['ms']!r} ms, plain "
         f"{mode_case['plain_ms']!r} ms, bound {mode_case['bound_ms']!r} ms, "
-        f"library none")
-    del t_g, dst, lab, sw, start, run_id, got, want, fin
+        f"library {mode_case['library_ms']!r} ms (segment_reduce of the "
+        f"run sums, not bit-equal); its longest run's f32 order floor comes "
+        f"with run_sum's below")
+    del t_g, dst, lab, sw, start, run_id, run_len, got, want, fin
 
     # -- multilevel twice through the entry point, the first with its
     # -- module's sweep, local-move and contraction steps counted per level
@@ -2109,7 +2140,9 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
     _, run_id = offload.run_starts(key)
     n_runs = int(run_id[-1]) + 1
     sv = g.values[order]
-    longest = int(torch.bincount(run_id).max())
+    run_len = torch.bincount(run_id)
+    longest = int(run_len.max())
+    mode_longest = mode_case["longest_run"]
     del key, order, dense
     got = SM.run_sum_kernel_call(run_id, sv, n_runs)
     want = ref.run_sum_ref(run_id, sv, n_runs)
@@ -2128,17 +2161,57 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
         plain_ms=cuda_ms(lambda: ref.run_sum_ref(run_id, sv, n_runs), 1, 1),
         # ids and weights read once, the run sums written once
         bound_ms=least_ms(8 * m + 4 * n_runs)[0],
-        bound_by="bytes", library_ms=None)
+        bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.segment_reduce(
+            sv, "sum", lengths=run_len, unsafe=True), args.reps),
+        library="torch.segment_reduce(sum), not bit-equal")
     log(f"[time] run_sum: kernel {sum_case['ms']!r} ms, plain "
         f"{sum_case['plain_ms']!r} ms, bound {sum_case['bound_ms']!r} ms, "
-        f"library none")
+        f"library {sum_case['library_ms']!r} ms (segment_reduce, not "
+        f"bit-equal)")
     floor = fadd_chain_floor(longest)
     sum_case["chain_floor"] = floor
     log(f"[time] run_sum's order floor: {floor['cycles_per_add']!r} cycles "
         f"per dependent f32 add at {floor['sm_ghz']!r} GHz "
         f"({floor['ns_per_add']!r} ns), so its longest run of {longest} "
-        f"adds takes at least {floor['floor_ms']!r} ms")
-    del run_id, sv, got, want
+        f"adds takes at least {floor['floor_ms']!r} ms; kernel / floor "
+        f"{sum_case['ms'] / floor['floor_ms']!r}")
+    mode_case["chain_floor_ms"] = mode_longest * floor["ns_per_add"] / 1e6
+    log(f"[time] segment_mode's order floor: its longest run of "
+        f"{mode_longest} adds takes at least "
+        f"{mode_case['chain_floor_ms']!r} ms")
+    # -- run_sum_f64 on the same stream, beside its own f64 floor ----------
+    sv64 = sv.double()
+    got = SM.run_sum_kernel_call(run_id, sv64, n_runs)
+    want = ref.run_sum_ref(run_id, sv64, n_runs)
+    torch.cuda.synchronize()
+    log(f"[parity] run_sum_f64 (the same stream in f64): bit-equal "
+        f"{torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        fail("run_sum_f64: kernel disagrees with the plain in-order sum")
+    floor64 = fadd_chain_floor(longest, f64=True)
+    f64_case = dict(
+        case="run_sum_f64 on contract's stream", items=m, runs=n_runs,
+        longest_run=longest,
+        ms=cuda_ms(lambda: SM.run_sum_kernel_call(run_id, sv64, n_runs),
+                   args.reps),
+        plain_ms=cuda_ms(lambda: ref.run_sum_ref(run_id, sv64, n_runs), 1,
+                         1),
+        # ids (4 B) and f64 weights (8 B) read once, f64 sums written once
+        bound_ms=least_ms(12 * m + 8 * n_runs)[0],
+        bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.segment_reduce(
+            sv64, "sum", lengths=run_len, unsafe=True), args.reps),
+        library="torch.segment_reduce(sum), not bit-equal",
+        chain_floor=floor64)
+    log(f"[time] run_sum_f64: kernel {f64_case['ms']!r} ms, plain "
+        f"{f64_case['plain_ms']!r} ms, bound {f64_case['bound_ms']!r} ms, "
+        f"library {f64_case['library_ms']!r} ms; order floor "
+        f"{floor64['cycles_per_add']!r} cycles per dependent f64 add "
+        f"({floor64['ns_per_add']!r} ns), {floor64['floor_ms']!r} ms for "
+        f"{longest} adds; kernel / floor "
+        f"{f64_case['ms'] / floor64['floor_ms']!r}")
+    del run_id, run_len, sv, sv64, got, want
 
     # -- walks and sampling ------------------------------------------------
     walks, walk_s = run(f"random_walks ({n} walkers x {WALK_STEPS} steps)",
@@ -2266,7 +2339,7 @@ def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
         entry_launches={k: launched[k] for k in ("segment_mode", "run_sum")},
         **{key: mode_case[key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
-        cases=[mode_case, sum_case])
+        cases=[mode_case, sum_case, f64_case])
     out.update(lpa_s=[lpa_s, lpa2_s], lpa_cpu_rmat16_s=cpu_lpa_s,
                lpa_labels=n_lab, segment_mode_per_lpa_sweep=per_sweep,
                multilevel_s=[ml_s, ml2_s], multilevel_levels=levels,

@@ -6,7 +6,10 @@ elastic re-meshing (counterpart of ``repro.distributed.fault_tolerance``).
   * restore-and-continue across (injected or real) failures,
   * straggler detection: steps slower than ``straggler_factor`` x the
     rolling median are logged with their step index,
-  * SIGTERM -> a synchronous final checkpoint (preemption safety).
+  * SIGTERM -> a synchronous final checkpoint (preemption safety); over
+    a mesh of several ranks the handler only raises a flag, and at each
+    step boundary the ranks agree on it (one 4-byte all-reduce), so that
+    every rank saves the same step and exits together.
 
 A step function reads the parameters from the state it is given
 (``state.params``), never from a module it closed over: after a restart
@@ -79,8 +82,18 @@ def run_training(step_fn: Callable, state: Any, batches: Iterator,
         start = 0
         ckpt.maybe_save(0, state, force=True, shardings=shardings)
 
+    # Over a mesh of several ranks a save's collectives need every rank, so
+    # the rank a SIGTERM reaches must not save alone: its handler raises a
+    # flag, which the ranks share at the next step boundary.
+    mesh = next((pl.mesh for pl in placements(state, shardings).values()),
+                None)
+    meshed = mesh is not None and mesh.size > 1
+    term = []
     if ft.install_sigterm:
         def _on_term(signum, frame):
+            if meshed:
+                term.append(signum)
+                return
             ckpt.wait()
             ckpt.maybe_save(int(state.step), state, force=True,
                             shardings=shardings)
@@ -90,6 +103,11 @@ def run_training(step_fn: Callable, state: Any, batches: Iterator,
     step = start
     restarts = 0
     while step < max_steps:
+        if ft.install_sigterm and meshed and _any_rank(mesh, bool(term)):
+            ckpt.wait()
+            ckpt.maybe_save(step, state, force=True, shardings=shardings)
+            ckpt.wait()
+            raise SystemExit(143)
         try:
             batch = next(batches)
             if fail_injector is not None:
@@ -126,6 +144,12 @@ def run_training(step_fn: Callable, state: Any, batches: Iterator,
     ckpt.maybe_save(step, state, force=True, shardings=shardings)
     ckpt.wait()
     return state, report
+
+
+def _any_rank(mesh, flag: bool) -> bool:
+    """Whether ``flag`` is set on any rank of ``mesh`` (every rank calls)."""
+    seen = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    return bool(mesh.all_reduce(seen, "max")[0])
 
 
 def reshard_state(state: Any, shardings: Any, *, old: Any = None) -> Any:

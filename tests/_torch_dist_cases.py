@@ -304,6 +304,49 @@ def restore_while_rank0_saves(mesh, work: str, delay: float) -> dict:
     return {"step": step, "collectives": mesh.collectives}
 
 
+def sigterm_on_one_rank(mesh, work: str, at: int) -> dict:
+    """``run_training`` with ``install_sigterm`` over a state split across
+    the mesh (checkpoints every 100 steps, so only step 0 and the SIGTERM
+    save write); each step all-reduces, as a meshed step does.  Rank 1
+    alone sends itself SIGTERM once the step to ``at`` is done.  Returns
+    this rank's exit code and the checkpoint steps on disk."""
+    import os
+    import signal
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import fault_tolerance as FT
+    from repro_torch.distributed.sharding import Placement
+    from repro_torch.optim.adamw import TrainState
+    pl = {"w": Placement((mesh.axis_names[0],), mesh)}
+    block = lambda: torch.zeros(2)
+    state = TrainState({"w": block()}, {"w": block()}, {"w": block()},
+                       torch.zeros((), dtype=torch.int32))
+
+    def step_fn(st, batch):
+        g = mesh.all_reduce(torch.ones(2), "sum")
+        return (TrainState({"w": st.params["w"] + g}, st.m, st.v,
+                           st.step + 1), {"loss": g.sum()})
+
+    def on_metrics(step, metrics):
+        if step == at and mesh.rank == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def batches():
+        while True:
+            yield None
+    try:
+        FT.run_training(step_fn, state, batches(),
+                        ckpt.CheckpointManager(work, every=100), 10,
+                        FT.FTConfig(ckpt_every=100, install_sigterm=True),
+                        on_metrics=on_metrics,
+                        shardings=TrainState(pl, pl, pl, None))
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    return {"code": code, "steps": sorted(
+        int(d.split("_")[1]) for d in os.listdir(work)
+        if d.startswith("step_"))}
+
+
 # ---------------------------------------------------------------------------
 # The second half of the distributed placement (tests/test_torch_dist_more.py)
 # ---------------------------------------------------------------------------

@@ -986,12 +986,51 @@ def _cpu(g):
                           g.n_rows, g.n_cols, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["hub_runs", "ties", "random", "empty"])
+def _once_without_sync(call, key):
+    """call() launched as one count of segment_mode's ``key``, with no
+    host synchronisation inside (``set_sync_debug_mode("error")`` raises
+    on one); a second call gives the same bits."""
+    from repro_torch.kernels import segment_mode as SM
+    before = SM.LAUNCHES[key]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert SM.LAUNCHES[key] == before + 1
+    again = call()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(a, b)
+    return got
+
+
+def _mode_shapes():
+    from repro_torch.kernels import segment_mode as SM
+    import _segment_mode_shapes as S
+    return {name: rest for name, *rest in S.mode_streams(SM.TILE,
+                                                         SM.LONG_RUN)}
+
+
+MODE_SHAPES = ["hub runs, f32 weights", "hub runs, ints weights",
+               "out of range", "long last run", "empty stream"]
+
+
+@pytest.mark.parametrize("case", ["hub_runs", "ties", "random", "empty",
+                                  "one long run"] + MODE_SHAPES)
 def test_segment_mode_kernel_matches_plain(cuda, case):
     """Bit-equal to the plain version on a (dst, label)-sorted stream: one
     hub destination taking 200k votes in a few long label runs, integer
     weights full of ties, random f32 weights with -inf items and ids out of
-    range, and an empty stream (no launch)."""
+    range, an empty stream, a single (destination, label) run of 3 M items,
+    and the shapes of the kernels' split by run length
+    (``tests/_segment_mode_shapes.py``: runs either side of LONG_RUN, long
+    tied runs, a long run ending the stream).  With int64 and int32 ids,
+    one launch count a call, no host synchronisation, the same bits
+    twice."""
+    import numpy as np
+
     from repro_torch.core import offload
     from repro_torch.kernels import segment_mode as SM
     gen = _gen(31)
@@ -1015,20 +1054,32 @@ def test_segment_mode_kernel_matches_plain(cuda, case):
         w = torch.rand(idx.numel(), device=cuda, generator=gen) * 1e3
         w[torch.rand(idx.numel(), device=cuda, generator=gen) < 0.01] = \
             float("-inf")
-    else:
+    elif case == "empty":
         idx = torch.zeros(0, dtype=torch.int64, device=cuda)
         lab, w = idx.clone(), torch.zeros(0, device=cuda)
+    elif case == "one long run":
+        idx = torch.full((3_000_000,), 11, device=cuda)
+        lab = torch.full_like(idx, 4)
+        w = torch.rand(idx.numel(), device=cuda, generator=gen) * \
+            10.0 ** torch.randint(-4, 5, (idx.numel(),), device=cuda,
+                                  generator=gen).float()
+    else:
+        idx, lab, w, n = _mode_shapes()[case]
+        idx, lab = (torch.from_numpy(np.asarray(a)).to(cuda)
+                    for a in (idx, lab))
+        w = torch.from_numpy(w).to(cuda)
     valid = (idx >= 0) & (idx < n) & (lab >= 0)
     key, order = torch.sort(
         (torch.where(valid, idx, n).long() << 32)
         | torch.where(valid, lab, offload.LABEL_PAD).long(), stable=True)
     sw = torch.where(valid[order], w[order], 0.0)
-    before = SM.LAUNCHES["segment_mode"]
-    got = SM.segment_mode_kernel_call(key >> 32, key & 0xFFFFFFFF, sw, n)
-    torch.cuda.synchronize()
-    assert SM.LAUNCHES["segment_mode"] == before + 1
     want = ref.segment_mode_ref(key >> 32, key & 0xFFFFFFFF, sw, n)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # int64 ids are read as they are, int32 ones through their own entry
+    for ids in (torch.int64, torch.int32):
+        got = _once_without_sync(lambda: SM.segment_mode_kernel_call(
+            (key >> 32).to(ids), (key & 0xFFFFFFFF).to(ids), sw, n),
+            "segment_mode")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     # the offload entry sorts and launches the same kernel; and the CPU
     # path gives the same bits
     full = offload.segment_weighted_mode(idx, lab, w, n)
@@ -1037,11 +1088,22 @@ def test_segment_mode_kernel_matches_plain(cuda, case):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
 
 
+def _run_shapes():
+    from repro_torch.kernels import segment_mode as SM
+    import _segment_mode_shapes as S
+    return S.run_sum_streams(SM.TILE, SM.LONG_RUN)
+
+
 def test_run_sum_in_order(cuda):
     """run_sum adds each id's weights in stream order, like the CPU's
     index_add_: bit-equal to the plain version (which sums on the host)
     over runs of one to 100k items of f32 weights spanning six orders of
-    magnitude."""
+    magnitude, a single run of 3 M items, and the shapes of the kernels'
+    split by run length (``tests/_segment_mode_shapes.py``: runs either
+    side of LONG_RUN across tile boundaries, several long runs, one ending
+    the stream, ids with no items and out of range); each in f32 and in
+    f64, with int64 and int32 ids, one launch count a call, no host
+    synchronisation, the same bits twice."""
     from repro_torch.kernels import segment_mode as SM
     gen = _gen(32)
     n = 5000
@@ -1052,16 +1114,24 @@ def test_run_sum_in_order(cuda):
     w = torch.rand(idx.numel(), device=cuda, generator=gen) * \
         10.0 ** torch.randint(-3, 3, (idx.numel(),), device=cuda,
                               generator=gen).float()
-    before = SM.LAUNCHES["run_sum"]
-    got = SM.run_sum_kernel_call(idx, w, n)
-    torch.cuda.synchronize()
-    assert SM.LAUNCHES["run_sum"] == before + 1
-    assert got.dtype == torch.float32
-    assert torch.equal(got, ref.run_sum_ref(idx, w, n))
-    # the double entry, as modularity takes it
-    got64 = SM.run_sum_kernel_call(idx, w.double(), n)
-    assert got64.dtype == torch.float64
-    assert torch.equal(got64, ref.run_sum_ref(idx, w.double(), n))
+    big = 3_000_000
+    cases = [("mixed", idx, w, n),
+             ("one long run", torch.full((big,), 1, device=cuda),
+              torch.rand(big, device=cuda, generator=gen)
+              * 10.0 ** torch.randint(-4, 5, (big,), device=cuda,
+                                      generator=gen).float(), 2)]
+    cases += [(name, torch.from_numpy(i).to(cuda),
+               torch.from_numpy(x).to(cuda), m)
+              for name, i, x, m in _run_shapes()]
+    for name, idx, w, n in cases:
+        for dtype in (torch.float32, torch.float64):
+            x = w.to(dtype)
+            want = ref.run_sum_ref(idx, x, n)
+            for ids in (idx, idx.to(torch.int32)):
+                got = _once_without_sync(
+                    lambda: SM.run_sum_kernel_call(ids, x, n), "run_sum")
+                assert got.dtype == dtype, name
+                assert torch.equal(got, want), (name, dtype, ids.dtype)
 
 
 def test_lpa_card_matches_cpu(cuda):

@@ -8,7 +8,9 @@ of its own, apart from the world's.  And the cause of the mesh-training
 pool's stalls: a rank that read the checkpoint directory after rank 0 had
 begun its first save restored it, skipped the save the others made and
 the barrier that waits for it, and paired every later collective with the
-wrong one; every rank now takes rank 0's reading."""
+wrong one; every rank now takes rank 0's reading.  A SIGTERM that
+reaches one rank of a training mesh makes every rank save the same step
+and exit 143: the rank it reached does not save alone."""
 import os
 import tempfile
 import time
@@ -82,3 +84,18 @@ def test_every_rank_restores_what_rank_0_read(tmp_path):
     assert [g["step"] for g in got] == [None, None]
     assert got[0]["collectives"] == got[1]["collectives"]
     assert (tmp_path / "ckpt" / "step_00000000").is_dir()
+
+
+def test_a_sigterm_on_one_rank_saves_on_every_rank(tmp_path):
+    """Rank 1 alone gets SIGTERM after step 2: both ranks agree on it at
+    the next step boundary, write step 2's checkpoint together and exit
+    143 within seconds.  A handler that saved on rank 1 alone would leave
+    rank 0 in step 3's all-reduce until its timeout, named."""
+    t0 = time.monotonic()
+    got = TM.spawn(C.sigterm_on_one_rank, 2, device="cpu",
+                   init_file=str(tmp_path / "init"),
+                   args=(str(tmp_path / "ckpt"), 2), timeout=60,
+                   coll_timeout=COLL_TIMEOUT * 10)
+    assert time.monotonic() - t0 < 30
+    assert [g["code"] for g in got] == [143, 143]
+    assert [g["steps"] for g in got] == [[0, 2], [0, 2]]
