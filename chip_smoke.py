@@ -35,13 +35,20 @@ Phases, each of which exits non-zero on failure:
    its operand's unit-value check); then the batched lanes at B = 32
    sources (vertex 0 and 31 drawn from the vertices with out-edges), each
    run while its operand from the scalar path is alive: ``msbfs`` (bit-packed lanes,
-   the ``segment_or`` kernel; every lane bit-equal to a scalar BFS),
+   one ``segment_or_rows`` launch on every dense level, ``segment_or`` on
+   the push levels; every lane bit-equal to a scalar BFS),
    ``run_batched(ppr_program, kernel_bb=unit operand)`` (B2 per lane)
    against ``ppr_batched`` (rtol / atol 1e-5, each lane's mass 1 within
    1e-3) and ``ppr_topk``, and ``sssp_batched`` on the (min,+) operand (B3
    per lane) against its plain path (bit-equal, equal stats, four lanes
-   bit-equal to a scalar SSSP); ``segment_or`` alone on the dense step's
-   stream, bit-equal to its plain version and timed beside its byte bound;
+   bit-equal to a scalar SSSP); ``segment_or_rows`` alone on the dense
+   step's CSR stream, bit-equal to its plain version and timed beside its
+   HBM-byte bound, the gather floor (a probe built under
+   ``build/gather_floor``: the sources read, the words gathered and ORed
+   per CTA, one word a CTA written) and the parent's design (the gather
+   ``msg[p_src]``, then ``segment_or``); ``segment_or`` alone on that
+   stream and on a shuffled copy, bit-equal to its plain version and timed
+   beside its byte bound;
    a vmap fallback warning on the valued lanes fails the run; then the
    local graph query service on the same graph while those results are
    alive (``[service]`` lines): ``GraphService(batch_budget=32,
@@ -377,6 +384,7 @@ SOURCE = {"spmv_bbcsr": "src/repro_torch/csrc/bbcsr.cu",
           "spmspv_bbcsr_select": "src/repro_torch/csrc/bbcsr.cu",
           "segment_sum": "src/repro_torch/csrc/segment_sum.cu",
           "segment_or": "src/repro_torch/csrc/segment_or.cu",
+          "segment_or_rows": "src/repro_torch/csrc/segment_or.cu",
           "segment_mode": "src/repro_torch/csrc/segment_mode.cu",
           "embedding_bag": "src/repro_torch/csrc/embedding_bag.cu",
           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
@@ -386,6 +394,10 @@ REPLACES = {"spmv_bbcsr": "src/repro/kernels/spmv_dma.py:206",
             "segment_sum": "src/repro/kernels/segment_sum.py:45",
             "segment_or": "src/repro/core/offload.py:154 (plain jnp, no "
                           "Pallas kernel)",
+            "segment_or_rows": "src/repro/core/offload.py:154 with "
+                               "presorted=True, as src/repro/core/"
+                               "engine.py:643 calls it (plain jnp, no "
+                               "Pallas kernel)",
             "segment_mode": "src/repro/core/offload.py:124 (plain jnp, no "
                             "Pallas kernel)",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:43",
@@ -1585,10 +1597,15 @@ def batched_ppr(g, bb_u, sources, path, path_launches):
     return top_v, top_i
 
 
-def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
-    """MS-BFS at B lanes (packed words, the segment_or kernel), every lane
-    against a scalar plain BFS; then segment_or alone on the dense step's
-    stream.  Returns segment_or's row of the kernels line and the levels."""
+def batched_msbfs(g, sources, lv_p, path, path_launches, err, args):
+    """MS-BFS at B lanes (packed words: segment_or_rows on the dense levels,
+    segment_or on the push levels), every lane against a scalar plain BFS;
+    then each entry alone on the dense step's stream, bit-equal to its
+    plain version and timed: segment_or_rows beside its byte bound, the
+    gather floor and the parent's design (the gather msg[p_src], then
+    segment_or), segment_or on that stream and on a shuffled copy.
+    Returns (segment_or's row, segment_or_rows' row) of the kernels line,
+    and the levels."""
     import torch
     from repro_torch.core import engine
     from repro_torch.core.algorithms import bfs, msbfs
@@ -1603,36 +1620,90 @@ def batched_msbfs(g, sources, lv_p, path, path_launches, err, args) -> dict:
         f"{int((lv >= 0).sum(1).min())} max {int((lv >= 0).sum(1).max())}")
     if bad or not torch.equal(lv[0], lv_p):
         fail(f"msbfs lanes {bad} differ from the scalar BFS")
-    if path_launches["msbfs"]["segment_or"] == 0:
-        fail("msbfs did not launch segment_or")
+    got_l = path_launches["msbfs"]
+    log(f"[check] msbfs launches: segment_or_rows {got_l['segment_or_rows']} "
+        f"on {stats['pulls']} dense levels, segment_or "
+        f"{got_l['segment_or']} on {stats['pushes']} push levels")
+    if stats["pulls"] == 0 or got_l["segment_or_rows"] != stats["pulls"]:
+        fail("msbfs did not launch segment_or_rows once on every dense "
+             "level")
 
-    # segment_or alone: the dense step's stream, half of the lane bits set
+    # each entry alone on the dense step's stream, half of the lane bits set
+    W = engine.lane_words(B)
+    offsets, src = engine._dst_csr(g)
     p_src, p_dst, _ = engine._dst_sorted(g)
     gen = torch.Generator(device="cuda").manual_seed(16)
-    words = torch.randint(-2**31, 2**31, (n, engine.lane_words(B)),
-                          dtype=torch.int32, device="cuda", generator=gen)
-    w_e = words[p_src]
-    m, W = w_e.shape
-    got = SO.segment_or_kernel_call(p_dst, w_e, n)
-    want = ref.segment_or_ref(p_dst, w_e, n)
+    words = torch.randint(-2**31, 2**31, (n, W), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    m = src.numel()
+    got = SO.segment_or_rows_kernel_call(offsets, src, words, n)
+    want = ref.segment_or_rows_ref(offsets, src, words, n)
     torch.cuda.synchronize()
     diff = int((got.long() - want.long()).abs().max())
-    log(f"[parity] segment_or ({m}, {W}) -> ({n}, {W}): bit-equal "
+    log(f"[parity] segment_or_rows ({m} edges, {n} rows, W {W}): bit-equal "
         f"{torch.equal(got, want)}, max |kernel - plain| {diff}")
     if not torch.equal(got, want):
+        fail("segment_or_rows: kernel disagrees with the plain version")
+    err["segment_or_rows"] = float(diff)
+
+    w_e = words[p_src]
+    got_g = SO.segment_or_kernel_call(p_dst, w_e, n)
+    want_g = ref.segment_or_ref(p_dst, w_e, n)
+    perm = torch.randperm(m, device="cuda", generator=gen)
+    d_sh, w_sh = p_dst[perm], w_e[perm]
+    got_sh = SO.segment_or_kernel_call(d_sh, w_sh, n)
+    torch.cuda.synchronize()
+    diff_g = int((got_g.long() - want_g.long()).abs().max())
+    log(f"[parity] segment_or ({m}, {W}) -> ({n}, {W}): bit-equal "
+        f"{torch.equal(got_g, want_g)}, max |kernel - plain| {diff_g}; "
+        f"shuffled stream bit-equal {torch.equal(got_sh, want_g)}; "
+        f"segment_or_rows' bits {torch.equal(got_g, want)}")
+    if not (torch.equal(got_g, want_g) and torch.equal(got_sh, want_g)
+            and torch.equal(got_g, want)):
         fail("segment_or: kernel disagrees with the plain version")
-    err["segment_or"] = float(diff)
-    row = dict(
+    err["segment_or"] = float(diff_g)
+
+    floor = gather_floor(src, words)
+    parent = cuda_ms(lambda: SO.segment_or_kernel_call(p_dst, words[p_src],
+                                                       n), args.reps)
+    gather_ms = cuda_ms(lambda: words[p_src], args.reps)
+    rows = dict(
+        ms=cuda_ms(lambda: SO.segment_or_rows_kernel_call(offsets, src,
+                                                          words, n),
+                   args.reps),
+        plain_ms=cuda_ms(lambda: ref.segment_or_rows_ref(offsets, src,
+                                                         words, n), 3, 1),
+        # int32 sources and offsets read once, out written once
+        bound_ms=least_ms(m * 4 + (n + 1) * 4 + n * 4 * W)[0],
+        bound_by="bytes", library_ms=None)
+    rows["cases"] = [dict(
+        shape=f"msbfs dense step, rmat({args.scale}, 16, seed=7), {B} lanes "
+              f"(W {W})",
+        gather_floor_ms=floor, parent_design_ms=parent,
+        parent_gather_ms=gather_ms,
+        parent_bytes=m * 8 + 2 * m * 4 * W + m * 4 + n * 4 * W)]
+    log(f"[time] segment_or_rows: kernel {rows['ms']!r} ms, bound "
+        f"{rows['bound_ms']!r} ms (HBM bytes m*4 + (n+1)*4 + n*4*W = "
+        f"{m * 4 + (n + 1) * 4 + n * 4 * W}), gather floor {floor!r} ms, "
+        f"plain {rows['plain_ms']!r} ms, parent's design (msg[p_src] then "
+        f"segment_or) {parent!r} ms of which the gather {gather_ms!r} ms; "
+        f"library none")
+    generic = dict(
         ms=cuda_ms(lambda: SO.segment_or_kernel_call(p_dst, w_e, n),
                    args.reps),
         plain_ms=cuda_ms(lambda: ref.segment_or_ref(p_dst, w_e, n), 3, 1),
         # ids and words read once, out written once
         bound_ms=least_ms(m * (4 + 4 * W) + n * 4 * W)[0],
         bound_by="bytes", library_ms=None)
-    log(f"[time] segment_or: kernel {row['ms']!r} ms, plain "
-        f"{row['plain_ms']!r} ms, bound {row['bound_ms']!r} ms, library "
-        f"none")
-    return row, lv
+    generic["cases"] = [dict(
+        shape=f"the dense step's stream shuffled ({m}, {W})",
+        ms=cuda_ms(lambda: SO.segment_or_kernel_call(d_sh, w_sh, n),
+                   args.reps))]
+    log(f"[time] segment_or: kernel {generic['ms']!r} ms on the sorted "
+        f"stream, {generic['cases'][0]['ms']!r} ms shuffled, plain "
+        f"{generic['plain_ms']!r} ms, bound {generic['bound_ms']!r} ms, "
+        f"library none")
+    return (generic, rows), lv
 
 
 def batched_sssp(g, bb_m, sources, delta, path, path_launches):
@@ -1936,6 +2007,96 @@ def fadd_chain_floor(chain: int, n: int = 1 << 26, *,
     return dict(cycles_per_add=cycles / n, ns_per_add=ns,
                 sm_ghz=cycles / (t_ms * 1e-3) / 1e9, chain=chain,
                 floor_ms=chain * ns / 1e6, dtype="f64" if f64 else "f32")
+
+
+GATHER_SRC = r"""
+#include <cuda_runtime.h>
+constexpr int kThreads = 256, kItems = 2048, kPer = kItems / kThreads;
+// Reads kItems sources a CTA (16-byte loads where aligned), gathers each
+// source's words, ORs everything and writes one word a CTA: the sources'
+// bytes and the gather's L2 sectors, and nothing of rows or offsets.
+__global__ void __launch_bounds__(kThreads)
+    gather_or(const int* __restrict__ src, const unsigned* __restrict__ msg,
+              unsigned* __restrict__ out, long long m, int w_per,
+              int t_rows, bool vec) {
+  const long long j0 = (long long)blockIdx.x * kItems;
+  int s[kPer];
+#pragma unroll
+  for (int it = 0; it < kPer / 4; ++it) {
+    const long long p = j0 + 4 * (threadIdx.x + it * kThreads);
+    if (vec && p + 4 <= m) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(src + p));
+      s[4 * it] = v.x; s[4 * it + 1] = v.y;
+      s[4 * it + 2] = v.z; s[4 * it + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        s[4 * it + u] = p + u < m ? __ldg(src + p + u) : -1;
+    }
+  }
+  unsigned acc = 0u;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (s[i] >= 0 && s[i] < t_rows)
+      for (int w = 0; w < w_per; ++w)
+        acc |= __ldg(msg + (long long)s[i] * w_per + w);
+  for (int d = 16; d; d >>= 1) acc |= __shfl_xor_sync(0xffffffffu, acc, d);
+  __shared__ unsigned part[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kThreads / 32; ++i) acc |= part[i];
+    out[blockIdx.x] = acc;
+  }
+}
+extern "C" int gather_floor(const int* src, const int* msg, int* out,
+                            long long m, int w_per, int t_rows,
+                            void* stream) {
+  const long long ctas = (m + kItems - 1) / kItems;
+  if (ctas == 0) return 0;
+  gather_or<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
+      src, reinterpret_cast<const unsigned*>(msg),
+      reinterpret_cast<unsigned*>(out), m, w_per, t_rows,
+      reinterpret_cast<unsigned long long>(src) % 16 == 0);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def gather_floor(src, msg, reps: int = 20) -> float:
+    """The floor the gather sets under segment_or_rows: ms of a probe that
+    reads ``src`` (m,) int32 and ORs the gathered rows of ``msg`` (t, W)
+    int32 per CTA of 2,048 sources, writing one word a CTA, timed by CUDA
+    events.  Built under ``build/gather_floor`` from ``GATHER_SRC``."""
+    import ctypes
+    import hashlib
+    import torch
+    from repro_torch.kernels import _build
+    out_dir = os.path.join(ROOT, "build", "gather_floor")
+    os.makedirs(out_dir, exist_ok=True)
+    tag = hashlib.sha256(GATHER_SRC.encode()).hexdigest()[:12]
+    cu = os.path.join(out_dir, f"gather-{tag}.cu")
+    lib = os.path.join(out_dir, f"gather-{tag}.so")
+    if not os.path.exists(lib):
+        with open(cu, "w") as fh:
+            fh.write(GATHER_SRC)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, cu],
+                       check=True, capture_output=True)
+    so = ctypes.CDLL(lib)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    so.gather_floor.argtypes = [P, P, P, L, I, I, P]
+    so.gather_floor.restype = ctypes.c_int
+    src = src.to(torch.int32).contiguous()
+    msg = msg.to(torch.int32).contiguous()
+    m = src.numel()
+    out = torch.empty(max(1, -(-m // 2048)), dtype=torch.int32,
+                      device=src.device)
+
+    def call():
+        _build.launch(so.gather_floor, src.device, src.data_ptr(),
+                      msg.data_ptr(), out.data_ptr(), m, msg.shape[1],
+                      msg.shape[0], what="gather_floor")
+    return cuda_ms(call, reps)
 
 
 def structured_phase(g, lv_p, d_p, cc_labels, delta, counted, err,
@@ -5486,8 +5647,10 @@ def main() -> int:
     for k, v in path_launches["service"].items():
         launches[k] += v
     log(f"[service] launches {path_launches['service']}")
-    if path_launches["service"]["segment_or"] == 0:
-        fail("the service's Reachability batch did not launch segment_or")
+    if path_launches["service"]["segment_or"] + \
+            path_launches["service"]["segment_or_rows"] == 0:
+        fail("the service's Reachability batch launched neither segment_or "
+             "nor segment_or_rows")
     dist_ref = {"sources": sources, "msbfs": lv_b.cpu().numpy(),
                 "sssp_batched": d_b[:DIST_BATCHED].cpu().numpy(),
                 "delta": np.float32(delta)}
@@ -5565,12 +5728,12 @@ def main() -> int:
     launches["segment_mode"] = sm_row.pop("launches")
     timed["segment_mode"] = sm_row
     for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select",
-              "segment_or"):
+              "segment_or", "segment_or_rows"):
         if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
     for k in ("spmv_bbcsr", "spmspv_bbcsr_add", "spmspv_bbcsr_select"):
         timed[k]["bound_by"] = "bytes"
-    timed["segment_or"] = so_row
+    timed["segment_or"], timed["segment_or_rows"] = so_row
 
     # the graph path's operands are gone; phase 6 needs only the edge ids
     seg = g.transpose().row_ids()

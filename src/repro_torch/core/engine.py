@@ -654,17 +654,44 @@ _DST_SORTED: dict = {}
 
 def _dst_sorted(csr: CSR):
     """(src int64, dst int32, order int64) of the edge stream sorted stably
-    by destination, on the CSR's device — the packed dense step's
-    presorted segment_or input: ``order`` maps it back to CSR positions
-    (edge values in that order are ``values[order]``), and each
-    destination's edges keep their CSR order.  Graph-only data, so the sort
-    is kept per CSR, by object identity."""
+    by destination, on the CSR's device (Louvain's pull stream; the packed
+    dense step reads its CSR form, :func:`_dst_csr`): ``order`` maps it
+    back to CSR positions (edge values in that order are
+    ``values[order]``), and each destination's edges keep their CSR order.
+    Graph-only data, so the sort is kept per CSR, by object identity."""
     key = id(csr)
     hit = _DST_SORTED.get(key)
     if hit is None:
         dst, order = torch.sort(csr.indices, stable=True)
         hit = _DST_SORTED[key] = (csr.index64()[0][order], dst, order)
         weakref.finalize(csr, _DST_SORTED.pop, key, None)
+    return hit
+
+
+# CSR id -> (offsets, src) of the same stream in CSR form by destination
+_DST_CSR: dict = {}
+
+
+def _dst_csr(csr: CSR):
+    """(offsets int32 (n + 1,), src int32 (m,)) of the edge stream sorted
+    stably by destination, on the CSR's device — the packed dense step's
+    ``offload.segment_or_rows`` operand: destination v's edges are
+    ``src[offsets[v]:offsets[v + 1]]``, in CSR order.  Graph-only data,
+    kept per CSR by object identity as :func:`_dst_sorted` keeps its own;
+    raises where n or m does not fit int32."""
+    key = id(csr)
+    hit = _DST_CSR.get(key)
+    if hit is None:
+        n, m = csr.n_rows, csr.nnz
+        if max(n + 1, m) > 2 ** 31 - 1:
+            raise ValueError(f"the dense OR step needs n + 1 and m within "
+                             f"int32, got n={n}, m={m}")
+        dst, order = torch.sort(csr.indices, stable=True)
+        offsets = torch.searchsorted(
+            dst, torch.arange(n + 1, dtype=dst.dtype, device=dst.device),
+            out_int32=True)
+        hit = _DST_CSR[key] = (offsets, csr.row_ids()[order])
+        weakref.finalize(csr, _DST_CSR.pop, key, None)
     return hit
 
 
@@ -717,10 +744,10 @@ def _local_core(csr: CSR, prog: VertexProgram, *, mode: str, C: int,
                                 edges, n, prog, it_key)
 
     elif lanes == "packed":
-        p_src, p_dst, _ = _dst_sorted(csr)
+        p_off, p_src = _dst_csr(csr)
 
         def dense(msg, frontier, it_key):
-            return offload.segment_or(p_dst, msg[p_src], n, presorted=True)
+            return offload.segment_or_rows(p_off, p_src, msg, n)
 
         def sparse(msg, frontier, alive, edges, it_key):
             (seg, ecols, _), ids = push_stream(frontier, alive, edges)
@@ -850,7 +877,9 @@ def run_batched(csr: CSR, prog: VertexProgram, state0: Any,
 
     * ``combine='or'`` — **bit-packed boolean lanes**: frontier and messages
       are (n, W) int32 words, W = ceil(B/32); the destination combine is a
-      bitwise OR (:func:`offload.segment_or`).  The program is written
+      bitwise OR (:func:`offload.segment_or_rows` on a dense level, the
+      gather fused in; :func:`offload.segment_or` on a push level).  The
+      program is written
       against packed words (see ``bfs.msbfs_program``).
     * any other combine — **valued lanes**: frontier and state leaves are
       (B, n) (a per-lane scalar is (B,)), and ``msg_fn`` / ``update_fn`` are

@@ -37,6 +37,7 @@ import dataclasses
 import torch
 
 __all__ = ["LABEL_PAD", "dma_gather", "dma_scatter_add", "segment_or",
+           "segment_or_rows",
            "segment_argmax", "run_starts", "segment_weighted_mode",
            "compact_labels", "run_sum", "segment_sum_ordered", "tree_sum",
            "axis_size", "my_shard", "Route", "dgas_requests", "send_along",
@@ -89,6 +90,20 @@ def segment_or(idx: torch.Tensor, words: torch.Tensor, n: int, *,
     equal ids in a warp whatever the order."""
     from ..kernels import segment_or as _so
     return _so.segment_or_kernel_call(idx, words, n)
+
+
+def segment_or_rows(offsets: torch.Tensor, src: torch.Tensor,
+                    msg: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`segment_or` of the gathered words ``msg[src]`` over a stream
+    sorted by destination, given in CSR form: out[v] = OR of msg's rows
+    src[j] for j in [offsets[v], offsets[v + 1]) (MS-BFS's dense pull; the
+    reference's ``segment_or(p_dst, take(msg, p_src), n, presorted=True)``).
+    Sources outside [0, len(msg)) are dropped.  CPU tensors take the plain
+    version, CUDA tensors the ``segment_or_rows`` kernel of
+    ``csrc/segment_or.cu``, which gathers as it reduces: no (m, W) array of
+    words is written."""
+    from ..kernels import segment_or as _so
+    return _so.segment_or_rows_kernel_call(offsets, src, msg, n)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from ..core.graph import BBCSR
 
 __all__ = ["spmv_bbcsr_ref", "spmspv_bbcsr_ref", "combine_identity",
            "segment_sum_ref", "segment_sum_csr_ref", "segment_sum_pieces_ref",
-           "segment_or_ref", "run_sum_ref",
+           "segment_or_ref", "segment_or_rows_ref", "run_sum_ref",
            "segment_mode_ref", "embedding_bag_ref",
            "embedding_bag_pieces_ref",
            "attention_mask",
@@ -193,6 +193,26 @@ def segment_or_ref(idx: torch.Tensor, words: torch.Tensor,
         # bit 31 is the sign bit: -2^31, not 1 << 31, stays in int32
         out |= hit * (1 << s if s < 31 else -(1 << 31))
     return out
+
+
+def segment_or_rows_ref(offsets: torch.Tensor, src: torch.Tensor,
+                        msg: torch.Tensor, n: int) -> torch.Tensor:
+    """out (n, W) int32: :func:`segment_or_ref` of the words msg[src] by
+    the destinations that offsets (n + 1,) expand to: item j goes to the v
+    with offsets[v] <= j < offsets[v + 1], items outside [offsets[0],
+    offsets[n]) and sources outside [0, len(msg)) are dropped."""
+    off = offsets.long()
+    m, t_rows = src.shape[0], msg.shape[0]
+    dst = torch.full((m,), -1, dtype=torch.int64, device=src.device)
+    lo, hi = int(off[0]), int(off[-1])
+    dst[lo:hi] = torch.repeat_interleave(
+        torch.arange(n, device=src.device), off.diff(), output_size=hi - lo)
+    s = src.long()
+    keep = (s >= 0) & (s < t_rows)
+    dst = torch.where(keep, dst, -1)
+    words = msg.to(torch.int32)[torch.where(keep, s, 0)] if t_rows else \
+        torch.zeros((m, msg.shape[1]), dtype=torch.int32, device=src.device)
+    return segment_or_ref(dst, words, n)
 
 
 def run_sum_ref(idx: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:

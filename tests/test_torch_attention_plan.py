@@ -20,6 +20,7 @@ from repro.kernels import ops as rops
 from repro_torch import tune
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 N_SM = 132   # an H100's SMs; the plan takes the count as an argument
 # the tiles ops.flash_attention resolves for a decode step (Sq = 1) on the

@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as rops
 from repro_torch.kernels import embedding_bag as EB
 from repro_torch.kernels import ref
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 STREAMS = [  # n, n_bags, chunk, skewed
     (300, 40, 16, False), (300, 40, 7, False), (1000, 60, EB.CHUNK, False),

@@ -31,6 +31,7 @@ from repro_torch.core import offload as TO
 from repro_torch.kernels import _build
 from repro_torch.kernels import segment_or as TSO
 from repro_torch.obs import decode_level_trace as t_decode
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = ("push", "pull", "auto")
 GEO = dict(block_rows=32, block_cols=32, tile_nnz=64)
@@ -129,16 +130,24 @@ def test_msbfs_single_lane_matches_reference():
                                   np.asarray(RA.msbfs(g, np.array([5]))))
 
 
+@pytest.fixture(scope="module")
+def min_operands():
+    """The rmat graph's (min,+) pull operand in both packages, built once
+    for the module's kernel cases."""
+    g, t = T["rmat"]
+    return (RE.build_pull_operand(g, combine="min", **GEO),
+            TE.build_pull_operand(t, combine="min", **GEO))
+
+
 @pytest.mark.parametrize("mode,kernel", [(m, False) for m in MODES]
                          + [("push", True), ("pull", True)])
-def test_sssp_batched_matches_reference(mode, kernel):
+def test_sssp_batched_matches_reference(mode, kernel, min_operands):
     """Bit-equal distances, stats and trace; the kernel operand takes the
     (min,+) SpMSpV per lane on the union frontier's tiles (push) or on
     every tile (pull)."""
     g, t = T["rmat"]
     src = SOURCES[:8]
-    rbb = RE.build_pull_operand(g, combine="min", **GEO) if kernel else None
-    tbb = TE.build_pull_operand(t, combine="min", **GEO) if kernel else None
+    rbb, tbb = min_operands if kernel else (None, None)
     rd, rstats = RA.sssp_batched(g, src, delta=DELTA, mode=mode,
                                  kernel_bb=rbb, return_stats=True,
                                  trace=True, trace_len=8)
@@ -152,15 +161,23 @@ def test_sssp_batched_matches_reference(mode, kernel):
                                           mode=mode))
 
 
+@pytest.fixture(scope="module")
+def ref_ppr_batched():
+    """The reference's live ppr_batched on the uniform graph from the
+    first 6 sources, with its stats and trace, run once for the module."""
+    g, _ = T["uniform"]
+    return RA.ppr_batched(g, SOURCES[:6], iters=12, return_stats=True,
+                          trace=True)
+
+
 @pytest.mark.parametrize("kernel", [False, True])
-def test_ppr_batched_matches_reference(kernel):
+def test_ppr_batched_matches_reference(kernel, ref_ppr_batched):
     """ppr_batched, and run_batched on ppr_program over the unit operand
     (one B2 launch per lane per level), against the reference's live
     ppr_batched."""
     g, t = T["uniform"]
     n, src = g.n_rows, SOURCES[:6]
-    want, rstats = RA.ppr_batched(g, src, iters=12, return_stats=True,
-                                  trace=True)
+    want, rstats = ref_ppr_batched
     if kernel:
         r = torch.zeros((len(src), n))
         r[torch.arange(len(src)), torch.from_numpy(src).long()] = 1.0

@@ -29,6 +29,7 @@ from repro_torch.distributed.fault_tolerance import (FTConfig,
                                                      run_training)
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _tree():

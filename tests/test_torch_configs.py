@@ -32,6 +32,7 @@ from repro_torch.launch import mesh as TM
 from repro_torch.models import gnn as TG
 from repro_torch.models import recsys as TRS
 from repro_torch.models import transformer as T
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 GNN = ("equiformer-v2", "dimenet", "gatedgcn", "gin-tu")
 PORTED = list(RC.ARCH_NAMES)

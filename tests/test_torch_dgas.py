@@ -29,6 +29,7 @@ from repro_torch.core import offload as TO
 from repro_torch.core.algorithms import distgraph as TDG
 from repro_torch.core.graph import csr_from_numpy
 from repro_torch.launch import mesh as TM
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 MESH = jax.make_mesh((1,), ("x",))
 SPEC = P("x")

@@ -46,6 +46,7 @@ from repro_torch.core.graph import GraphHandle, csr_from_numpy, rmat
 from repro_torch.launch import mesh as TM
 
 import _torch_dist_cases as C
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 S = 4
 HERE = os.path.dirname(os.path.abspath(__file__))

@@ -32,6 +32,7 @@ from repro_torch.core.algorithms import unshard_vertex_array
 from repro_torch.launch import mesh as TM
 
 import _torch_dist_cases as C
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 S = 4
 HERE = os.path.dirname(os.path.abspath(__file__))

@@ -28,6 +28,7 @@ from repro_torch.kernels import _build, cost, ops, ref
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as TF
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 LM_ARCHS = ["mistral-large-123b", "qwen3-14b", "minicpm3-4b",
             "llama4-maverick-400b-a17b", "mixtral-8x7b"]

@@ -28,6 +28,7 @@ from repro.core.algorithms.pagerank import ppr_program as r_ppr_program
 from repro.obs import decode_level_trace as r_decode
 from repro_torch.obs import decode_level_trace as t_decode
 from repro_torch.core.algorithms.bfs import _levels_from_dist as t_levels
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "golden",
                             "core_grid.npz"))
@@ -59,15 +60,45 @@ def _onehot(n, src, dtype=np.int32):
     return a
 
 
-def _run_both(g, t, rprog, tprog, state0, frontier0, *, mode, kernel=None,
+@pytest.fixture(scope="module")
+def operands():
+    """G's pull operand in both packages for a kernel spec (a dict of
+    ``build_pull_operand``'s options, or None for no operand), built once
+    per module: it is graph-only data, and several tests run on each."""
+    built = {}
+
+    def get(kernel):
+        if kernel is None:
+            return None, None
+        key = tuple(sorted(kernel.items()))
+        if key not in built:
+            built[key] = (RE.build_pull_operand(G, **kernel, **GEO),
+                          TE.build_pull_operand(TG_G, **kernel, **GEO))
+        return built[key]
+    return get
+
+
+@pytest.fixture(scope="module")
+def ref_sssp():
+    """The reference's ``sssp`` from vertex 0 on G in a mode, with its
+    stats, run once per mode for the module."""
+    runs = {}
+
+    def get(mode):
+        if mode not in runs:
+            runs[mode] = RA.sssp(G, 0, delta=DELTA, mode=mode,
+                                 return_stats=True)
+        return runs[mode]
+    return get
+
+
+def _run_both(g, t, rprog, tprog, state0, frontier0, *, mode, bbs=(None, None),
               max_iters=None):
-    """One program through both engines from the same numpy state."""
+    """One program through both engines from the same numpy state, on the
+    pull operands ``bbs`` (the reference's, the port's) or none."""
     n = g.n_rows
     max_iters = max_iters or 4 * n
-    rbb = tbb = None
-    if kernel is not None:
-        rbb = RE.build_pull_operand(g, **kernel, **GEO)
-        tbb = TE.build_pull_operand(t, **kernel, **GEO)
+    rbb, tbb = bbs
     rs, rstats = RE.run(g, rprog, {k: jnp.asarray(v) for k, v in
                                    state0.items()}, jnp.asarray(frontier0),
                         max_iters=max_iters, mode=mode, kernel_bb=rbb,
@@ -83,23 +114,22 @@ def _run_both(g, t, rprog, tprog, state0, frontier0, *, mode, kernel=None,
 
 @pytest.mark.parametrize("kernel", [False, True])
 @pytest.mark.parametrize("mode", MODES)
-def test_bfs_matches_reference(mode, kernel):
+def test_bfs_matches_reference(mode, kernel, operands):
     n = G.n_rows
     level0 = np.full(n, -1, np.int32)
     level0[0] = 0
+    bbs = operands(dict(unit_values=True) if kernel else None)
     r, t = _run_both(G, TG_G, RA.bfs_program(), TA.bfs_program(),
-                     {"level": level0}, _onehot(n, 0), mode=mode,
-                     kernel=dict(unit_values=True) if kernel else None)
+                     {"level": level0}, _onehot(n, 0), mode=mode, bbs=bbs)
     np.testing.assert_array_equal(t["level"], r["level"])
-    bb = TE.build_pull_operand(TG_G, unit_values=True, **GEO) \
-        if kernel else None
+    bb = bbs[1]
     np.testing.assert_array_equal(TA.bfs(TG_G, 0, mode=mode,
                                          kernel_bb=bb).numpy(), r["level"])
 
 
 @pytest.mark.parametrize("kernel", [False, True])
 @pytest.mark.parametrize("mode", MODES)
-def test_sssp_matches_reference(mode, kernel):
+def test_sssp_matches_reference(mode, kernel, operands, ref_sssp):
     n = G.n_rows
     dist0 = np.full(n, np.inf, np.float32)
     dist0[0] = 0.0
@@ -107,10 +137,10 @@ def test_sssp_matches_reference(mode, kernel):
               "bound": np.float32(DELTA)}
     r, t = _run_both(G, TG_G, RA.sssp_program(DELTA), TA.sssp_program(DELTA),
                      state0, _onehot(n, 0), mode=mode,
-                     kernel=dict(combine="min") if kernel else None)
+                     bbs=operands(dict(combine="min") if kernel else None))
     assert t["dist"].tobytes() == r["dist"].tobytes()
     d, stats = TA.sssp(TG_G, 0, delta=DELTA, mode=mode, return_stats=True)
-    rd, rstats = RA.sssp(G, 0, delta=DELTA, mode=mode, return_stats=True)
+    rd, rstats = ref_sssp(mode)
     assert d.numpy().tobytes() == np.asarray(rd).tobytes()
     assert stats == _stats(rstats)
 
@@ -135,7 +165,7 @@ def test_cc_and_level_bfs_match_reference(mode):
 
 @pytest.mark.parametrize("kernel", [False, True])
 @pytest.mark.parametrize("mode", MODES)
-def test_pagerank_program_matches_reference(mode, kernel):
+def test_pagerank_program_matches_reference(mode, kernel, operands):
     """PageRank's update is ppr_program's with a uniform restart vector;
     driven through both engines in every mode, on the unit kernel operand
     or not."""
@@ -144,7 +174,7 @@ def test_pagerank_program_matches_reference(mode, kernel):
     r, t = _run_both(G, TG_G, r_ppr_program(G, 0.85),
                      TA.ppr_program(TG_G, 0.85), {"x": r0, "r": r0},
                      np.ones(n, np.int32), mode=mode, max_iters=20,
-                     kernel=dict(unit_values=True) if kernel else None)
+                     bbs=operands(dict(unit_values=True) if kernel else None))
     np.testing.assert_allclose(t["x"], r["x"], rtol=RTOL, atol=ATOL)
 
 

@@ -25,6 +25,7 @@ import graph_analytics_torch  # noqa: E402
 import quickstart_torch  # noqa: E402
 import serve_lm_torch  # noqa: E402
 import train_lm_torch  # noqa: E402
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = ["--device", "cpu"]
 

@@ -20,6 +20,7 @@ from repro.core.algorithms import louvain as RL
 from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
 from repro_torch.core.algorithms import louvain as TL
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = ("push", "pull", "auto")
 

@@ -34,6 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.distributed.sharding import make_rules
 from repro_torch.models import gnn as G
 from repro_torch.optim import adamw
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gin-tu", "gatedgcn", "dimenet", "equiformer-v2"]
 # chunks that leave a ragged last chunk: the padded tails must drop out

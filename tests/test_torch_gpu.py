@@ -779,6 +779,64 @@ def test_segment_or_kernel_matches_plain(cuda, case):
         assert bool((got[:64] == -1).all()) and not bool(got[64:].any())
 
 
+def _or_rows_stream(case, gen):
+    """(offsets, src, msg, n) on the card for segment_or_rows: RMAT-12's
+    dense pull operand at one and two lane words, a 3 M-edge hub row beside
+    short rows, leading and trailing empty rows with items outside the rows
+    and out-of-range sources, and no items."""
+    dev = torch.device("cuda")
+    if case.startswith("rmat12"):
+        g = rmat(12, 16, seed=5)
+        offsets, src = engine._dst_csr(g)
+        n = t_rows = g.n_rows
+        W = 2 if case.endswith("w2") else 1
+    else:
+        n, t_rows, W = 5000, 6000, 1
+        deg = torch.randint(0, 5, (n,), device=dev, generator=gen)
+        pre = post = 0
+        if case == "hub3m":
+            deg[1234] = 3_000_000
+        elif case == "empty_rows":
+            deg[:700] = 0
+            deg[-900:] = 0
+            pre, post, W = 37, 11, 2
+        else:                                  # m0
+            deg.zero_()
+        offsets = torch.cat([deg.new_zeros(1), deg.cumsum(0)]).to(
+            torch.int32) + pre
+        m = int(offsets[-1]) + post
+        src = torch.randint(-3, t_rows + 3, (m,), device=dev, generator=gen,
+                            dtype=torch.int32)
+    msg = torch.randint(-2**31, 2**31, (t_rows, W), device=dev,
+                        generator=gen, dtype=torch.int32)
+    msg[::9] = -1                              # every bit, the sign bit too
+    return offsets, src, msg, n
+
+
+@pytest.mark.parametrize("case", ["rmat12_w1", "rmat12_w2", "hub3m",
+                                  "empty_rows", "m0"])
+def test_segment_or_rows_kernel_matches_plain(cuda, case):
+    """Bit-equal to the plain version on each stream, one launch a call
+    with no host synchronisation inside, the same bits from a second
+    call."""
+    from repro_torch.kernels import segment_or as SO
+    offsets, src, msg, n = _or_rows_stream(case, _gen(22))
+    torch.cuda.synchronize()
+    before = dict(SO.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = SO.segment_or_rows_kernel_call(offsets, src, msg, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert SO.LAUNCHES == dict(before, segment_or_rows=before[
+        "segment_or_rows"] + 1)
+    assert got.dtype == torch.int32 and got.shape == (n, msg.shape[1])
+    assert torch.equal(got, ref.segment_or_rows_ref(offsets, src, msg, n))
+    assert torch.equal(got, SO.segment_or_rows_kernel_call(offsets, src, msg,
+                                                           n))
+
+
 def test_batched_lanes_match_cpu(cuda):
     """msbfs (packed lanes, segment_or), sssp_batched (plain and B3 per
     lane) and batched PPR (B2 per lane) on the card against the same
@@ -792,12 +850,16 @@ def test_batched_lanes_match_cpu(cuda):
                        g.values.cpu().numpy(), g.n_rows, g.n_cols,
                        device="cpu")
     src = list(range(0, 64, 2)) + [0]          # 33 lanes, one duplicate
-    before = SO.LAUNCHES["segment_or"]
+    before = dict(SO.LAUNCHES)
+    pulls = 0
     for mode in ("push", "pull", "auto"):
         lv, st = msbfs(g, src, mode=mode, return_stats=True)
         lv_c, st_c = msbfs(c, src, mode=mode, return_stats=True)
         assert torch.equal(lv.cpu(), lv_c) and st == st_c
-    assert SO.LAUNCHES["segment_or"] > before
+        pulls += st["pulls"]
+    assert SO.LAUNCHES["segment_or"] > before["segment_or"]
+    # one segment_or_rows launch a dense level
+    assert SO.LAUNCHES["segment_or_rows"] == before["segment_or_rows"] + pulls
     delta = 0.25
     bb_m = engine.build_pull_operand(g, combine="min")
     before = K.LAUNCHES["spmspv_bbcsr_select"]

@@ -20,6 +20,7 @@ from repro.tune.space import DEFAULTS as REF_DEFAULTS
 from repro_torch import tune as TT
 from repro_torch.core import engine as TE
 from repro_torch.core import graph as TG
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BB_FIELDS = ("rows_local", "cols_local", "vals", "tile_rb", "tile_cb",

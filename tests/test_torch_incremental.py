@@ -19,6 +19,7 @@ from repro.core import graph as RG
 from repro_torch.core import algorithms as TA
 from repro_torch.core import graph as TG
 from repro_torch.obs import get_registry
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "streaming.npz")
 KINDS = ("bfs", "cc", "sssp")

@@ -51,6 +51,7 @@ from repro_torch.models import transformer as T
 
 import _torch_mesh_cases as MC
 import _torch_mesh_lm_cases as C
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LOSS_TOL, GRAD_TOL, LOGIT_TOL = 1e-5, 1e-4, 1e-5

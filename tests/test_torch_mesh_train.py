@@ -58,6 +58,7 @@ from repro_torch.models import recsys as TR
 from repro_torch.optim import adamw, compression
 
 import _torch_mesh_cases as C
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 # the reference compiled with LLVM's cheaper passes: it runs once, beside

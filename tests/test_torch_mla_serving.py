@@ -21,6 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ref
 from repro_torch.launch import dryrun as D
 from repro_torch.models import transformer as T
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5            # tests/test_torch_models.py's
 PLAIN_RTOL = 1e-5                  # the online route vs the plain route

@@ -34,6 +34,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as TSERVE
 from repro_torch.models import recsys as TRS
 from repro_torch.models import transformer as T
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 LM_ARCHS = ["qwen3-14b", "minicpm3-4b", "mixtral-8x7b", "mistral-large-123b",
             "llama4-maverick-400b-a17b"]

@@ -35,6 +35,7 @@ from repro_torch.obs import metrics as TM
 from repro_torch.obs import spans as TSP
 from repro_torch.obs import trace as TTRACE
 from repro_torch.obs import Observability as TObs
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PCTS = (0, 0.1, 1, 10, 25, 50, 75, 90, 95, 99, 99.9, 100)

@@ -27,6 +27,7 @@ from repro_torch.core.graph import rmat, to_bbcsr
 from repro_torch.kernels import segment_mode as TSM
 from repro_torch.kernels import segment_or as TSO
 from repro_torch.kernels import segment_sum as TSS
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -12,6 +12,7 @@ import torch
 
 from repro.optim import adamw as RA
 from repro_torch.optim import adamw as TA
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-6
 

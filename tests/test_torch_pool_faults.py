@@ -22,6 +22,7 @@ import torch.distributed as dist
 from repro_torch.launch import mesh as TM
 
 import _torch_dist_cases as C
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 COLL_TIMEOUT = 1.0                 # seconds a collective waits for a peer
 

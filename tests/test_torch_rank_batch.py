@@ -28,6 +28,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import train as TT
 from repro_torch.launch.mesh import make_dry_mesh
 from repro_torch.models import gnn as G
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gin-tu", "gatedgcn", "dimenet", "equiformer-v2"]
 GRID = ((2, 2), ("data", "model"))

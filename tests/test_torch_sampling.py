@@ -20,6 +20,7 @@ from repro.core.algorithms import sampling as RS
 from repro_torch.core import algorithms as TA
 from repro_torch.core import engine as TE
 from repro_torch.core import graph as TG
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 G = TG.csr_from_numpy(*(lambda g: (np.asarray(g.indptr),
                                    np.asarray(g.indices),

@@ -14,6 +14,7 @@ import torch
 from repro.core import graph as RG
 from repro_torch.core import graph as TG
 from repro_torch.kernels import spmv_dma as TK
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 BB_FIELDS = ("rows_local", "cols_local", "vals", "tile_rb", "tile_cb",
              "tile_init", "tile_cnt")

@@ -28,6 +28,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import segment_mode as SM
 
 import _segment_mode_shapes as S
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 RUNS = S.run_sum_streams(SM.TILE, SM.LONG_RUN)
 MODES = S.mode_streams(SM.TILE, SM.LONG_RUN)

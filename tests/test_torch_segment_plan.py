@@ -21,6 +21,7 @@ from repro.models import gnn as RGNN
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_sum as SS
 from repro_torch.models import gnn as G
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 KUNROLL = 8          # csrc/segment_sum.cu kUnroll
 

@@ -43,6 +43,7 @@ from repro_torch.core import graph as TG
 from repro_torch.core import service as TS
 from repro_torch.obs import MetricsRegistry as TMetrics
 from repro_torch.obs import Observability as TObs
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 # the module (the package's ``resolve`` is the function)
 TR = importlib.import_module("repro_torch.tune.resolve")

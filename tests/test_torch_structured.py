@@ -31,6 +31,7 @@ from repro_torch.core import engine as TE
 from repro_torch.core import graph as TG
 from repro_torch.core import offload as TO
 from repro_torch.core.algorithms import louvain as TL
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = ("push", "pull", "auto")
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "golden",

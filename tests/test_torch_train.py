@@ -41,6 +41,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import gnn as G
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 LM_GRAD_ARCHS = ["qwen3-14b", "minicpm3-4b", "mixtral-8x7b"]
 LM_ARCHS = LM_GRAD_ARCHS + ["mistral-large-123b", "llama4-maverick-400b-a17b"]

@@ -37,6 +37,7 @@ from repro_torch.obs import get_registry
 from repro_torch.tune import __main__ as TCLI
 from repro_torch.tune import space as TSP
 from repro_torch.tune import sweep as TS
+from _one_torch_thread import one_torch_thread  # noqa: F401 (autouse)
 
 # the module (the package's ``resolve`` is the function)
 TR = importlib.import_module("repro_torch.tune.resolve")
